@@ -7,9 +7,15 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   1. device and build: the card, then the kernels built from ops/csrc/;
   2. kernels vs plain: each CUDA kernel against its plain PyTorch version
      at the main path's shapes (1024 requests x 256 and x 1024 endpoints,
-     cold and warm duals), with CUDA-event times (median of 5 runs of 20
-     back-to-back calls, after 5 warm-up calls; inputs warm in L2 as the
-     cycle leaves them);
+     cold and warm duals) and at edge shapes (Sinkhorn N=1, 7, 8 and
+     1024x64; blend-top-k M=40, 37, 2048 and [3, 9, 64]), with CUDA-event
+     times at the main shapes (median of 5 runs of 20 back-to-back calls,
+     after 5 warm-up calls; inputs warm in L2 as the cycle leaves them),
+     and each kernel's device time (`device_ms`: the same calls queued
+     behind a spin kernel, so the host's launch path is hidden);
+     the Sinkhorn kernel must repeat bitwise, and the PyTorch dual-form
+     solve the main path runs without use_pallas_sinkhorn is timed on its
+     own line as `unflagged_ms`;
   3. the slice: Scheduler(tuned profile + use_pallas_sinkhorn) on the card
      over 5 carried waves of the north-star workload (1024 requests x 256
      endpoints, 16 shared system prompts, LoRA ids -1..11), with complete()
@@ -71,14 +77,36 @@ def cuda_ms(fn, reps: int = 20, trials: int = 5, warmup: int = 5) -> float:
     return statistics.median(per_call)
 
 
+def device_ms(fn, reps: int = 20, trials: int = 5) -> float:
+    """Device time of one call of `fn`: cuda_ms's event pair, queued behind
+    a spin kernel (~5 ms) that outlasts the host's launch path for all
+    `reps` calls, so the events time the card's work back to back and not
+    the host's; the median of `trials` such runs, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(trials):
+        torch.cuda._sleep(10_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / reps)
+    return statistics.median(per_call)
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sinkhorn_inputs(n, m, seed, dev):
-    """A masked Gibbs kernel, caps from live-looking endpoints, warm duals."""
+def sinkhorn_inputs(n, m, seed, dev, zero_row=False):
+    """A masked Gibbs kernel, caps from live-looking endpoints, warm duals;
+    `zero_row` empties row min(3, n - 1) (a request with no candidates)."""
     from gie_tpu_torch.sched.sinkhorn import capacities
     from gie_tpu_torch.utils.testing import make_endpoints
 
@@ -92,78 +120,131 @@ def sinkhorn_inputs(n, m, seed, dev):
     k = np.where(rng.uniform(size=(n, m)) < 0.8,
                  np.exp((rng.uniform(size=(n, m)) - 1.0) / 0.02), 0.0)
     k[:, live:] = 0.0
+    if zero_row:
+        k[min(3, n - 1)] = 0.0
     k = torch.from_numpy(k.astype(np.float32)).to(dev)
     warm = torch.from_numpy(rng.uniform(0.05, 1.0, m).astype(np.float32)).to(dev)
     return k, cap, warm
 
 
 def topk_inputs(s, n, m, seed, dev):
+    """Uniform scorer columns with a row of exact ties (4), a fully masked
+    row (5) and a row with fewer candidates than k (6)."""
     rng = np.random.default_rng(seed)
-    stacked = torch.from_numpy(
-        rng.uniform(size=(s, n, m)).astype(np.float32)).to(dev)
+    stacked = rng.uniform(size=(s, n, m)).astype(np.float32)
+    mask = rng.uniform(size=(n, m)) < 0.7
+    if n > 6:
+        stacked[:, 4, :] = 0.5
+        mask[5] = False
+        mask[6] = False
+        mask[6, [3, m - 1]] = True
     wvec = torch.tensor([2.0, 1.0, 1.5, 4.0, 8.0, 1.0][:s], device=dev)
-    mask = torch.from_numpy(rng.uniform(size=(n, m)) < 0.7).to(dev)
-    return stacked, wvec, mask
+    return (torch.from_numpy(stacked).to(dev), wvec,
+            torch.from_numpy(mask).to(dev))
+
+
+def check_sinkhorn(n, m, dev) -> float:
+    """The Sinkhorn kernel against its plain version at [n, m], cold and
+    warm (edge shapes of more than 4 rows with a zero row); two runs must
+    be bitwise identical. -> max abs error."""
+    from gie_tpu_torch.ops.fused_sinkhorn import (
+        fused_sinkhorn_plan, fused_sinkhorn_plan_reference)
+
+    edge = (n, m) not in ((N, M), (N, 1024))
+    k, cap, warm = sinkhorn_inputs(n, m, seed=n + m, dev=dev,
+                                   zero_row=edge and n > 4)
+    errs = []
+    for start, v_init in (("cold", torch.ones_like(warm)), ("warm", warm)):
+        plan, v = fused_sinkhorn_plan(k, cap, v_init)
+        again, v_again = fused_sinkhorn_plan(k, cap, v_init)
+        plan_ref, v_ref = fused_sinkhorn_plan_reference(k, cap, v_init)
+        torch.cuda.synchronize()
+        check(torch.equal(plan, again) and torch.equal(v, v_again),
+              f"fused_sinkhorn_plan {n}x{m} {start}: two runs differ")
+        check(bool(torch.isfinite(plan).all()), "sinkhorn plan not finite")
+        err = max(float((plan - plan_ref).abs().max()),
+                  float((v - v_ref).abs().max()))
+        check(err <= 1e-5, f"fused_sinkhorn_plan {n}x{m} {start}: "
+                           f"max abs err {err} > 1e-5")
+        errs.append(err)
+    return max(errs)
+
+
+def check_topk(s, n, m, dev) -> float:
+    """The blend-top-k kernel against its plain version: indices equal,
+    values within 1e-5. -> max abs error."""
+    from gie_tpu_torch.ops.fused_topk import (
+        fused_blend_topk, fused_blend_topk_reference)
+
+    stacked, wvec, mask = topk_inputs(s, n, m, seed=m, dev=dev)
+    vals, idx = fused_blend_topk(stacked, wvec, mask, k=4)
+    v_ref, i_ref = fused_blend_topk_reference(stacked, wvec, mask, k=4)
+    torch.cuda.synchronize()
+    check(torch.equal(idx, i_ref), f"fused_blend_topk {[s, n, m]}: indices "
+                                   "differ from the plain version")
+    err = float((vals - v_ref).abs().max())
+    check(err <= 1e-5, f"fused_blend_topk {[s, n, m]}: max abs err {err}")
+    return err
 
 
 def phase_kernels(dev) -> dict:
     """Each kernel vs its plain version; returns the main-shape records."""
     from gie_tpu_torch.ops.fused_sinkhorn import (
-        fused_sinkhorn_plan, fused_sinkhorn_plan_reference)
+        fused_sinkhorn_plan, fused_sinkhorn_plan_reference, layout)
     from gie_tpu_torch.ops.fused_topk import (
         fused_blend_topk, fused_blend_topk_reference)
     from gie_tpu_torch.sched.constants import NEG_SCORE
+    from gie_tpu_torch.sched.sinkhorn import _solve_plan
+
+    for n, m in ((1, 64), (7, 64), (8, 512), (N, 64)):
+        emit({"phase": "kernel-edge", "name": "fused_sinkhorn_plan",
+              "shape": [n, m], "max_abs_err": check_sinkhorn(n, m, dev)})
+    for s, n, m in ((3, 9, 64), (6, N, 40), (4, 64, 37), (6, N, 2048)):
+        emit({"phase": "kernel-edge", "name": "fused_blend_topk",
+              "shape": [s, n, m], "max_abs_err": check_topk(s, n, m, dev)})
 
     records = {}
     for m in (M, 1024):
-        k, cap, warm = sinkhorn_inputs(N, m, seed=m, dev=dev)
-        ones = torch.ones((m,), dtype=torch.float32, device=dev)
-        errs = []
-        for start, v_init in (("cold", ones), ("warm", warm)):
-            plan, v = fused_sinkhorn_plan(k, cap, v_init)
-            plan_ref, v_ref = fused_sinkhorn_plan_reference(k, cap, v_init)
-            torch.cuda.synchronize()
-            err = max(float((plan - plan_ref).abs().max()),
-                      float((v - v_ref).abs().max()))
-            check(bool(torch.isfinite(plan).all()), "sinkhorn plan not finite")
-            check(err <= 1e-5, f"fused_sinkhorn_plan {N}x{m} {start}: "
-                               f"max abs err {err} > 1e-5")
-            errs.append(err)
+        err = check_sinkhorn(N, m, dev)
+        k, cap, warm = sinkhorn_inputs(N, m, seed=N + m, dev=dev)
+        emit({"phase": "unflagged", "name": "fused_sinkhorn_plan",
+              "shape": [N, m],
+              "unflagged_ms": cuda_ms(lambda: _solve_plan(k, cap, warm,
+                                                          iters=8))})
         ms = cuda_ms(lambda: fused_sinkhorn_plan(k, cap, warm))
+        dev_ms = device_ms(lambda: fused_sinkhorn_plan(k, cap, warm))
         plain_ms = cuda_ms(
             lambda: fused_sinkhorn_plan_reference(k, cap, warm))
         b_ms, b_by = bound(nbytes=2 * N * m * 4 + 3 * m * 4,
                            flops=(8 * 4 + 5) * N * m)
         rec = {"name": "fused_sinkhorn_plan", "shape": [N, m],
-               "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+               "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None,
+               "layout": layout(dev, N, m)._asdict()}
         emit({"phase": "kernel", **rec})
         records.setdefault("fused_sinkhorn_plan", rec)
 
     s = 6
     for m in (M, 1024):
+        err = check_topk(s, N, m, dev)
         stacked, wvec, mask = topk_inputs(s, N, m, seed=m, dev=dev)
-        vals, idx = fused_blend_topk(stacked, wvec, mask, k=4)
-        v_ref, i_ref = fused_blend_topk_reference(stacked, wvec, mask, k=4)
-        torch.cuda.synchronize()
-        check(torch.equal(idx, i_ref), f"fused_blend_topk {N}x{m}: indices "
-                                       "differ from the plain version")
-        err = float((vals - v_ref).abs().max())
-        check(err <= 1e-5, f"fused_blend_topk {N}x{m}: max abs err {err}")
 
         def library():
             total = torch.einsum("s,snm->nm", wvec, stacked) / wvec.sum()
             return torch.topk(torch.where(mask, total, NEG_SCORE), 4, dim=1)
 
         ms = cuda_ms(lambda: fused_blend_topk(stacked, wvec, mask))
+        dev_ms = device_ms(lambda: fused_blend_topk(stacked, wvec, mask))
         plain_ms = cuda_ms(
             lambda: fused_blend_topk_reference(stacked, wvec, mask))
         library_ms = cuda_ms(library)
         b_ms, b_by = bound(nbytes=s * N * m * 4 + N * m + s * 4 + N * 4 * 8,
                            flops=(2 * s + 1 + 2 * 4) * N * m)
         rec = {"name": "fused_blend_topk", "shape": [s, N, m],
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+               "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": library_ms}
         emit({"phase": "kernel", **rec})
         records.setdefault("fused_blend_topk", rec)
     return records

@@ -8,6 +8,8 @@ from a CUDA tensor to the plain version.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -36,3 +38,18 @@ def check_input(t: torch.Tensor, name: str, dtype: torch.dtype,
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: kernel inputs must be contiguous")
+
+
+def current(device: torch.device):
+    """A context with `device` current, for a launch on it: a no-op when it
+    already is (switching costs more host time than the launch itself)."""
+    if torch.cuda.current_device() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def raw_stream(device: torch.device) -> int:
+    """The handle of `device`'s current stream, for a C entry point (the
+    public torch.cuda.current_stream() builds a Stream object per call,
+    several microseconds of host time on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -1,4 +1,4 @@
-// fused_sinkhorn_plan for Hopper (sm_90a).
+// fused_sinkhorn_plan for Hopper (sm_90a): one persistent cooperative launch.
 //
 // Replaces: gie_tpu/ops/fused_sinkhorn.py:fused_sinkhorn_plan (+ _kernel),
 // the Pallas kernel that holds the whole [N, M] plan in VMEM and runs
@@ -8,44 +8,112 @@
 // to sum 1 (rows summing to 0 stay 0), then scale every column whose sum
 // exceeds cap[m] down to cap[m], carrying v as the running product of the
 // column scales; finally normalize the rows once more. Returns (plan, v).
+// It runs the dual form of those iterates, p_t = diag(u_t) K diag(v_t)
+// (gie_tpu/sched/sinkhorn.py:_dual_solve), so a round needs two vectors:
+//   u_n = 1 / sum_m K[n,m] v[m]                 (kept where the sum is 0)
+//   load_m = v_m sum_n u_n K[n,m];  v_m *= cap_m / max(load_m, 1e-9)
+//                                               where load_m > cap_m.
 //
-// What bounds it on the H100: memory. Each round touches all of K, and K
-// is 1 MiB at 1024x256 (4 MiB at 1024x1024) -- far above one SM's 227 KB of
-// shared memory, so the TPU kernel's single-program, plan-resident layout
-// does not carry over, and the column cap couples every row, so the plan
-// cannot be tiled over N without a cross-block reduction per round. The
-// least traffic is reading K once and writing the plan once (2 MiB at
-// 1024x256, ~0.63 us at 3.35 TB/s); the arithmetic (~4 flops per element
-// per round) is far below the card's rate.
+// What bounds it on the H100: bytes, at the least reading K once and
+// writing the plan once (2 MiB at 1024x256: 0.63 us at 3.35 TB/s); the
+// arithmetic (~4 flops per element per round) is far below the card's
+// rate. In practice it is bound by latency: every round ends in a
+// grid-wide reduction (the column cap couples every row), and what the
+// first port lost was 17 launch gaps, K re-read from L2 twice a round and a
+// column pass on M/32 blocks.
 //
-// Design: the dual form of the same iterates. The matrix iterates are
-// p_t = diag(u_t) K diag(v_t) (see the Pallas kernel's own comment and
-// gie_tpu/sched/sinkhorn.py:_dual_solve), so a round needs only two
-// vectors and two passes over K:
-//   row pass    one warp per row: r_n = sum_m K[n,m] v[m]; u_n = 1/r_n
-//               where r_n > 0 (else u_n is kept);
-//   column pass one block per 32 columns, 32 row groups per block, each
-//               thread summing its rows in a fixed order, the 32 partials
-//               folded in a fixed order: col_m = v_m sum_n u_n K[n,m]; then
-//               v_m *= cap_m / max(col_m, 1e-9) where col_m > cap_m;
-// and a final pass, one warp per row, writes plan = K u v normalized by its
-// row sum. No atomics anywhere, so repeated runs are bitwise identical. K
-// (<= 4 MiB) stays resident in the 50 MB L2 across the rounds, so device
-// memory sees roughly one read of K and one write of the plan. All launches
-// (1 + 2*iters + 1) go on the caller's stream from one C entry point; a
-// persistent cooperative kernel with a grid-wide sync would save the launch
-// gaps and is left to a later change.
+// Design, the Hopper counterpart of "hold the plan resident in VMEM":
+//  - One launch. A cooperative persistent grid of at most one block per SM
+//    (min(occupancy x SMs, SMs, N) blocks; fewer, larger bands measured
+//    slower, and more blocks would only add column partials). A grid that
+//    cannot be resident at once is refused by the launch, never run.
+//  - K read from device memory once. Block b owns the band of `rows` whole
+//    rows starting at b*rows and copies its K slab (rows x M f32, 32 KB at
+//    1024x1024 on 132 SMs) into shared memory, where it stays for every
+//    round and the final pass: the whole of K is spread over the SMs'
+//    shared memory, as the TPU kernel keeps it in VMEM.
+//  - Row pass, local: whole rows, so u needs no communication.
+//  - Column pass: each block writes its [M] partials sum_{n in band} u_n
+//    K[n,m] to a caller-allocated scratch; block b then folds a slice of
+//    the columns over all blocks' partials, in block order, and writes the
+//    new v of that slice; every block reads all of v. Three ways to order
+//    those exchanges (`fold`):
+//      kFoldTagged       (default) every exchanged word carries its round
+//                        in its high half and is written and read as one
+//                        64-bit access: a reader polls until the tag
+//                        matches, with no barrier inside the rounds (one
+//                        grid sync at the start clears the words);
+//      kFoldTwoBarriers  grid sync before the fold and after it;
+//      kFoldCluster      clusters of up to 8 blocks fold their partials
+//                        through distributed shared memory first, so one
+//                        grid sync and two cluster syncs a round suffice.
+//    The default is the one measured fastest at 1024x256 and 1024x1024
+//    (hack/torch_sinkhorn_fold.py, PERF.md); gie_fused_sinkhorn_plan_variant
+//    runs any fold and grid cap, for measuring.
+//  - Final pass, local: plan = K u v normalized by its row sum, written
+//    once; v_out written once.
+// Deterministic: every sum is folded in a fixed order with explicitly
+// rounded __fadd_rn/__fmul_rn and no atomics on values, so two runs are
+// bitwise identical (on one device: the fold order follows the grid). The
+// kernel allocates nothing and never synchronizes the host, so it can be
+// captured in a CUDA graph. Cross-block data moves through L2 only
+// (__stcg/__ldcg and .relaxed.gpu accesses): L1 is not coherent across SMs.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRowWarps = 8;     // rows (warps) per block in the row passes
-constexpr int kColTile = 32;     // columns per block in the column pass
-constexpr int kColGroups = 32;   // row groups per block in the column pass
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / kWarp;
+constexpr int kMaxCluster = 8;
+
+constexpr int kFoldTwoBarriers = 0;
+constexpr int kFoldCluster = 1;
+constexpr int kFoldTagged = 2;
+constexpr int kDefaultFold = kFoldTagged;
+// A tagged read gives up after this many polls (seconds) and yields NaN,
+// so a fault shows as a wrong result instead of a hung card.
+constexpr int kMaxPolls = 1 << 22;
+// Tagged words a lane reads before it waits on the first of them.
+constexpr int kBatch = 4;
+
+// One 8-byte word: a float in the low half, the round's tag in the high
+// half, written and read as one single-copy-atomic 64-bit access, so a
+// reader that sees the tag sees the value (no fence, no barrier).
+__device__ __forceinline__ void put_tagged(unsigned long long* p, float x,
+                                           unsigned tag) {
+  unsigned long long w =
+      (static_cast<unsigned long long>(tag) << 32) | __float_as_uint(x);
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(w)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_tagged(
+    const unsigned long long* p) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(w) : "l"(p)
+               : "memory");
+  return w;
+}
+
+// Polls word `w` (first read already in hand) at p until it carries `tag`.
+__device__ __forceinline__ float await_tagged(unsigned long long w,
+                                              const unsigned long long* p,
+                                              unsigned tag) {
+  int polls = 0;
+  while (static_cast<unsigned>(w >> 32) != tag && ++polls < kMaxPolls) {
+    w = load_tagged(p);
+  }
+  return static_cast<unsigned>(w >> 32) == tag
+             ? __uint_as_float(static_cast<unsigned>(w))
+             : __uint_as_float(0x7fffffffu);
+}
 
 // Butterfly sum: every lane ends with the same, order-fixed total (each
 // stage adds the same two operands in both lanes of a pair).
@@ -57,106 +125,391 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-__global__ void init_duals(const float* __restrict__ v_init,
-                           float* __restrict__ v, float* __restrict__ u,
-                           int n, int m) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < m) v[i] = v_init[i];
-  if (i < n) u[i] = 1.0f;
+// v_m after one column cap, given sum_n u_n K[n,m].
+__device__ __forceinline__ float capped(float vm, float colsum, float c) {
+  float load = __fmul_rn(vm, colsum);
+  return load > c ? __fmul_rn(vm, __fdiv_rn(c, fmaxf(load, 1e-9f))) : vm;
 }
 
-__global__ void row_pass(const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         float* __restrict__ u, int n, int m) {
-  int row = blockIdx.x * kRowWarps + threadIdx.x / kWarp;
-  int lane = threadIdx.x % kWarp;
-  if (row >= n) return;
-  const float* kr = k + static_cast<size_t>(row) * m;
+// Column partial of one band: sum over its rows, in order, of u_r K[r][c].
+__device__ __forceinline__ float band_partial(const float* slab,
+                                              const float* u_s, int nrows,
+                                              int m, int c) {
   float acc = 0.0f;
-  for (int j = lane; j < m; j += kWarp) {
-    acc = __fadd_rn(acc, __fmul_rn(kr[j], v[j]));
+#pragma unroll 8
+  for (int r = 0; r < nrows; ++r) {
+    acc = __fadd_rn(acc, __fmul_rn(u_s[r], slab[static_cast<size_t>(r) * m + c]));
   }
-  acc = warp_sum(acc);
-  if (lane == 0 && acc > 0.0f) u[row] = __fdiv_rn(1.0f, acc);
+  return acc;
 }
 
-__global__ void column_pass(const float* __restrict__ k,
-                            const float* __restrict__ u,
-                            const float* __restrict__ cap,
-                            float* __restrict__ v, int n, int m) {
-  __shared__ float part[kColGroups][kColTile + 1];
-  int col = blockIdx.x * kColTile + threadIdx.x;
-  float acc = 0.0f;
-  if (col < m) {
-    for (int r = threadIdx.y; r < n; r += kColGroups) {
-      acc = __fadd_rn(acc,
-                      __fmul_rn(u[r], k[static_cast<size_t>(r) * m + col]));
+// Columns in each of `parts` equal slices of [0, m).
+__host__ __device__ inline int slice_len(int m, int parts) {
+  return (m + parts - 1) / parts;
+}
+
+// Shared memory of one block, in floats: the K slab, v, u, and for the
+// cluster fold the block's column partials and its slice of the new v.
+inline size_t smem_floats(int rows, int m, int cluster, int fold) {
+  size_t f = static_cast<size_t>(rows) * m + m + rows;
+  if (fold == kFoldCluster) f += m + slice_len(m, cluster);
+  return f;
+}
+
+template <int kFold>
+__global__ void __launch_bounds__(kThreads)
+sinkhorn_persistent(const float* __restrict__ k, const float* __restrict__ cap,
+                    const float* __restrict__ v_init, float* __restrict__ plan,
+                    float* v_out, float* part, int n, int m, int rows,
+                    int iters) {
+  extern __shared__ __align__(16) float smem[];
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
+  const int warp = tid / kWarp;
+  const int b = blockIdx.x;
+  const int g = gridDim.x;
+  const int row0 = b * rows;
+  const int nrows = max(0, min(rows, n - row0));
+  float* slab = smem;
+  float* v_s = slab + static_cast<size_t>(rows) * m;
+  float* u_s = v_s + m;
+
+  // The K slab, read from device memory once.
+  const float* ks = k + static_cast<size_t>(row0) * m;
+  const int count = nrows * m;
+  if (count % 4 == 0 && (reinterpret_cast<uintptr_t>(ks) & 15) == 0) {
+    const float4* src = reinterpret_cast<const float4*>(ks);
+    float4* dst = reinterpret_cast<float4*>(slab);
+    for (int i = tid; i < count / 4; i += kThreads) dst[i] = __ldg(src + i);
+  } else {
+    for (int i = tid; i < count; i += kThreads) slab[i] = __ldg(ks + i);
+  }
+  for (int c = tid; c < m; c += kThreads) v_s[c] = __ldg(v_init + c);
+  for (int r = tid; r < rows; r += kThreads) u_s[r] = 1.0f;
+  // The tagged fold's words: [g][m] partials, then [m] duals. The scratch
+  // comes uninitialized, so every word is cleared to tag 0 (rounds use
+  // tags 1, 2, ...) before any block writes a round.
+  unsigned long long* tpart = reinterpret_cast<unsigned long long*>(part);
+  unsigned long long* tv = tpart + static_cast<size_t>(g) * m;
+  if constexpr (kFold == kFoldTagged) {
+    for (int c = tid; c < m; c += kThreads) {
+      tpart[static_cast<size_t>(b) * m + c] = 0ull;
+      if (b == 0) tv[c] = 0ull;
+    }
+    grid.sync();
+  }
+  __syncthreads();
+
+  for (int it = 0; it < iters; ++it) {
+    // Row pass: one warp per row, lane l sums columns l, l+32, ...
+    for (int r = warp; r < nrows; r += kWarps) {
+      const float* kr = slab + static_cast<size_t>(r) * m;
+      float acc = 0.0f;
+#pragma unroll 8
+      for (int c = lane; c < m; c += kWarp) {
+        acc = __fadd_rn(acc, __fmul_rn(kr[c], v_s[c]));
+      }
+      acc = warp_sum(acc);
+      if (lane == 0 && acc > 0.0f) u_s[r] = __fdiv_rn(1.0f, acc);
+    }
+    __syncthreads();
+
+    if constexpr (kFold == kFoldTagged) {
+      const unsigned tag = static_cast<unsigned>(it) + 1u;
+      for (int c = tid; c < m; c += kThreads) {
+        put_tagged(tpart + static_cast<size_t>(b) * m + c,
+                   band_partial(slab, u_s, nrows, m, c), tag);
+      }
+      // Block b folds its column slice as soon as every block's partial
+      // of it has landed; each block reads all of v as soon as each
+      // slice's owner has written it. Reusing the words across rounds is
+      // safe: a block writes round t+1's partials only after reading all
+      // of round t's v, which every owner wrote after reading all of
+      // round t's partials.
+      const int per = slice_len(m, g);
+      const int c0 = b * per;
+      const int c1 = min(m, c0 + per);
+      for (int c = c0 + warp; c < c1; c += kWarps) {
+        // Lane l sums blocks l, l+32, ... in order. The first reads of a
+        // batch of kBatch words all issue before any wait: one trip to L2
+        // per batch, not one per word.
+        float s = 0.0f;
+        for (int j0 = lane; j0 < g; j0 += kBatch * kWarp) {
+          unsigned long long w[kBatch];
+#pragma unroll
+          for (int q = 0; q < kBatch; ++q) {
+            const int j = j0 + q * kWarp;
+            w[q] = j < g ? load_tagged(tpart + static_cast<size_t>(j) * m + c) : 0ull;
+          }
+#pragma unroll
+          for (int q = 0; q < kBatch; ++q) {
+            const int j = j0 + q * kWarp;
+            if (j < g) {
+              s = __fadd_rn(s, await_tagged(w[q], tpart + static_cast<size_t>(j) * m + c, tag));
+            }
+          }
+        }
+        s = warp_sum(s);
+        if (lane == 0) put_tagged(tv + c, capped(v_s[c], s, __ldg(cap + c)), tag);
+      }
+      __syncthreads();
+      for (int c = tid; c < m; c += kThreads) {
+        v_s[c] = await_tagged(load_tagged(tv + c), tv + c, tag);
+      }
+      __syncthreads();
+    } else if constexpr (kFold == kFoldTwoBarriers) {
+      // part[b][c] = sum over the band, rows in order.
+      for (int c = tid; c < m; c += kThreads) {
+        __stcg(part + static_cast<size_t>(b) * m + c,
+               band_partial(slab, u_s, nrows, m, c));
+      }
+      grid.sync();
+      // Block b folds columns [c0, c1): one warp per column, lane l
+      // summing blocks l, l+32, ... in order, then the butterfly.
+      const int per = slice_len(m, g);
+      const int c0 = b * per;
+      const int c1 = min(m, c0 + per);
+      for (int c = c0 + warp; c < c1; c += kWarps) {
+        float s = 0.0f;
+#pragma unroll 4
+        for (int j = lane; j < g; j += kWarp) {
+          s = __fadd_rn(s, __ldcg(part + static_cast<size_t>(j) * m + c));
+        }
+        s = warp_sum(s);
+        if (lane == 0) __stcg(v_out + c, capped(v_s[c], s, __ldg(cap + c)));
+      }
+      grid.sync();
+      for (int c = tid; c < m; c += kThreads) v_s[c] = __ldcg(v_out + c);
+      __syncthreads();
+    } else {
+      cg::cluster_group cl = cg::this_cluster();
+      const int csize = static_cast<int>(cl.num_blocks());
+      const int rank = static_cast<int>(cl.block_rank());
+      const int cid = b / csize;
+      const int ncl = g / csize;
+      float* part_s = u_s + rows;
+      float* vsl_s = part_s + m;
+      const int per = slice_len(m, csize);
+      const int c0 = rank * per;
+      const int c1 = min(m, c0 + per);
+      // Double-buffered: a fast cluster may write round t+1's partials
+      // while a slow one still reads round t's.
+      float* pbuf = part + static_cast<size_t>(it & 1) * ncl * m;
+      for (int c = tid; c < m; c += kThreads) {
+        part_s[c] = band_partial(slab, u_s, nrows, m, c);
+      }
+      cl.sync();
+      // Rank j folds column slice j over the cluster's blocks, in rank order.
+      for (int c = c0 + tid; c < c1; c += kThreads) {
+        float s = 0.0f;
+        for (int q = 0; q < csize; ++q) s = __fadd_rn(s, cl.map_shared_rank(part_s, q)[c]);
+        __stcg(pbuf + static_cast<size_t>(cid) * m + c, s);
+      }
+      grid.sync();
+      // ... then over the clusters, in cluster order; every cluster
+      // computes the same v.
+      for (int c = c0 + tid; c < c1; c += kThreads) {
+        float s = 0.0f;
+#pragma unroll 4
+        for (int q = 0; q < ncl; ++q) {
+          s = __fadd_rn(s, __ldcg(pbuf + static_cast<size_t>(q) * m + c));
+        }
+        vsl_s[c - c0] = capped(v_s[c], s, __ldg(cap + c));
+      }
+      cl.sync();
+      for (int c = tid; c < m; c += kThreads) {
+        v_s[c] = cl.map_shared_rank(vsl_s, c / per)[c % per];
+      }
+      __syncthreads();
     }
   }
-  part[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && col < m) {
-    float s = 0.0f;
-    for (int g = 0; g < kColGroups; ++g) s = __fadd_rn(s, part[g][threadIdx.x]);
-    float vm = v[col];
-    float load = __fmul_rn(vm, s);
-    float c = cap[col];
-    if (load > c) vm = __fmul_rn(vm, __fdiv_rn(c, fmaxf(load, 1e-9f)));
-    v[col] = vm;
+
+  // Final pass: plan = K u v normalized by its row sum, written once.
+  for (int r = warp; r < nrows; r += kWarps) {
+    const float* kr = slab + static_cast<size_t>(r) * m;
+    const float un = u_s[r];
+    float acc = 0.0f;
+    for (int c = lane; c < m; c += kWarp) {
+      acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(kr[c], un), v_s[c]));
+    }
+    acc = warp_sum(acc);
+    float* pr = plan + static_cast<size_t>(row0 + r) * m;
+    for (int c = lane; c < m; c += kWarp) {
+      float p = __fmul_rn(__fmul_rn(kr[c], un), v_s[c]);
+      pr[c] = acc > 0.0f ? __fdiv_rn(p, acc) : p;
+    }
+  }
+  // v_out already holds v after the two-barrier fold's last round; the
+  // cluster fold (and iters == 0) leave it to block 0.
+  if (b == 0 && (kFold != kFoldTwoBarriers || iters == 0)) {
+    for (int c = tid; c < m; c += kThreads) v_out[c] = v_s[c];
+  }
+  if constexpr (kFold == kFoldCluster) {
+    // No block leaves while a peer may still read its shared memory.
+    cg::this_cluster().sync();
   }
 }
 
-__global__ void plan_pass(const float* __restrict__ k,
-                          const float* __restrict__ u,
-                          const float* __restrict__ v,
-                          float* __restrict__ plan, int n, int m) {
-  int row = blockIdx.x * kRowWarps + threadIdx.x / kWarp;
-  int lane = threadIdx.x % kWarp;
-  if (row >= n) return;
-  size_t base = static_cast<size_t>(row) * m;
-  float un = u[row];
-  float acc = 0.0f;
-  for (int j = lane; j < m; j += kWarp) {
-    acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(k[base + j], un), v[j]));
+// The launch geometry of one call.
+struct Layout {
+  int grid;            // blocks
+  int rows;            // rows per block
+  int cluster;         // blocks per cluster (1 for the two-barrier fold)
+  int smem_bytes;      // dynamic shared memory per block
+  int smem_max;        // the most a block may have on this device
+  int scratch_floats;  // column partials the caller allocates
+  int sms;             // streaming multiprocessors
+};
+
+cudaError_t make_layout(int n, int m, int fold, int max_blocks, Layout* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int sms = 0, smem_max = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return e;
+  int target = sms;
+  if (max_blocks > 0 && max_blocks < target) target = max_blocks;
+  int rows = (n + target - 1) / target;
+  int grid = (n + rows - 1) / rows;
+  int cluster = 1;
+  if (fold == kFoldCluster) {
+    cluster = kMaxCluster;
+    while (cluster > grid) cluster /= 2;
+    grid = (grid + cluster - 1) / cluster * cluster;
   }
-  acc = warp_sum(acc);
-  for (int j = lane; j < m; j += kWarp) {
-    float p = __fmul_rn(__fmul_rn(k[base + j], un), v[j]);
-    plan[base + j] = acc > 0.0f ? __fdiv_rn(p, acc) : p;
+  size_t bytes = smem_floats(rows, m, cluster, fold) * sizeof(float);
+  size_t scratch = static_cast<size_t>(m) *
+                   (fold == kFoldCluster  ? 2 * (grid / cluster)
+                    : fold == kFoldTagged ? 2 * (grid + 1)
+                                          : grid);
+  out->grid = grid;
+  out->rows = rows;
+  out->cluster = cluster;
+  out->smem_bytes = bytes > 0x7fffffff ? 0x7fffffff : static_cast<int>(bytes);
+  out->smem_max = smem_max;
+  out->scratch_floats = scratch > 0x7fffffff ? 0x7fffffff : static_cast<int>(scratch);
+  out->sms = sms;
+  return cudaSuccess;
+}
+
+template <int kFold>
+cudaError_t launch(const float* k, const float* cap, const float* v_init,
+                   float* plan, float* v_out, float* scratch, int n, int m,
+                   int iters, const Layout& lay, cudaStream_t s) {
+  auto kernel = sinkhorn_persistent<kFold>;
+  if (lay.smem_bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem_bytes);
+    if (e != cudaSuccess) return e;
   }
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeCooperative;
+  attrs[0].val.cooperative = 1;
+  attrs[1].id = cudaLaunchAttributeClusterDimension;
+  attrs[1].val.clusterDim.x = lay.cluster;
+  attrs[1].val.clusterDim.y = 1;
+  attrs[1].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(lay.grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = lay.smem_bytes;
+  cfg.stream = s;
+  cfg.attrs = attrs;
+  cfg.numAttrs = kFold == kFoldCluster ? 2 : 1;
+  // A grid that cannot be resident at once is refused here
+  // (cudaErrorCooperativeLaunchTooLarge), never run.
+  return cudaLaunchKernelEx(&cfg, kernel, k, cap, v_init, plan, v_out,
+                            scratch, n, m, lay.rows, iters);
 }
 
 }  // namespace
 
-#define GIE_LAUNCH_CHECK()                        \
-  do {                                            \
-    cudaError_t e_ = cudaGetLastError();          \
-    if (e_ != cudaSuccess) return static_cast<int>(e_); \
-  } while (0)
+// The geometry of a call, for the caller to size the scratch and check the
+// shared memory: out = {grid, rows, cluster, smem_bytes, smem_max,
+// scratch_floats, sms, blocks_per_sm}. fold < 0 picks the default fold;
+// max_blocks <= 0 means one block per SM. Returns a cudaError_t.
+extern "C" int gie_fused_sinkhorn_layout(int n, int m, int fold,
+                                         int max_blocks, int* out) {
+  if (fold < 0) fold = kDefaultFold;
+  if (fold != kFoldTwoBarriers && fold != kFoldCluster && fold != kFoldTagged) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Layout lay;
+  cudaError_t e = make_layout(n > 0 ? n : 1, m > 0 ? m : 1, fold, max_blocks,
+                              &lay);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int per_sm = 0;
+  if (lay.smem_bytes <= lay.smem_max) {
+    const void* kernel =
+        fold == kFoldCluster  ? reinterpret_cast<const void*>(sinkhorn_persistent<kFoldCluster>)
+        : fold == kFoldTagged ? reinterpret_cast<const void*>(sinkhorn_persistent<kFoldTagged>)
+                              : reinterpret_cast<const void*>(sinkhorn_persistent<kFoldTwoBarriers>);
+    if (lay.smem_bytes > 48 * 1024) {
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               lay.smem_bytes);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, lay.smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  out[0] = lay.grid;
+  out[1] = lay.rows;
+  out[2] = lay.cluster;
+  out[3] = lay.smem_bytes;
+  out[4] = lay.smem_max;
+  out[5] = lay.scratch_floats;
+  out[6] = lay.sms;
+  out[7] = per_sm;
+  return 0;
+}
 
-// k f32[n, m], cap f32[m], v_init f32[m] -> plan f32[n, m], v_out f32[m];
-// u_scratch f32[n] is caller-allocated. All pointers are device pointers,
-// row-major and contiguous. Returns a cudaError_t (0 = all launched).
+// k f32[n, m], cap f32[m], v_init f32[m] -> plan f32[n, m], v_out f32[m].
+// scratch holds the column partials: at least the layout's scratch_floats
+// floats, caller-allocated. All pointers are device pointers, row-major and
+// contiguous. One cooperative launch with the given fold (< 0: default)
+// and grid cap (<= 0: one block per SM). Returns a cudaError_t (0 =
+// launched); cudaErrorInvalidValue when the K slab does not fit in shared
+// memory.
+extern "C" int gie_fused_sinkhorn_plan_variant(
+    const float* k, const float* cap, const float* v_init, float* plan,
+    float* v_out, float* scratch, int n, int m, int iters, void* stream,
+    int fold, int max_blocks) {
+  if (n <= 0 || m <= 0) return 0;
+  if (fold < 0) fold = kDefaultFold;
+  Layout lay;
+  cudaError_t e = make_layout(n, m, fold, max_blocks, &lay);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (lay.smem_bytes > lay.smem_max) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  iters = iters > 0 ? iters : 0;
+  if (fold == kFoldCluster) {
+    e = launch<kFoldCluster>(k, cap, v_init, plan, v_out, scratch, n, m, iters,
+                             lay, s);
+  } else if (fold == kFoldTwoBarriers) {
+    e = launch<kFoldTwoBarriers>(k, cap, v_init, plan, v_out, scratch, n, m,
+                                 iters, lay, s);
+  } else if (fold == kFoldTagged) {
+    e = launch<kFoldTagged>(k, cap, v_init, plan, v_out, scratch, n, m, iters,
+                            lay, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The main path's entry: the default fold, one block per SM at most.
 extern "C" int gie_fused_sinkhorn_plan(const float* k, const float* cap,
                                        const float* v_init, float* plan,
-                                       float* v_out, float* u_scratch, int n,
+                                       float* v_out, float* scratch, int n,
                                        int m, int iters, void* stream) {
-  if (n <= 0 || m <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int span = n > m ? n : m;
-  init_duals<<<(span + 255) / 256, 256, 0, s>>>(v_init, v_out, u_scratch, n, m);
-  GIE_LAUNCH_CHECK();
-  dim3 row_grid((n + kRowWarps - 1) / kRowWarps);
-  dim3 row_block(kRowWarps * kWarp);
-  dim3 col_grid((m + kColTile - 1) / kColTile);
-  dim3 col_block(kColTile, kColGroups);
-  for (int it = 0; it < iters; ++it) {
-    row_pass<<<row_grid, row_block, 0, s>>>(k, v_out, u_scratch, n, m);
-    GIE_LAUNCH_CHECK();
-    column_pass<<<col_grid, col_block, 0, s>>>(k, u_scratch, cap, v_out, n, m);
-    GIE_LAUNCH_CHECK();
-  }
-  plan_pass<<<row_grid, row_block, 0, s>>>(k, u_scratch, v_out, plan, n, m);
-  GIE_LAUNCH_CHECK();
-  return 0;
+  return gie_fused_sinkhorn_plan_variant(k, cap, v_init, plan, v_out, scratch,
+                                         n, m, iters, stream, -1, 0);
 }

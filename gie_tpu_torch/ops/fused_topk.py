@@ -1,7 +1,8 @@
 """fused_blend_topk: the blend + top-k CUDA kernel and its plain version.
 
 Port of gie_tpu/ops/fused_topk.py. The kernel (ops/csrc/fused_topk.cu, one
-warp per request row) runs on CUDA tensors; `fused_blend_topk_reference`
+warp per request row, 16-byte loads, a per-lane top-k list in registers)
+runs on CUDA tensors; `fused_blend_topk_reference`
 computes the same function in plain PyTorch and runs on CPU tensors. Both
 return (values f32[N, k], indices i32[N, k]); ties go to the lowest index,
 and ineligible lanes read NEG_SCORE.
@@ -11,8 +12,13 @@ from __future__ import annotations
 
 import torch
 
-from gie_tpu_torch.ops import build, check_input, on_cuda
+from gie_tpu_torch.ops import build, check_input, current, on_cuda, raw_stream
 from gie_tpu_torch.sched.constants import NEG_SCORE as NEG
+
+# What the kernel takes (ops/csrc/fused_topk.cu): S scorer columns and k
+# rounds up to these; any N and any M >= 1.
+MAX_S = 8
+MAX_K = 8
 
 
 def fused_blend_topk_reference(
@@ -54,26 +60,25 @@ def fused_blend_topk(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (values f32[N, k], indices i32[N, k]). CPU tensors: the plain
     version. CUDA tensors: the CUDA kernel (built on first use), or an
-    exception. The kernel takes M a multiple of 32, at most 1024 (every
-    M bucket)."""
+    exception. The kernel takes 1 <= S <= MAX_S, 1 <= k <= MAX_K and any
+    N and M."""
     s, n, m = stacked.shape
     if not on_cuda(stacked, wvec, mask):
         return fused_blend_topk_reference(stacked, wvec, mask, k=k)
     check_input(stacked, "stacked", torch.float32, (s, n, m))
     check_input(wvec, "wvec", torch.float32, (s,))
     check_input(mask, "mask", torch.bool, (n, m))
-    if m % 32 or m > 1024:
-        raise ValueError(f"fused_blend_topk takes M a multiple of 32 up to "
-                         f"1024 (an M bucket); got M={m}")
+    if not (1 <= s <= MAX_S and 1 <= k <= MAX_K):
+        raise ValueError(f"fused_blend_topk takes 1 <= S <= {MAX_S} scorer "
+                         f"columns and 1 <= k <= {MAX_K}; got S={s}, k={k}")
     lib = build.library()
     dev = stacked.device
     vals = torch.empty((n, k), dtype=torch.float32, device=dev)
     idxs = torch.empty((n, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with current(dev):
         err = lib.gie_fused_blend_topk(
             stacked.data_ptr(), wvec.data_ptr(), mask.data_ptr(),
-            vals.data_ptr(), idxs.data_ptr(), s, n, m, k,
-            torch.cuda.current_stream(dev).cuda_stream)
+            vals.data_ptr(), idxs.data_ptr(), s, n, m, k, raw_stream(dev))
     build.check(err, "fused_blend_topk")
     fused_blend_topk.launches += 1
     return vals, idxs

@@ -168,7 +168,9 @@ def build_stages(
     cfg: ProfileConfig,
 ):
     """Filter + score stages -> (mask, shed, named column dict,
-    stacked [S,N,M], wvec [S], blended total [N,M]).
+    stacked [S,N,M], wvec [S], blended total [N,M]). `total` is None on
+    the fused top-k path, whose kernel blends the columns itself (the
+    reference computes it there too, and XLA drops it as dead code).
 
     Saturation is a soft filter: unsaturated candidates are preferred;
     when all are saturated SHEDDABLE traffic is shed (429) and STANDARD
@@ -216,13 +218,15 @@ def build_stages(
     stacked = torch.stack(list(named.values()))               # [S, N, M]
     wvec = torch.tensor([getattr(weights, k) for k in named],
                         dtype=torch.float32, device=mask.device)
-    total = torch.einsum("s,snm->nm", wvec, stacked) / torch.clamp(
-        wvec.sum(), min=1e-6)
+    total = None
+    if not (cfg.picker == "topk" and cfg.use_pallas_topk):
+        total = torch.einsum("s,snm->nm", wvec, stacked) / torch.clamp(
+            wvec.sum(), min=1e-6)
     return mask, shed, named, stacked, wvec, total
 
 
 def _pick_stage(
-    total: torch.Tensor,
+    total: Optional[torch.Tensor],
     stacked: torch.Tensor,
     wvec: torch.Tensor,
     mask: torch.Tensor,

@@ -28,8 +28,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 # Device functions of the port's own kernels (ops/csrc/*.cu).
-_PORT_KERNELS = ("init_duals", "row_pass", "column_pass", "plan_pass",
-                 "blend_topk")
+_PORT_KERNELS = ("sinkhorn_persistent", "blend_topk")
 
 
 def _device_us(event) -> float:

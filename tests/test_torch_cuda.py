@@ -17,11 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+from gie_tpu_torch.ops import fused_sinkhorn
 from gie_tpu_torch.ops.fused_sinkhorn import (
     fused_sinkhorn_plan,
     fused_sinkhorn_plan_reference,
 )
 from gie_tpu_torch.ops.fused_topk import (
+    MAX_K,
+    MAX_S,
     fused_blend_topk,
     fused_blend_topk_reference,
 )
@@ -51,7 +54,8 @@ def _sinkhorn_inputs(n, m, seed, dev):
             for a in (k, cap, warm)]
 
 
-@pytest.mark.parametrize("n, m", [(1024, 256), (1024, 1024), (7, 64)])
+@pytest.mark.parametrize("n, m", [(1, 64), (7, 64), (8, 512), (1024, 64),
+                                  (1024, 256), (1024, 1024)])
 def test_sinkhorn_kernel_matches_plain(dev, n, m):
     k, cap, warm = _sinkhorn_inputs(n, m, seed=m, dev=dev)
     for v_init in (torch.ones_like(warm), warm):
@@ -65,6 +69,40 @@ def test_sinkhorn_kernel_matches_plain(dev, n, m):
         # No atomics: a second run is bitwise identical.
         again, v_again = fused_sinkhorn_plan(k, cap, v_init)
         assert torch.equal(again, plan) and torch.equal(v_again, v)
+        assert (plan[min(3, n - 1)] == 0).all()       # the zero row
+
+
+@pytest.mark.parametrize("fold", [fused_sinkhorn.FOLD_TWO_BARRIERS,
+                                  fused_sinkhorn.FOLD_CLUSTER,
+                                  fused_sinkhorn.FOLD_TAGGED])
+@pytest.mark.parametrize("max_blocks", [0, 32])
+def test_sinkhorn_folds_match_plain(dev, fold, max_blocks):
+    k, cap, warm = _sinkhorn_inputs(1024, 256, seed=3, dev=dev)
+    plan, v = fused_sinkhorn.launch(k, cap, warm, fold=fold,
+                                    max_blocks=max_blocks)
+    plan_ref, v_ref = fused_sinkhorn_plan_reference(k, cap, warm)
+    torch.testing.assert_close(plan, plan_ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(v, v_ref, atol=1e-5, rtol=0)
+    lay = fused_sinkhorn.layout(dev, 1024, 256, fold, max_blocks)
+    assert lay.grid <= (max_blocks or lay.sms) + lay.cluster - 1
+    assert lay.grid % lay.cluster == 0
+
+
+def test_sinkhorn_call_is_one_device_launch(dev):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    k, cap, warm = _sinkhorn_inputs(1024, 256, seed=4, dev=dev)
+    fused_sinkhorn_plan(k, cap, warm)                 # build and warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fused_sinkhorn_plan(k, cap, warm)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    assert [(e.count, "sinkhorn_persistent" in e.key) for e in kernels] == [
+        (1, True)], [(e.key, e.count) for e in kernels]
 
 
 def _topk_inputs(s, n, m, seed, dev):
@@ -74,13 +112,15 @@ def _topk_inputs(s, n, m, seed, dev):
     mask = rng.uniform(size=(n, m)) < 0.7
     mask[5] = False                             # a fully masked row
     mask[6] = False
-    mask[6, [3, 40]] = True                     # fewer candidates than k
-    wvec = np.asarray([2.0, 1.0, 1.5, 4.0, 8.0, 1.0][:s], np.float32)
+    mask[6, [3, m - 1]] = True                  # fewer candidates than k
+    wvec = np.asarray([2.0, 1.0, 1.5, 4.0, 8.0, 1.0, 0.5, 3.0][:s],
+                      np.float32)
     return [torch.from_numpy(a).to(dev) for a in (stacked, wvec, mask)]
 
 
 @pytest.mark.parametrize("s, n, m", [(6, 1024, 256), (6, 1024, 1024),
-                                     (3, 9, 64)])
+                                     (3, 9, 64), (6, 1024, 40), (3, 64, 37),
+                                     (6, 1024, 2048), (8, 16, 4096)])
 def test_blend_topk_kernel_matches_plain(dev, s, n, m):
     stacked, wvec, mask = _topk_inputs(s, n, m, seed=m, dev=dev)
     before = fused_blend_topk.launches
@@ -91,6 +131,17 @@ def test_blend_topk_kernel_matches_plain(dev, s, n, m):
     torch.testing.assert_close(idx, i_ref, atol=0, rtol=0)
     torch.testing.assert_close(vals, v_ref, atol=1e-5, rtol=0)
     assert idx[4].tolist() == sorted(idx[4].tolist())   # lowest index first
+    assert idx[5].tolist() == [0, 0, 0, 0]                # fully masked
+    assert sorted(idx[6, :2].tolist()) == [3, m - 1]     # then the first
+    assert idx[6, 2:].tolist() == [0, 0]                 # NEG lane again
+
+
+def test_blend_topk_takes_k_up_to_its_bound(dev):
+    stacked, wvec, mask = _topk_inputs(6, 64, 100, seed=5, dev=dev)
+    vals, idx = fused_blend_topk(stacked, wvec, mask, k=MAX_K)
+    v_ref, i_ref = fused_blend_topk_reference(stacked, wvec, mask, k=MAX_K)
+    torch.testing.assert_close(idx, i_ref, atol=0, rtol=0)
+    torch.testing.assert_close(vals, v_ref, atol=1e-5, rtol=0)
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
@@ -102,9 +153,11 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
         fused_sinkhorn_plan(k, cap.cpu(), warm)
     stacked, wvec, mask = _topk_inputs(2, 8, 64, seed=1, dev=dev)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        fused_blend_topk(stacked[:, :, :40].contiguous(), wvec,
-                         mask[:, :40].contiguous())
+    with pytest.raises(ValueError, match="k <= 8"):
+        fused_blend_topk(stacked, wvec, mask, k=MAX_K + 1)
+    wide = stacked.repeat(MAX_S, 1, 1)[: MAX_S + 1].contiguous()
+    with pytest.raises(ValueError, match="S <= 8"):
+        fused_blend_topk(wide, torch.ones(MAX_S + 1, device=dev), mask)
 
 
 @pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel", "topk-kernel"])

@@ -108,7 +108,9 @@ def _topk_inputs(s, n, m, seed):
     return stacked, wvec, mask
 
 
-@pytest.mark.parametrize("s, n, m", [(6, 64, 64), (6, 32, 256), (3, 8, 64)])
+@pytest.mark.parametrize("s, n, m", [(6, 64, 64), (6, 32, 256), (3, 8, 64),
+                                     (3, 16, 40), (6, 16, 40), (3, 16, 96),
+                                     (6, 16, 96)])
 def test_blend_topk_plain_matches_pallas_interpret(s, n, m):
     stacked, wvec, mask = _topk_inputs(s, n, m, seed=s + n + m)
     v_ref, i_ref = jax_blend_topk(jnp.asarray(stacked), jnp.asarray(wvec),
@@ -123,7 +125,8 @@ def test_blend_topk_plain_matches_pallas_interpret(s, n, m):
     np.testing.assert_array_equal(idx[4].numpy(),
                                   np.sort(idx[4].numpy()))
     assert (vals[5] == NEG).all() and (idx[5] == 0).all()
-    assert idx[6, :2].tolist() == sorted(idx[6, :2].tolist())
+    assert sorted(idx[6, :2].tolist()) == [3, 9]
+    assert idx[6, 2:].tolist() == [0, 0]        # then the first NEG lane
     before = fused_blend_topk.launches
     vals_w, idx_w = fused_blend_topk(torch.from_numpy(stacked),
                                      torch.from_numpy(wvec),
