@@ -34,11 +34,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     # k, cap, v_init, plan, v_out, scratch, n, m, iters, stream
     "gie_fused_sinkhorn_plan": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
-    # ... then fold, max_blocks
-    "gie_fused_sinkhorn_plan_variant": (
-        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I), _I),
-    # n, m, fold, max_blocks, out int[8]
-    "gie_fused_sinkhorn_layout": ((_I, _I, _I, _I, _P), _I),
+    # n, m, out int[7]
+    "gie_fused_sinkhorn_layout": ((_I, _I, _P), _I),
     # stacked, wvec, mask, vals, idx, s, n, m, k, stream
     "gie_fused_blend_topk": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "gie_cuda_error_string": ((_I,), ctypes.c_char_p),

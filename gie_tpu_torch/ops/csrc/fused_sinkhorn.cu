@@ -18,38 +18,29 @@
 // writing the plan once (2 MiB at 1024x256: 0.63 us at 3.35 TB/s); the
 // arithmetic (~4 flops per element per round) is far below the card's
 // rate. In practice it is bound by latency: every round ends in a
-// grid-wide reduction (the column cap couples every row), and what the
-// first port lost was 17 launch gaps, K re-read from L2 twice a round and a
-// column pass on M/32 blocks.
+// grid-wide reduction (the column cap couples every row), a chain of
+// trips through L2 between SMs.
 //
 // Design, the Hopper counterpart of "hold the plan resident in VMEM":
 //  - One launch. A cooperative persistent grid of at most one block per SM
-//    (min(occupancy x SMs, SMs, N) blocks; fewer, larger bands measured
-//    slower, and more blocks would only add column partials). A grid that
-//    cannot be resident at once is refused by the launch, never run.
+//    (min(SMs, N) blocks; fewer, larger bands measured slower, PERF.md). A
+//    grid that cannot be resident at once is refused by the launch, never
+//    run.
 //  - K read from device memory once. Block b owns the band of `rows` whole
 //    rows starting at b*rows and copies its K slab (rows x M f32, 32 KB at
 //    1024x1024 on 132 SMs) into shared memory, where it stays for every
 //    round and the final pass: the whole of K is spread over the SMs'
 //    shared memory, as the TPU kernel keeps it in VMEM.
 //  - Row pass, local: whole rows, so u needs no communication.
-//  - Column pass: each block writes its [M] partials sum_{n in band} u_n
-//    K[n,m] to a caller-allocated scratch; block b then folds a slice of
-//    the columns over all blocks' partials, in block order, and writes the
-//    new v of that slice; every block reads all of v. Three ways to order
-//    those exchanges (`fold`):
-//      kFoldTagged       (default) every exchanged word carries its round
-//                        in its high half and is written and read as one
-//                        64-bit access: a reader polls until the tag
-//                        matches, with no barrier inside the rounds (one
-//                        grid sync at the start clears the words);
-//      kFoldTwoBarriers  grid sync before the fold and after it;
-//      kFoldCluster      clusters of up to 8 blocks fold their partials
-//                        through distributed shared memory first, so one
-//                        grid sync and two cluster syncs a round suffice.
-//    The default is the one measured fastest at 1024x256 and 1024x1024
-//    (hack/torch_sinkhorn_fold.py, PERF.md); gie_fused_sinkhorn_plan_variant
-//    runs any fold and grid cap, for measuring.
+//  - Column pass, no barrier: each block writes its [M] partials
+//    sum_{n in band} u_n K[n,m] to a caller-allocated scratch; block b
+//    folds a slice of the columns over all blocks' partials, in block
+//    order, and writes the new v of that slice; every block reads all of v.
+//    Each exchanged word carries its round in its high half and is written
+//    and read as one 64-bit access, so a reader polls until the tag
+//    matches: no grid barrier inside the rounds (one at the start clears
+//    the words). This measured faster than a grid barrier before and after
+//    each fold, and than a fold through thread-block clusters (PERF.md).
 //  - Final pass, local: plan = K u v normalized by its row sum, written
 //    once; v_out written once.
 // Deterministic: every sum is folded in a fixed order with explicitly
@@ -57,7 +48,7 @@
 // bitwise identical (on one device: the fold order follows the grid). The
 // kernel allocates nothing and never synchronizes the host, so it can be
 // captured in a CUDA graph. Cross-block data moves through L2 only
-// (__stcg/__ldcg and .relaxed.gpu accesses): L1 is not coherent across SMs.
+// (.relaxed.gpu accesses): L1 is not coherent across SMs.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -71,12 +62,6 @@ constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / kWarp;
-constexpr int kMaxCluster = 8;
-
-constexpr int kFoldTwoBarriers = 0;
-constexpr int kFoldCluster = 1;
-constexpr int kFoldTagged = 2;
-constexpr int kDefaultFold = kFoldTagged;
 // A tagged read gives up after this many polls (seconds) and yields NaN,
 // so a fault shows as a wrong result instead of a hung card.
 constexpr int kMaxPolls = 1 << 22;
@@ -131,39 +116,13 @@ __device__ __forceinline__ float capped(float vm, float colsum, float c) {
   return load > c ? __fmul_rn(vm, __fdiv_rn(c, fmaxf(load, 1e-9f))) : vm;
 }
 
-// Column partial of one band: sum over its rows, in order, of u_r K[r][c].
-__device__ __forceinline__ float band_partial(const float* slab,
-                                              const float* u_s, int nrows,
-                                              int m, int c) {
-  float acc = 0.0f;
-#pragma unroll 8
-  for (int r = 0; r < nrows; ++r) {
-    acc = __fadd_rn(acc, __fmul_rn(u_s[r], slab[static_cast<size_t>(r) * m + c]));
-  }
-  return acc;
-}
-
-// Columns in each of `parts` equal slices of [0, m).
-__host__ __device__ inline int slice_len(int m, int parts) {
-  return (m + parts - 1) / parts;
-}
-
-// Shared memory of one block, in floats: the K slab, v, u, and for the
-// cluster fold the block's column partials and its slice of the new v.
-inline size_t smem_floats(int rows, int m, int cluster, int fold) {
-  size_t f = static_cast<size_t>(rows) * m + m + rows;
-  if (fold == kFoldCluster) f += m + slice_len(m, cluster);
-  return f;
-}
-
-template <int kFold>
 __global__ void __launch_bounds__(kThreads)
 sinkhorn_persistent(const float* __restrict__ k, const float* __restrict__ cap,
                     const float* __restrict__ v_init, float* __restrict__ plan,
-                    float* v_out, float* part, int n, int m, int rows,
-                    int iters) {
+                    float* __restrict__ v_out,
+                    unsigned long long* __restrict__ words, int n, int m,
+                    int rows, int iters) {
   extern __shared__ __align__(16) float smem[];
-  cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
   const int lane = tid % kWarp;
   const int warp = tid / kWarp;
@@ -171,9 +130,11 @@ sinkhorn_persistent(const float* __restrict__ k, const float* __restrict__ cap,
   const int g = gridDim.x;
   const int row0 = b * rows;
   const int nrows = max(0, min(rows, n - row0));
-  float* slab = smem;
+  float* slab = smem;                              // [rows][m]
   float* v_s = slab + static_cast<size_t>(rows) * m;
   float* u_s = v_s + m;
+  unsigned long long* part = words;                // [g][m] tagged partials
+  unsigned long long* tv = words + static_cast<size_t>(g) * m;  // [m] v
 
   // The K slab, read from device memory once.
   const float* ks = k + static_cast<size_t>(row0) * m;
@@ -187,21 +148,20 @@ sinkhorn_persistent(const float* __restrict__ k, const float* __restrict__ cap,
   }
   for (int c = tid; c < m; c += kThreads) v_s[c] = __ldg(v_init + c);
   for (int r = tid; r < rows; r += kThreads) u_s[r] = 1.0f;
-  // The tagged fold's words: [g][m] partials, then [m] duals. The scratch
-  // comes uninitialized, so every word is cleared to tag 0 (rounds use
+  // The scratch comes uninitialized: clear every word to tag 0 (rounds use
   // tags 1, 2, ...) before any block writes a round.
-  unsigned long long* tpart = reinterpret_cast<unsigned long long*>(part);
-  unsigned long long* tv = tpart + static_cast<size_t>(g) * m;
-  if constexpr (kFold == kFoldTagged) {
-    for (int c = tid; c < m; c += kThreads) {
-      tpart[static_cast<size_t>(b) * m + c] = 0ull;
-      if (b == 0) tv[c] = 0ull;
-    }
-    grid.sync();
+  for (int c = tid; c < m; c += kThreads) {
+    part[static_cast<size_t>(b) * m + c] = 0ull;
+    if (b == 0) tv[c] = 0ull;
   }
-  __syncthreads();
+  cg::this_grid().sync();
 
+  // Block b folds columns [c0, c1).
+  const int per = (m + g - 1) / g;
+  const int c0 = b * per;
+  const int c1 = min(m, c0 + per);
   for (int it = 0; it < iters; ++it) {
+    const unsigned tag = static_cast<unsigned>(it) + 1u;
     // Row pass: one warp per row, lane l sums columns l, l+32, ...
     for (int r = warp; r < nrows; r += kWarps) {
       const float* kr = slab + static_cast<size_t>(r) * m;
@@ -215,114 +175,48 @@ sinkhorn_persistent(const float* __restrict__ k, const float* __restrict__ cap,
     }
     __syncthreads();
 
-    if constexpr (kFold == kFoldTagged) {
-      const unsigned tag = static_cast<unsigned>(it) + 1u;
-      for (int c = tid; c < m; c += kThreads) {
-        put_tagged(tpart + static_cast<size_t>(b) * m + c,
-                   band_partial(slab, u_s, nrows, m, c), tag);
+    // The band's column partials, rows in order.
+    for (int c = tid; c < m; c += kThreads) {
+      float acc = 0.0f;
+#pragma unroll 8
+      for (int r = 0; r < nrows; ++r) {
+        acc = __fadd_rn(acc, __fmul_rn(u_s[r], slab[static_cast<size_t>(r) * m + c]));
       }
-      // Block b folds its column slice as soon as every block's partial
-      // of it has landed; each block reads all of v as soon as each
-      // slice's owner has written it. Reusing the words across rounds is
-      // safe: a block writes round t+1's partials only after reading all
-      // of round t's v, which every owner wrote after reading all of
-      // round t's partials.
-      const int per = slice_len(m, g);
-      const int c0 = b * per;
-      const int c1 = min(m, c0 + per);
-      for (int c = c0 + warp; c < c1; c += kWarps) {
-        // Lane l sums blocks l, l+32, ... in order. The first reads of a
-        // batch of kBatch words all issue before any wait: one trip to L2
-        // per batch, not one per word.
-        float s = 0.0f;
-        for (int j0 = lane; j0 < g; j0 += kBatch * kWarp) {
-          unsigned long long w[kBatch];
-#pragma unroll
-          for (int q = 0; q < kBatch; ++q) {
-            const int j = j0 + q * kWarp;
-            w[q] = j < g ? load_tagged(tpart + static_cast<size_t>(j) * m + c) : 0ull;
-          }
-#pragma unroll
-          for (int q = 0; q < kBatch; ++q) {
-            const int j = j0 + q * kWarp;
-            if (j < g) {
-              s = __fadd_rn(s, await_tagged(w[q], tpart + static_cast<size_t>(j) * m + c, tag));
-            }
-          }
-        }
-        s = warp_sum(s);
-        if (lane == 0) put_tagged(tv + c, capped(v_s[c], s, __ldg(cap + c)), tag);
-      }
-      __syncthreads();
-      for (int c = tid; c < m; c += kThreads) {
-        v_s[c] = await_tagged(load_tagged(tv + c), tv + c, tag);
-      }
-      __syncthreads();
-    } else if constexpr (kFold == kFoldTwoBarriers) {
-      // part[b][c] = sum over the band, rows in order.
-      for (int c = tid; c < m; c += kThreads) {
-        __stcg(part + static_cast<size_t>(b) * m + c,
-               band_partial(slab, u_s, nrows, m, c));
-      }
-      grid.sync();
-      // Block b folds columns [c0, c1): one warp per column, lane l
-      // summing blocks l, l+32, ... in order, then the butterfly.
-      const int per = slice_len(m, g);
-      const int c0 = b * per;
-      const int c1 = min(m, c0 + per);
-      for (int c = c0 + warp; c < c1; c += kWarps) {
-        float s = 0.0f;
-#pragma unroll 4
-        for (int j = lane; j < g; j += kWarp) {
-          s = __fadd_rn(s, __ldcg(part + static_cast<size_t>(j) * m + c));
-        }
-        s = warp_sum(s);
-        if (lane == 0) __stcg(v_out + c, capped(v_s[c], s, __ldg(cap + c)));
-      }
-      grid.sync();
-      for (int c = tid; c < m; c += kThreads) v_s[c] = __ldcg(v_out + c);
-      __syncthreads();
-    } else {
-      cg::cluster_group cl = cg::this_cluster();
-      const int csize = static_cast<int>(cl.num_blocks());
-      const int rank = static_cast<int>(cl.block_rank());
-      const int cid = b / csize;
-      const int ncl = g / csize;
-      float* part_s = u_s + rows;
-      float* vsl_s = part_s + m;
-      const int per = slice_len(m, csize);
-      const int c0 = rank * per;
-      const int c1 = min(m, c0 + per);
-      // Double-buffered: a fast cluster may write round t+1's partials
-      // while a slow one still reads round t's.
-      float* pbuf = part + static_cast<size_t>(it & 1) * ncl * m;
-      for (int c = tid; c < m; c += kThreads) {
-        part_s[c] = band_partial(slab, u_s, nrows, m, c);
-      }
-      cl.sync();
-      // Rank j folds column slice j over the cluster's blocks, in rank order.
-      for (int c = c0 + tid; c < c1; c += kThreads) {
-        float s = 0.0f;
-        for (int q = 0; q < csize; ++q) s = __fadd_rn(s, cl.map_shared_rank(part_s, q)[c]);
-        __stcg(pbuf + static_cast<size_t>(cid) * m + c, s);
-      }
-      grid.sync();
-      // ... then over the clusters, in cluster order; every cluster
-      // computes the same v.
-      for (int c = c0 + tid; c < c1; c += kThreads) {
-        float s = 0.0f;
-#pragma unroll 4
-        for (int q = 0; q < ncl; ++q) {
-          s = __fadd_rn(s, __ldcg(pbuf + static_cast<size_t>(q) * m + c));
-        }
-        vsl_s[c - c0] = capped(v_s[c], s, __ldg(cap + c));
-      }
-      cl.sync();
-      for (int c = tid; c < m; c += kThreads) {
-        v_s[c] = cl.map_shared_rank(vsl_s, c / per)[c % per];
-      }
-      __syncthreads();
+      put_tagged(part + static_cast<size_t>(b) * m + c, acc, tag);
     }
+    // The fold of columns [c0, c1), one warp per column, as soon as every
+    // block's partial of it has landed: lane l sums blocks l, l+32, ... in
+    // order, then the butterfly. A batch's first reads are all in flight
+    // before any wait (one trip to L2 a batch, not one a word). Reusing the words
+    // across rounds is safe: a block writes round t+1's partials only
+    // after reading all of round t's v, which every owner wrote after
+    // reading all of round t's partials.
+    for (int c = c0 + warp; c < c1; c += kWarps) {
+      float s = 0.0f;
+      for (int j0 = lane; j0 < g; j0 += kBatch * kWarp) {
+        unsigned long long w[kBatch];
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) {
+          const int j = j0 + q * kWarp;
+          w[q] = j < g ? load_tagged(part + static_cast<size_t>(j) * m + c) : 0ull;
+        }
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) {
+          const int j = j0 + q * kWarp;
+          if (j < g) {
+            s = __fadd_rn(s, await_tagged(w[q], part + static_cast<size_t>(j) * m + c, tag));
+          }
+        }
+      }
+      s = warp_sum(s);
+      if (lane == 0) put_tagged(tv + c, capped(v_s[c], s, __ldg(cap + c)), tag);
+    }
+    __syncthreads();
+    // Every block reads all of v as each slice's owner writes it.
+    for (int c = tid; c < m; c += kThreads) {
+      v_s[c] = await_tagged(load_tagged(tv + c), tv + c, tag);
+    }
+    __syncthreads();
   }
 
   // Final pass: plan = K u v normalized by its row sum, written once.
@@ -340,14 +234,8 @@ sinkhorn_persistent(const float* __restrict__ k, const float* __restrict__ cap,
       pr[c] = acc > 0.0f ? __fdiv_rn(p, acc) : p;
     }
   }
-  // v_out already holds v after the two-barrier fold's last round; the
-  // cluster fold (and iters == 0) leave it to block 0.
-  if (b == 0 && (kFold != kFoldTwoBarriers || iters == 0)) {
+  if (b == 0) {
     for (int c = tid; c < m; c += kThreads) v_out[c] = v_s[c];
-  }
-  if constexpr (kFold == kFoldCluster) {
-    // No block leaves while a peer may still read its shared memory.
-    cg::this_cluster().sync();
   }
 }
 
@@ -355,14 +243,13 @@ sinkhorn_persistent(const float* __restrict__ k, const float* __restrict__ cap,
 struct Layout {
   int grid;            // blocks
   int rows;            // rows per block
-  int cluster;         // blocks per cluster (1 for the two-barrier fold)
   int smem_bytes;      // dynamic shared memory per block
   int smem_max;        // the most a block may have on this device
-  int scratch_floats;  // column partials the caller allocates
+  int scratch_floats;  // tagged words the caller allocates, in floats
   int sms;             // streaming multiprocessors
 };
 
-cudaError_t make_layout(int n, int m, int fold, int max_blocks, Layout* out) {
+cudaError_t make_layout(int n, int m, Layout* out) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -372,24 +259,13 @@ cudaError_t make_layout(int n, int m, int fold, int max_blocks, Layout* out) {
   e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev);
   if (e != cudaSuccess) return e;
-  int target = sms;
-  if (max_blocks > 0 && max_blocks < target) target = max_blocks;
-  int rows = (n + target - 1) / target;
-  int grid = (n + rows - 1) / rows;
-  int cluster = 1;
-  if (fold == kFoldCluster) {
-    cluster = kMaxCluster;
-    while (cluster > grid) cluster /= 2;
-    grid = (grid + cluster - 1) / cluster * cluster;
-  }
-  size_t bytes = smem_floats(rows, m, cluster, fold) * sizeof(float);
-  size_t scratch = static_cast<size_t>(m) *
-                   (fold == kFoldCluster  ? 2 * (grid / cluster)
-                    : fold == kFoldTagged ? 2 * (grid + 1)
-                                          : grid);
+  const int rows = (n + sms - 1) / sms;
+  const int grid = (n + rows - 1) / rows;
+  // slab [rows][m], v [m], u [rows]; words: [grid][m] partials, [m] v.
+  const size_t bytes = (static_cast<size_t>(rows) * m + m + rows) * sizeof(float);
+  const size_t scratch = 2 * static_cast<size_t>(m) * (grid + 1);
   out->grid = grid;
   out->rows = rows;
-  out->cluster = cluster;
   out->smem_bytes = bytes > 0x7fffffff ? 0x7fffffff : static_cast<int>(bytes);
   out->smem_max = smem_max;
   out->scratch_floats = scratch > 0x7fffffff ? 0x7fffffff : static_cast<int>(scratch);
@@ -397,119 +273,72 @@ cudaError_t make_layout(int n, int m, int fold, int max_blocks, Layout* out) {
   return cudaSuccess;
 }
 
-template <int kFold>
-cudaError_t launch(const float* k, const float* cap, const float* v_init,
-                   float* plan, float* v_out, float* scratch, int n, int m,
-                   int iters, const Layout& lay, cudaStream_t s) {
-  auto kernel = sinkhorn_persistent<kFold>;
-  if (lay.smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem_bytes);
-    if (e != cudaSuccess) return e;
-  }
-  cudaLaunchAttribute attrs[2];
-  attrs[0].id = cudaLaunchAttributeCooperative;
-  attrs[0].val.cooperative = 1;
-  attrs[1].id = cudaLaunchAttributeClusterDimension;
-  attrs[1].val.clusterDim.x = lay.cluster;
-  attrs[1].val.clusterDim.y = 1;
-  attrs[1].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(lay.grid);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = lay.smem_bytes;
-  cfg.stream = s;
-  cfg.attrs = attrs;
-  cfg.numAttrs = kFold == kFoldCluster ? 2 : 1;
-  // A grid that cannot be resident at once is refused here
-  // (cudaErrorCooperativeLaunchTooLarge), never run.
-  return cudaLaunchKernelEx(&cfg, kernel, k, cap, v_init, plan, v_out,
-                            scratch, n, m, lay.rows, iters);
-}
-
 }  // namespace
 
-// The geometry of a call, for the caller to size the scratch and check the
-// shared memory: out = {grid, rows, cluster, smem_bytes, smem_max,
-// scratch_floats, sms, blocks_per_sm}. fold < 0 picks the default fold;
-// max_blocks <= 0 means one block per SM. Returns a cudaError_t.
-extern "C" int gie_fused_sinkhorn_layout(int n, int m, int fold,
-                                         int max_blocks, int* out) {
-  if (fold < 0) fold = kDefaultFold;
-  if (fold != kFoldTwoBarriers && fold != kFoldCluster && fold != kFoldTagged) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// The geometry of a call on the current device, for the caller to size
+// the scratch and check the shared memory: out = {grid, rows, smem_bytes,
+// smem_max, scratch_floats, sms, blocks_per_sm}. Returns a cudaError_t.
+extern "C" int gie_fused_sinkhorn_layout(int n, int m, int* out) {
   Layout lay;
-  cudaError_t e = make_layout(n > 0 ? n : 1, m > 0 ? m : 1, fold, max_blocks,
-                              &lay);
+  cudaError_t e = make_layout(n > 0 ? n : 1, m > 0 ? m : 1, &lay);
   if (e != cudaSuccess) return static_cast<int>(e);
   int per_sm = 0;
   if (lay.smem_bytes <= lay.smem_max) {
-    const void* kernel =
-        fold == kFoldCluster  ? reinterpret_cast<const void*>(sinkhorn_persistent<kFoldCluster>)
-        : fold == kFoldTagged ? reinterpret_cast<const void*>(sinkhorn_persistent<kFoldTagged>)
-                              : reinterpret_cast<const void*>(sinkhorn_persistent<kFoldTwoBarriers>);
     if (lay.smem_bytes > 48 * 1024) {
-      e = cudaFuncSetAttribute(kernel,
+      e = cudaFuncSetAttribute(sinkhorn_persistent,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                lay.smem_bytes);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, lay.smem_bytes);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sinkhorn_persistent, kThreads, lay.smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   out[0] = lay.grid;
   out[1] = lay.rows;
-  out[2] = lay.cluster;
-  out[3] = lay.smem_bytes;
-  out[4] = lay.smem_max;
-  out[5] = lay.scratch_floats;
-  out[6] = lay.sms;
-  out[7] = per_sm;
+  out[2] = lay.smem_bytes;
+  out[3] = lay.smem_max;
+  out[4] = lay.scratch_floats;
+  out[5] = lay.sms;
+  out[6] = per_sm;
   return 0;
 }
 
 // k f32[n, m], cap f32[m], v_init f32[m] -> plan f32[n, m], v_out f32[m].
-// scratch holds the column partials: at least the layout's scratch_floats
-// floats, caller-allocated. All pointers are device pointers, row-major and
-// contiguous. One cooperative launch with the given fold (< 0: default)
-// and grid cap (<= 0: one block per SM). Returns a cudaError_t (0 =
-// launched); cudaErrorInvalidValue when the K slab does not fit in shared
-// memory.
-extern "C" int gie_fused_sinkhorn_plan_variant(
-    const float* k, const float* cap, const float* v_init, float* plan,
-    float* v_out, float* scratch, int n, int m, int iters, void* stream,
-    int fold, int max_blocks) {
-  if (n <= 0 || m <= 0) return 0;
-  if (fold < 0) fold = kDefaultFold;
-  Layout lay;
-  cudaError_t e = make_layout(n, m, fold, max_blocks, &lay);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (lay.smem_bytes > lay.smem_max) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  iters = iters > 0 ? iters : 0;
-  if (fold == kFoldCluster) {
-    e = launch<kFoldCluster>(k, cap, v_init, plan, v_out, scratch, n, m, iters,
-                             lay, s);
-  } else if (fold == kFoldTwoBarriers) {
-    e = launch<kFoldTwoBarriers>(k, cap, v_init, plan, v_out, scratch, n, m,
-                                 iters, lay, s);
-  } else if (fold == kFoldTagged) {
-    e = launch<kFoldTagged>(k, cap, v_init, plan, v_out, scratch, n, m, iters,
-                            lay, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The main path's entry: the default fold, one block per SM at most.
+// scratch: at least the layout's scratch_floats floats, 8-byte aligned,
+// caller-allocated. All pointers are device pointers, row-major and
+// contiguous. One cooperative launch on `stream`. Returns a cudaError_t (0
+// = launched): cudaErrorInvalidValue when the K slab does not fit in shared
+// memory, cudaErrorCooperativeLaunchTooLarge when the grid cannot be
+// resident at once.
 extern "C" int gie_fused_sinkhorn_plan(const float* k, const float* cap,
                                        const float* v_init, float* plan,
                                        float* v_out, float* scratch, int n,
                                        int m, int iters, void* stream) {
-  return gie_fused_sinkhorn_plan_variant(k, cap, v_init, plan, v_out, scratch,
-                                         n, m, iters, stream, -1, 0);
+  if (n <= 0 || m <= 0) return 0;
+  Layout lay;
+  cudaError_t e = make_layout(n, m, &lay);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (lay.smem_bytes > lay.smem_max) return static_cast<int>(cudaErrorInvalidValue);
+  if (lay.smem_bytes > 48 * 1024) {
+    e = cudaFuncSetAttribute(sinkhorn_persistent,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             lay.smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaLaunchAttribute coop;
+  coop.id = cudaLaunchAttributeCooperative;
+  coop.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(lay.grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = lay.smem_bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &coop;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, sinkhorn_persistent, k, cap, v_init, plan,
+                         v_out, reinterpret_cast<unsigned long long*>(scratch),
+                         n, m, lay.rows, iters > 0 ? iters : 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }

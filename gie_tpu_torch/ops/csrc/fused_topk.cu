@@ -20,11 +20,11 @@
 // Design: one warp per row, no [N, M] or [M] array anywhere, so every M
 // works (and N, and k up to kMaxK):
 //  - Loads. S is a template parameter (1..kMaxS), so all S loads of a step
-//    issue before the blend. Where M % 4 == 0 and the pointers allow, lane
-//    l reads 16 bytes of each scorer (columns 4l..4l+3 of a 128-column
-//    chunk) and 4 mask bytes, two chunks a step: 2*S*512 B in flight per
-//    warp (6 KB at S=6), ~48 KB per SM at 1024 rows. Otherwise lane l reads
-//    columns l + 32j, four a step.
+//    are in flight before the blend. Where M % 4 == 0 and the pointers
+//    allow, lane l reads 16 bytes of each scorer (columns 4l..4l+3 of a
+//    128-column chunk) and 4 mask bytes, two chunks a step: 2*S*512 B in
+//    flight per warp (6 KB at S=6), ~48 KB per SM at 1024 rows. Otherwise
+//    lane l reads columns l + 32j, four a step.
 //  - Top k without the row. Each lane keeps the best L >= k (value, index)
 //    pairs of its own columns, by value descending then index ascending,
 //    in registers (columns arrive in increasing index order, so an equal

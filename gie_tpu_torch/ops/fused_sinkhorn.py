@@ -16,18 +16,12 @@ import torch
 
 from gie_tpu_torch.ops import build, check_input, current, on_cuda, raw_stream
 
-# The kernel's column folds (ops/csrc/fused_sinkhorn.cu).
-FOLD_TWO_BARRIERS = 0
-FOLD_CLUSTER = 1
-FOLD_TAGGED = 2
-
 
 class Layout(NamedTuple):
     """The launch geometry the kernel picks for one shape on one device."""
 
     grid: int
     rows: int
-    cluster: int
     smem_bytes: int
     smem_max: int
     scratch_floats: int
@@ -38,19 +32,17 @@ class Layout(NamedTuple):
 _layouts: dict = {}
 
 
-def layout(device: torch.device, n: int, m: int, fold: Optional[int] = None,
-           max_blocks: int = 0) -> Layout:
+def layout(device: torch.device, n: int, m: int) -> Layout:
     """The kernel's grid, band and scratch for an [n, m] solve (cached per
     device and shape). Raises ValueError when a block's K slab does not fit
     in shared memory: the kernel takes N up to SMs x the rows one block
     holds (7128 rows at M=1024 on a 132-SM H100)."""
-    key = (device.index, n, m, fold, max_blocks)
+    key = (device.index, n, m)
     lay = _layouts.get(key)
     if lay is None:
-        out = (ctypes.c_int * 8)()
+        out = (ctypes.c_int * len(Layout._fields))()
         with current(device):
-            err = build.library().gie_fused_sinkhorn_layout(
-                n, m, -1 if fold is None else fold, max_blocks, out)
+            err = build.library().gie_fused_sinkhorn_layout(n, m, out)
         build.check(err, "fused_sinkhorn_plan")
         lay = _layouts[key] = Layout(*out)
     if lay.smem_bytes > lay.smem_max:
@@ -105,42 +97,22 @@ def fused_sinkhorn_plan(
     if not on_cuda(kernel_matrix, cap, v_init):
         return fused_sinkhorn_plan_reference(
             kernel_matrix, cap, v_init, iters=iters)
-    return launch(kernel_matrix, cap, v_init, iters=iters)
-
-
-def launch(
-    kernel_matrix: torch.Tensor,
-    cap: torch.Tensor,
-    v_init: torch.Tensor,
-    *,
-    iters: int = 8,
-    fold: Optional[int] = None,
-    max_blocks: int = 0,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the CUDA kernel on CUDA tensors. `fold` (None: the
-    default) and `max_blocks` (0: one block per SM) pick another geometry,
-    for measuring the kernel; the main path leaves both unset."""
-    n, m = kernel_matrix.shape
+    n = kernel_matrix.shape[0]
     check_input(kernel_matrix, "kernel_matrix", torch.float32, (n, m))
     check_input(cap, "cap", torch.float32, (m,))
     check_input(v_init, "v_init", torch.float32, (m,))
     dev = kernel_matrix.device
-    lay = layout(dev, n, m, fold, max_blocks)
+    lay = layout(dev, n, m)
     lib = build.library()
     plan = torch.empty((n, m), dtype=torch.float32, device=dev)
     v_out = torch.empty((m,), dtype=torch.float32, device=dev)
-    scratch = torch.empty((max(lay.scratch_floats, 1),), dtype=torch.float32,
+    scratch = torch.empty((lay.scratch_floats,), dtype=torch.float32,
                           device=dev)
-    args = (kernel_matrix.data_ptr(), cap.data_ptr(), v_init.data_ptr(),
-            plan.data_ptr(), v_out.data_ptr(), scratch.data_ptr(), n, m,
-            iters)
     with current(dev):
-        stream = raw_stream(dev)
-        if fold is None and max_blocks == 0:
-            err = lib.gie_fused_sinkhorn_plan(*args, stream)
-        else:
-            err = lib.gie_fused_sinkhorn_plan_variant(
-                *args, stream, -1 if fold is None else fold, max_blocks)
+        err = lib.gie_fused_sinkhorn_plan(
+            kernel_matrix.data_ptr(), cap.data_ptr(), v_init.data_ptr(),
+            plan.data_ptr(), v_out.data_ptr(), scratch.data_ptr(), n, m,
+            iters, raw_stream(dev))
     build.check(err, "fused_sinkhorn_plan")
     fused_sinkhorn_plan.launches += 1
     return plan, v_out

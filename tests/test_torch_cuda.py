@@ -17,10 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from gie_tpu_torch.ops import fused_sinkhorn
 from gie_tpu_torch.ops.fused_sinkhorn import (
     fused_sinkhorn_plan,
     fused_sinkhorn_plan_reference,
+    layout,
 )
 from gie_tpu_torch.ops.fused_topk import (
     MAX_K,
@@ -72,22 +72,6 @@ def test_sinkhorn_kernel_matches_plain(dev, n, m):
         assert (plan[min(3, n - 1)] == 0).all()       # the zero row
 
 
-@pytest.mark.parametrize("fold", [fused_sinkhorn.FOLD_TWO_BARRIERS,
-                                  fused_sinkhorn.FOLD_CLUSTER,
-                                  fused_sinkhorn.FOLD_TAGGED])
-@pytest.mark.parametrize("max_blocks", [0, 32])
-def test_sinkhorn_folds_match_plain(dev, fold, max_blocks):
-    k, cap, warm = _sinkhorn_inputs(1024, 256, seed=3, dev=dev)
-    plan, v = fused_sinkhorn.launch(k, cap, warm, fold=fold,
-                                    max_blocks=max_blocks)
-    plan_ref, v_ref = fused_sinkhorn_plan_reference(k, cap, warm)
-    torch.testing.assert_close(plan, plan_ref, atol=1e-5, rtol=0)
-    torch.testing.assert_close(v, v_ref, atol=1e-5, rtol=0)
-    lay = fused_sinkhorn.layout(dev, 1024, 256, fold, max_blocks)
-    assert lay.grid <= (max_blocks or lay.sms) + lay.cluster - 1
-    assert lay.grid % lay.cluster == 0
-
-
 def test_sinkhorn_call_is_one_device_launch(dev):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -103,6 +87,9 @@ def test_sinkhorn_call_is_one_device_launch(dev):
                if e.device_type == DeviceType.CUDA]
     assert [(e.count, "sinkhorn_persistent" in e.key) for e in kernels] == [
         (1, True)], [(e.key, e.count) for e in kernels]
+    lay = layout(dev, 1024, 256)            # one band of whole rows per SM
+    assert lay.rows == -(-1024 // lay.sms) and lay.grid <= lay.sms
+    assert lay.grid * lay.rows >= 1024 > (lay.grid - 1) * lay.rows
 
 
 def _topk_inputs(s, n, m, seed, dev):
