@@ -22,7 +22,17 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      feedback; each wave is replayed on a CPU Scheduler from the same state
      with the same Gumbel noise and the picks compared;
   4. the same for ProfileConfig(picker="topk", use_pallas_topk=True);
-  5. the `kernels` line: launches on the main path, error, times, bound.
+  5. the pick service, once per configuration of phases 3-4: a Datastore
+     of 256 ready pods, a MetricsStore of north-star rows and
+     BatchingTPUPicker(max_wait_s=0.002) over a Scheduler on the card.
+     pick_async's handoff first (a 1024 x 256 wave queued behind a spin
+     must return with its event pending); then 4 rounds of 1024
+     concurrent pick() calls released by a barrier, served feedback for
+     half of each round, every answer checked, the path's kernel counted
+     against the waves dispatched; then 32 sequential picks replayed
+     through a CPU picker with the same noise, primaries equal;
+  6. the `kernels` line: launches on the main path (phases 3-5), error,
+     times, bound.
 Then the card's name and power limit (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -34,7 +44,9 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -46,6 +58,9 @@ F32_FLOPS_PER_S = 67e12
 N, M = 1024, 256
 WAVES = 5
 BASE = b"SYSTEM: You are a helpful assistant specialised in task %d. "
+ROUNDS, PARITY_PICKS = 4, 32
+ADAPTERS = ["adapter-%d" % k for k in range(12)]
+SPIN = 10_000_000          # torch.cuda._sleep cycles: ~5 ms on an H100
 
 
 def emit(obj: dict) -> None:
@@ -351,6 +366,194 @@ def phase_slice(dev, name, cfg, weights, kernels, own) -> dict:
     return summary
 
 
+def pick_stack(dev, cfg, weights, noise_source=None):
+    """A Datastore of M ready pods in one pool, a MetricsStore of the
+    north-star rows (queue 0-49, KV 0-0.95, three resident adapters of
+    twelve, on a fixed clock) and a BatchingTPUPicker over a Scheduler on
+    `dev`. -> (scheduler, datastore, picker)."""
+    from gie_tpu_torch.datastore import Datastore
+    from gie_tpu_torch.datastore.objects import EndpointPool, Pod
+    from gie_tpu_torch.metricsio import MetricsStore
+    from gie_tpu_torch.sched import Scheduler
+    from gie_tpu_torch.sched.batching import BatchingTPUPicker
+    from gie_tpu_torch.sched.constants import Metric
+    from gie_tpu_torch.utils.lora import LoraRegistry
+
+    sched = Scheduler(cfg, weights, device=dev, noise_source=noise_source)
+    ms = MetricsStore(clock=lambda: 0.0)
+    ds = Datastore(on_slot_reclaimed=lambda s: (sched.evict_endpoint(s),
+                                                ms.remove(s)))
+    ds.pool_set(EndpointPool({"app": "vllm"}, [8000], "default"))
+    for i in range(M):
+        ds.pod_update_or_add(Pod(name=f"vllm-{i}", labels={"app": "vllm"},
+                                 ip=f"10.0.{i // 200}.{i % 200 + 1}"))
+    registry = LoraRegistry()
+    ids = [registry.id_for(a) for a in ADAPTERS]
+    rng = np.random.default_rng(0)
+    ms.update_rows([
+        (ep.slot, {Metric.QUEUE_DEPTH: float(rng.integers(0, 50)),
+                   Metric.KV_CACHE_UTIL: float(rng.uniform(0, 0.95)),
+                   Metric.MAX_LORA: 8.0},
+         [ids[j] for j in rng.choice(12, 3, replace=False)], ())
+        for ep in ds.endpoints()], now=0.0)
+    picker = BatchingTPUPicker(sched, ds, ms, lora_registry=registry,
+                               max_wait_s=0.002)
+    return sched, ds, picker
+
+
+def pick_requests(w, n):
+    """Round w of the north-star mix as PickRequests."""
+    from gie_tpu_torch.extproc.server import PickRequest
+
+    rng = np.random.default_rng(100 + w)
+    lora = rng.integers(-1, 12, n)
+    return [PickRequest(
+        headers={},
+        body=(BASE % ((i + w) % 16)) * 6 + b"user question %d" % (i + N * w),
+        model="" if lora[i] < 0 else ADAPTERS[lora[i]]) for i in range(n)]
+
+
+def burst(picker, cands, reqs):
+    """len(reqs) concurrent pick() calls released together by a barrier.
+    -> (results, per-pick latencies in s, wall time in s)."""
+    n = len(reqs)
+    barrier = threading.Barrier(n)
+    out, errs = [None] * n, []
+    t_in, t_out = [0.0] * n, [0.0] * n
+
+    def one(i):
+        barrier.wait(120)
+        t_in[i] = time.perf_counter()
+        try:
+            out[i] = picker.pick(reqs[i], cands)
+        except Exception as e:  # collected: a failed pick fails the phase
+            errs.append(repr(e))
+        t_out[i] = time.perf_counter()
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(180)
+    check(not any(t.is_alive() for t in threads), "picks still waiting")
+    check(not errs, f"{len(errs)} picks failed, first: {errs[:1]}")
+    lat = [b - a for a, b in zip(t_in, t_out)]
+    return out, lat, max(t_out) - min(t_in)
+
+
+def phase_picker(dev, name, cfg, weights, kernels, own) -> dict:
+    """The pick service on the card for one configuration."""
+    from gie_tpu_torch.runtime import metrics as own_metrics
+    from gie_tpu_torch.sched.profile import gumbel_noise
+
+    sched, ds, picker = pick_stack(dev, cfg, weights)
+    try:
+        # The handoff: a full wave from host tensors, queued behind ~100 ms
+        # of device work, must come back with its event still pending.
+        eps, wave = workload(torch.device("cpu"))
+        reqs = wave(0)
+        for _ in range(2):
+            sched.pick(reqs, eps)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20 * SPIN)
+        t0 = time.perf_counter()
+        pending = sched.pick_async(reqs, eps)
+        handoff_ms = (time.perf_counter() - t0) * 1e3
+        queued = not pending.event.query()
+        check(queued, f"{name}: pick_async returned after its wave ran "
+                      f"({handoff_ms:.2f} ms of host time)")
+        pending.materialize()
+
+        cands = ds.pick_candidates()
+        live = {ep.hostport for ep in ds.endpoints()}
+        allowed = {ep.hostport for ep in cands}
+        burst(picker, cands, pick_requests(-1, N))          # warm-up round
+        torch.cuda.synchronize()
+        own_metrics.reset()
+        for fn in kernels.values():
+            fn.launches = 0
+        lat, wall, answered, released = [], 0.0, 0, []
+        for w in range(ROUNDS):
+            res, l, t = burst(picker, cands, pick_requests(w, N))
+            lat += l
+            wall += t
+            for r in res:
+                check(r is not None, f"{name}: a pick came back empty")
+                check(r.endpoint in allowed and r.endpoint in live,
+                      f"{name}: primary {r.endpoint} not a live candidate")
+                ranked = [r.endpoint] + list(r.fallbacks)
+                check(len(set(ranked)) == len(ranked),
+                      f"{name}: repeated endpoint in {ranked}")
+                answered += 1
+            load = sched.snapshot_assumed_load()
+            check(bool(np.isfinite(load).all()), f"{name}: load not finite")
+            for r in res[::2]:
+                picker.observe_served(r.endpoint, SimpleNamespace(
+                    pick_result=r, resp_status=200,
+                    picked_at=time.monotonic(), headers={}))
+            after = sched.snapshot_assumed_load()
+            check(bool(np.isfinite(after).all())
+                  and float(after.sum()) < float(load.sum()),
+                  f"{name}: served feedback did not release load")
+            released.append([float(load.sum()), float(after.sum())])
+        waves = int(own_metrics.PIPELINE_WAVES.value())
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        check(answered == ROUNDS * N,
+              f"{name}: {answered} of {ROUNDS * N} picks answered")
+        check(launches[own] == waves,
+              f"{name}: {launches[own]} kernel launches for {waves} waves")
+        sizes = own_metrics.BATCH_SIZE.recent()
+        hist = dict(zip([str(b) for b in own_metrics.BATCH_SIZE.buckets]
+                        + ["+Inf"], own_metrics.BATCH_SIZE.bucket_counts()))
+        summary = {
+            "phase": "picker", "config": name, "endpoints": len(live),
+            "pick_async_host_ms": handoff_ms, "queued_at_return": queued,
+            "picks": answered, "answered": answered,
+            "picks_per_s": answered / wall,
+            "pick_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "pick_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "waves": waves, "launches": launches,
+            "wave_size_hist": {k: v for k, v in hist.items() if v},
+            "wave_size_median": statistics.median(sizes),
+            "host_assembly_ms_median": statistics.median(
+                own_metrics.HOST_ASSEMBLY.recent()) * 1e3,
+            "device_wait_ms_median": statistics.median(
+                own_metrics.DEVICE_WAIT.recent()) * 1e3,
+            "load_sum_before_after_release": released,
+        }
+    finally:
+        picker.close()
+
+    # Parity: sequential picks through a card picker and a CPU picker,
+    # each wave's noise drawn on the card and replayed to the CPU.
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    drawn = []
+
+    def noise(shape):
+        drawn.append(gumbel_noise(shape, gen, dev))
+        return drawn[-1]
+
+    stacks = [pick_stack(dev, cfg, weights, noise),
+              pick_stack(torch.device("cpu"), cfg, weights,
+                         lambda shape: drawn[-1].cpu())]
+    try:
+        equal = 0
+        for i in range(PARITY_PICKS):
+            got = [st[2].pick(pick_requests(50 + i, 1)[0],
+                              st[1].pick_candidates()) for st in stacks]
+            equal += got[0].endpoint == got[1].endpoint
+    finally:
+        for st in stacks:
+            st[2].close()
+    check(equal == PARITY_PICKS, f"{name}: {equal} of {PARITY_PICKS} "
+                                 "sequential primaries equal the CPU replay")
+    summary["parity_primary_equal"] = equal
+    summary["parity_picks"] = PARITY_PICKS
+    emit(summary)
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -389,16 +592,22 @@ def main() -> int:
                        ProfileConfig(picker="topk", use_pallas_topk=True),
                        None, kernels, "fused_blend_topk")
 
+    pick_sink = phase_picker(dev, "tuned+use_pallas_sinkhorn", cfg, weights,
+                             kernels, "fused_sinkhorn_plan")
+    pick_topk = phase_picker(dev, "topk+use_pallas_topk",
+                             ProfileConfig(picker="topk", use_pallas_topk=True),
+                             None, kernels, "fused_blend_topk")
+
     line = []
-    for rec, summary, source, replaces in (
-        (records["fused_sinkhorn_plan"], sink,
+    for rec, phases, source, replaces in (
+        (records["fused_sinkhorn_plan"], (sink, pick_sink),
          "gie_tpu_torch/ops/csrc/fused_sinkhorn.cu",
          "gie_tpu/ops/fused_sinkhorn.py:66"),
-        (records["fused_blend_topk"], topk,
+        (records["fused_blend_topk"], (topk, pick_topk),
          "gie_tpu_torch/ops/csrc/fused_topk.cu",
          "gie_tpu/ops/fused_topk.py:80"),
     ):
-        launches = summary["launches"][rec["name"]]
+        launches = sum(p["launches"][rec["name"]] for p in phases)
         check(launches >= 1, f"{rec['name']}: not launched on the main path")
         line.append({
             "name": rec["name"], "route": "cuda", "source": source,

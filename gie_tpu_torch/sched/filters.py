@@ -1,6 +1,6 @@
 """Vectorized filter stage (port of gie_tpu/sched/filters.py): every filter
 is a boolean mask over the [N, M] request x endpoint grid, AND-ed
-together."""
+together; `drain_filter` is their host-side sibling over candidate lists."""
 
 from __future__ import annotations
 
@@ -8,6 +8,21 @@ import torch
 
 from gie_tpu_torch.sched import constants as C
 from gie_tpu_torch.sched.types import EndpointBatch, RequestBatch
+
+
+def drain_filter(candidates: list) -> list:
+    """Graceful-drain candidate prefilter, on the host (docs/RESILIENCE.md):
+    DRAINING endpoints (terminating pods completing their in-flight
+    streams) leave a pick's candidate set before wave assembly, so the
+    cycle sees them only through the subset mask.
+
+    Availability beats drain: when every candidate is draining the set is
+    returned unchanged, as it is when none is (callers compare `is`).
+    """
+    kept = [ep for ep in candidates if not getattr(ep, "draining", False)]
+    if not kept or len(kept) == len(candidates):
+        return candidates
+    return kept
 
 
 def base_mask(reqs: RequestBatch, eps: EndpointBatch) -> torch.Tensor:

@@ -78,16 +78,17 @@ def _cell(ep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return ep // 32, torch.bitwise_left_shift(torch.ones_like(ep), ep % 32)
 
 
-def _last_wins(target: torch.Tensor, valid: torch.Tensor,
-               size: int) -> torch.Tensor:
-    """bool[L]: lane l is valid and no later valid lane has the same
-    target. Targets lie in [0, size)."""
+def _winners(target: torch.Tensor, valid: torch.Tensor,
+             size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Last valid lane per target -> (int64[size] its lane id, -1 where no
+    valid lane targets it; bool[L] lane l is that winner). Targets lie in
+    [0, size)."""
     lane = torch.arange(target.shape[0], dtype=torch.int64,
                         device=target.device)
     lane_or_neg = torch.where(valid, lane, torch.full_like(lane, -1))
     winner = torch.full((size,), -1, dtype=torch.int64, device=target.device)
     winner.scatter_reduce_(0, target, lane_or_neg, "amax")
-    return valid & (winner[target] == lane)
+    return winner, valid & (winner[target] == lane)
 
 
 def insert(
@@ -105,6 +106,9 @@ def insert(
     against the table as it was before this call and applied first; each
     lane then ORs its bit into the cell as it stood after the evictions,
     and of several lanes on one cell the last lane's value stands.
+
+    Every step is a fixed-shape scatter or select: no boolean indexing,
+    whose nonzero() would make the host wait for the device mid-cycle.
     """
     n, cmax = reqs.chunk_hashes.shape
     nslots = table.keys.shape[0]
@@ -124,21 +128,25 @@ def insert(
     cell = flat_slot * w + word
     # Evictions and winning lanes are decided on the table as it was
     # before this call, as in the reference.
-    old_keys_winner = _last_wins(flat_slot, valid, nslots)
-    evict_winner = _last_wins(flat_slot, evict, nslots)
-    cell_winner = _last_wins(cell, valid, nslots * w)
+    row_winner, _ = _winners(flat_slot, valid, nslots)
+    evicted, _ = _winners(flat_slot, evict, nslots)
+    _, cell_winner = _winners(cell, valid, nslots * w)
 
-    # 1) Evictions: clear the packed presence row.
-    table.present[flat_slot[evict_winner]] = 0
-    # 2) OR the picked endpoint's bit into its (row, word) cell, reading
-    #    the cell as the evictions left it.
+    # 1) Evictions: clear the packed presence row of every row some lane
+    #    evicts.
+    table.present.masked_fill_((evicted >= 0)[:, None], 0)
+    # 2) OR the winning lane's bit into its (row, word) cell, reading the
+    #    cell as the evictions left it. Words are >= 0, so an amax with
+    #    0 from every other lane leaves the winner's value.
     flat_present = table.present.view(-1)
-    win_cell = cell[cell_winner]
-    flat_present[win_cell] = flat_present[win_cell] | bit[cell_winner]
-    # 3) Keys and ages of every touched row.
-    win_slot = flat_slot[old_keys_winner]
-    table.keys[win_slot] = flat_hash[old_keys_winner]
-    table.ages[win_slot] = tick
+    won = torch.where(cell_winner, flat_present[cell] | bit,
+                      torch.zeros_like(bit))
+    flat_present.scatter_reduce_(0, cell, won, "amax")
+    # 3) Keys and ages of every touched row, from its winning lane.
+    touched = row_winner >= 0
+    lane = torch.clamp(row_winner, min=0)
+    table.keys.copy_(torch.where(touched, flat_hash[lane], table.keys))
+    table.ages.copy_(torch.where(touched, tick, table.ages))
     return table
 
 

@@ -12,6 +12,7 @@ feedback that reconciles assumed load.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 from typing import Callable, Optional
 
@@ -39,6 +40,9 @@ _LATER = {
     "picker": "the random-picker slice",
     "predictor_fn": "the latency-predictor slice",
     "mesh": "the multi-device slice",
+    "resilience": "the resilience slice",
+    "federation": "the federation slice",
+    "background_warm": "the warm-lattice slice",
 }
 
 
@@ -159,6 +163,16 @@ def feature_schema(cfg: ProfileConfig) -> tuple[str, ...]:
     return tuple(cols)
 
 
+@functools.lru_cache(maxsize=64)
+def _weight_vector(weights: Weights, names: tuple,
+                   device: torch.device) -> torch.Tensor:
+    """The blend weights of `names` as f32[S] on `device`, made once per
+    (weights, columns, device): a host-to-device copy on every wave would
+    make the host wait for the device's queue. Callers never write it."""
+    return torch.tensor([getattr(weights, k) for k in names],
+                        dtype=torch.float32, device=device)
+
+
 def build_stages(
     state: SchedState,
     reqs: RequestBatch,
@@ -216,8 +230,7 @@ def build_stages(
         named["lora"] = scorers.lora_affinity_score(reqs, eps, membership)
 
     stacked = torch.stack(list(named.values()))               # [S, N, M]
-    wvec = torch.tensor([getattr(weights, k) for k in named],
-                        dtype=torch.float32, device=mask.device)
+    wvec = _weight_vector(weights, tuple(named), mask.device)
     total = None
     if not (cfg.picker == "topk" and cfg.use_pallas_topk):
         total = torch.einsum("s,snm->nm", wvec, stacked) / torch.clamp(
@@ -308,25 +321,44 @@ def scheduling_cycle(
 
 @dataclasses.dataclass
 class PendingWave:
-    """Handle to one dispatched scheduling cycle. On CUDA the cycle's
-    kernels are queued on the stream when pick_async returns;
-    `materialize()` waits for them and returns host rows [0, n)."""
+    """Handle to one dispatched scheduling cycle.
 
-    result: PickResult        # device tensors, rows [0, n) are live
+    On CUDA, pick_async returns with the cycle's kernels and the copies of
+    its live result rows (and of the load snapshot) into pinned host
+    tensors queued on the stream, followed by `event`: `materialize()`
+    waits on that event alone, so it never waits for waves queued after
+    this one. On the CPU the tensors are the results and `event` is None.
+    """
+
+    result: PickResult        # host tensors, rows [0, n) are live
     n: int                    # pre-padding request count
-    load_snapshot: Optional[torch.Tensor] = None  # copy of post-cycle load
+    load_snapshot: Optional[torch.Tensor] = None  # post-cycle load, host
+    event: Optional[torch.cuda.Event] = None
+
+    def _wait(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
 
     def materialize(self) -> PickResult:
         """-> PickResult of numpy arrays, rows [0, n)."""
+        self._wait()
         return PickResult(**{
             f.name: (None if getattr(self.result, f.name) is None
-                     else getattr(self.result, f.name).cpu().numpy()[: self.n])
+                     else getattr(self.result, f.name).numpy()[: self.n])
             for f in dataclasses.fields(PickResult)})
 
     def materialize_load(self) -> Optional[np.ndarray]:
         if self.load_snapshot is None:
             return None
-        return self.load_snapshot.cpu().numpy()
+        self._wait()
+        return self.load_snapshot.numpy()
+
+
+def _to_host_async(t: torch.Tensor) -> torch.Tensor:
+    """A pinned host tensor that a copy of device tensor `t`, queued on
+    the current stream, fills."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return host.copy_(t, non_blocking=True)
 
 
 def check_state_shapes(state: SchedState) -> bool:
@@ -375,10 +407,19 @@ def gumbel_noise(shape: tuple, generator: torch.Generator,
     return -torch.log(-torch.log(u))
 
 
-def _to_device(batch, device):
+def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """`t` on `device`. A host tensor bound for CUDA goes through pinned
+    memory as a copy queued on the current stream: a copy from pageable
+    memory would make the host wait for everything queued before it."""
+    if t.device == device or device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _batch_to_device(batch, device):
     """The same batch with every tensor on `device`."""
     return type(batch)(**{
-        f.name: getattr(batch, f.name).to(device)
+        f.name: _to_device(getattr(batch, f.name), device)
         for f in dataclasses.fields(batch)})
 
 
@@ -386,13 +427,17 @@ def resolve_device(device) -> torch.device:
     """The scheduler's device: CUDA unless the caller names another. With
     no CUDA and no explicit device this raises; it never moves to the CPU
     on its own."""
-    if device is not None:
-        return torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        return dev
     if not torch.cuda.is_available():
         raise RuntimeError(
             "gie_tpu_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run on the CPU")
-    return torch.device("cuda")
+    # A definite index: the threads that dispatch and complete waves may
+    # each have another current device.
+    return dev if dev.index is not None else torch.device(
+        "cuda", torch.cuda.current_device())
 
 
 class Scheduler:
@@ -437,7 +482,7 @@ class Scheduler:
         noise = self.noise_source(shape)
         if not torch.is_tensor(noise):
             noise = torch.from_numpy(np.array(noise, np.float32))
-        return noise.to(self.device, torch.float32)
+        return _to_device(noise.to(dtype=torch.float32), self.device)
 
     def pick(self, reqs: RequestBatch, eps: EndpointBatch) -> PickResult:
         """Schedule a micro-batch; host-side PickResult rows for the
@@ -451,9 +496,13 @@ class Scheduler:
         *,
         snapshot_load: bool = False,
     ) -> PendingWave:
-        """Run one scheduling cycle without waiting for its results (on
-        CUDA the work is queued on the stream). `snapshot_load=True` also
-        copies the post-cycle assumed load."""
+        """Run one scheduling cycle without waiting for its results.
+        `snapshot_load=True` also copies the post-cycle assumed load.
+
+        On CUDA nothing here waits for the device: the inputs go up from
+        pinned memory, the cycle and the copies of its results down to
+        pinned memory are queued on the device's current stream, and an
+        event recorded after them is what PendingWave waits on."""
         n = int(reqs.valid.shape[0])
         bucket = bucket_for(n)
         m = int(eps.valid.shape[0])
@@ -464,8 +513,9 @@ class Scheduler:
             raise ValueError(
                 f"subset_mask width {reqs.subset_mask.shape[1]} != "
                 f"endpoint width {m}")
-        reqs = pad_requests(_to_device(reqs, self.device), bucket)
-        eps = _to_device(eps, self.device)
+        reqs = pad_requests(_batch_to_device(reqs, self.device), bucket)
+        eps = _batch_to_device(eps, self.device)
+        on_cuda = self.device.type == "cuda"
         with self._lock:
             if self.state.m != m:
                 self.state = resize_state(self.state, m)
@@ -473,15 +523,29 @@ class Scheduler:
                       if self.cfg.picker == "sinkhorn" else None)
             result, self.state = scheduling_cycle(
                 self.state, reqs, eps, self.weights, gumbel, cfg=self.cfg)
-            snap = self.state.assumed_load.clone() if snapshot_load else None
-        return PendingWave(result=result, n=n, load_snapshot=snap)
+            if not on_cuda:
+                snap = (self.state.assumed_load.clone() if snapshot_load
+                        else None)
+                return PendingWave(result=result, n=n, load_snapshot=snap)
+            # Queued behind this cycle and ahead of the next one's in-place
+            # updates, so the snapshot is this cycle's state; the event
+            # follows this wave's copies and nothing of a later wave.
+            snap = (_to_host_async(self.state.assumed_load) if snapshot_load
+                    else None)
+            host = PickResult(**{
+                f.name: (None if getattr(result, f.name) is None
+                         else _to_host_async(getattr(result, f.name)[:n]))
+                for f in dataclasses.fields(PickResult)})
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return PendingWave(result=host, n=n, load_snapshot=snap, event=event)
 
     def complete(self, endpoint_slots, costs) -> None:
         """Terminated-request feedback: release each request's charge."""
-        slots = torch.as_tensor(np.asarray(endpoint_slots, np.int64),
-                                device=self.device)
-        costs = torch.as_tensor(np.asarray(costs, np.float32),
-                                device=self.device)
+        slots = _to_device(torch.from_numpy(
+            np.asarray(endpoint_slots, np.int64)), self.device)
+        costs = _to_device(torch.from_numpy(
+            np.asarray(costs, np.float32)), self.device)
         with self._lock:
             self.state = _complete_update(self.state, slots, costs)
 

@@ -9,9 +9,15 @@ is installed:
 Tolerances: sinkhorn plan and duals atol=1e-5 (the dual-form kernel sums
 in another order than the plain matrix form); blend-top-k indices exact
 and values atol=1e-5 (the kernel's blend is the plain version's rounded
-f32 arithmetic in the same order)."""
+f32 arithmetic in the same order).
+
+The last tests hold the pick service's handoff to the card: pick_async
+queues a wave without waiting for the device, a wave's materialize()
+waits for that wave only, and the batching picker answers a burst."""
 
 import dataclasses
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -30,6 +36,7 @@ from gie_tpu_torch.ops.fused_topk import (
 )
 from gie_tpu_torch.sched import ProfileConfig, Scheduler
 from gie_tpu_torch.sched.config import tuned_profile
+from gie_tpu_torch.sched.constants import Metric
 from gie_tpu_torch.sched.profile import gumbel_noise
 from gie_tpu_torch.utils.testing import make_endpoints, make_requests
 
@@ -185,3 +192,128 @@ def test_scheduler_on_card_matches_cpu(dev, config):
         agree = (res.indices[:, 0] == ref.indices[:, 0]).mean()
         assert agree >= 0.95
     assert counter.launches == before + 3
+
+
+# -- the pick service on the card -----------------------------------------
+
+SPIN = 10_000_000          # torch.cuda._sleep cycles: ~5 ms on an H100
+
+
+def _wave_inputs(n=64, m=64, live=50, seed=3):
+    """A wave as the batching picker hands it over: CPU tensors."""
+    rng = np.random.default_rng(seed)
+    base = b"SYSTEM: You are a helpful assistant specialised in task %d. "
+    prompts = [(base % (i % 16)) * 6 + b"q %d" % i for i in range(n)]
+    reqs = make_requests(n, prompts=prompts,
+                         lora_id=rng.integers(-1, 12, n).tolist(), m_slots=m)
+    eps = make_endpoints(live, queue=rng.integers(0, 50, live).tolist(),
+                         kv=rng.uniform(0, 0.95, live).tolist(), max_lora=8,
+                         m_slots=m)
+    return reqs, eps
+
+
+def _sinkhorn_scheduler():
+    cfg, weights = tuned_profile()
+    return Scheduler(dataclasses.replace(cfg, use_pallas_sinkhorn=True),
+                     weights)
+
+
+def test_pick_async_returns_while_its_wave_is_queued(dev):
+    """pick_async makes no call that waits for the card: under
+    set_sync_debug_mode("error") it raises on any, and queued behind a
+    spin it returns with its wave's event still pending."""
+    sched = _sinkhorn_scheduler()
+    reqs, eps = _wave_inputs()
+    for _ in range(3):                     # build, warm the pinned pool
+        sched.pick(reqs, eps)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20 * SPIN)           # ~100 ms of queued device work
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        wave = sched.pick_async(reqs, eps, snapshot_load=True)
+        host_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+    assert not wave.event.query(), f"host took {host_s * 1e3:.2f} ms"
+    assert host_s < 0.05
+    res = wave.materialize()
+    assert wave.event.query()
+    assert (res.status == 0).all()
+    assert np.isfinite(wave.materialize_load()).all()
+
+
+def test_materialize_waits_for_its_own_wave_only(dev):
+    """Wave k, then a long spin, then wave k+1 on the one stream:
+    materialize() of wave k returns while wave k+1 is still queued."""
+    sched = _sinkhorn_scheduler()
+    reqs, eps = _wave_inputs()
+    for _ in range(3):
+        sched.pick(reqs, eps)
+    torch.cuda.synchronize()
+    first = sched.pick_async(reqs, eps)
+    torch.cuda._sleep(40 * SPIN)           # ~200 ms between the waves
+    second = sched.pick_async(reqs, eps)
+    res = first.materialize()
+    assert not second.event.query()
+    assert (res.status == 0).all()
+    assert (second.materialize().status == 0).all()
+
+
+@pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel", "topk-kernel"])
+def test_batching_picker_answers_a_burst_on_card(dev, config):
+    """64 concurrent picks through the port's BatchingTPUPicker over a
+    Scheduler on the card: every pick answered with a live candidate,
+    and the path's kernel launched once per dispatched wave."""
+    from gie_tpu_torch.datastore import Datastore
+    from gie_tpu_torch.datastore.objects import EndpointPool, Pod
+    from gie_tpu_torch.extproc.server import PickRequest
+    from gie_tpu_torch.metricsio import MetricsStore
+    from gie_tpu_torch.runtime.metrics import PIPELINE_WAVES
+    from gie_tpu_torch.sched.batching import BatchingTPUPicker
+
+    if config == "topk-kernel":
+        sched = Scheduler(ProfileConfig(picker="topk", use_pallas_topk=True))
+        counter = fused_blend_topk
+    else:
+        sched = _sinkhorn_scheduler()
+        counter = fused_sinkhorn_plan
+    ms = MetricsStore()
+    ds = Datastore(on_slot_reclaimed=lambda s: (sched.evict_endpoint(s),
+                                                ms.remove(s)))
+    ds.pool_set(EndpointPool({"app": "x"}, [8000], "default"))
+    for i in range(40):
+        ds.pod_update_or_add(Pod(name=f"p{i}", labels={"app": "x"},
+                                 ip=f"10.9.0.{i + 1}"))
+    rng = np.random.default_rng(0)
+    ms.update_rows([(ep.slot, {Metric.QUEUE_DEPTH: float(rng.integers(0, 50))},
+                     (), ())
+                    for ep in ds.endpoints()])
+    picker = BatchingTPUPicker(sched, ds, ms, max_wait_s=0.002)
+    try:
+        picker.pick(PickRequest(headers={}, body=b"warm up"),
+                    ds.pick_candidates())
+        before, waves = counter.launches, PIPELINE_WAVES.value()
+        barrier = threading.Barrier(64)
+        got = [None] * 64
+
+        def one(i):
+            barrier.wait(30)
+            got[i] = picker.pick(
+                PickRequest(headers={}, body=b"prompt %d" % i * 20),
+                ds.pick_candidates())
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(64)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+        live = {ep.hostport for ep in ds.pick_candidates()}
+        assert all(r is not None and r.endpoint in live for r in got)
+        assert all(len(set(r.fallbacks)) == len(r.fallbacks) for r in got)
+        dispatched = PIPELINE_WAVES.value() - waves
+        assert counter.launches - before == dispatched >= 1
+    finally:
+        picker.close()

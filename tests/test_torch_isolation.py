@@ -120,3 +120,63 @@ def test_reference_validation_still_applies():
         ProfileConfig(sinkhorn_rounding_temp=0.0)
     with pytest.raises(ValueError, match="use_pallas_topk"):
         ProfileConfig(scorer="learned", use_pallas_topk=True)
+
+
+# The pick service (the batching picker and every module it or its
+# datastore and metrics store import) must run where only PyTorch is
+# installed: the card's machine has no grpcio, protobuf or
+# prometheus_client.
+_SLICE_PROBE = """
+import json, sys
+import gie_tpu_torch.sched.batching, gie_tpu_torch.datastore
+import gie_tpu_torch.metricsio, gie_tpu_torch.obs.trace
+import gie_tpu_torch.utils.podutil
+print(json.dumps(sorted(sys.modules)))
+"""
+_HOST_ONLY = ("jax", "jaxlib", "flax", "gie_tpu", "grpc", "google.protobuf",
+              "prometheus_client")
+
+
+def test_pick_service_pulls_in_no_grpc_protobuf_or_prometheus():
+    out = subprocess.run(
+        [sys.executable, "-c", _SLICE_PROBE], cwd=REPO, capture_output=True,
+        text=True, timeout=120, check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    slice_modules = [n for n in loaded if n.startswith("gie_tpu_torch.")]
+    for name in ("gie_tpu_torch.datastore.datastore",
+                 "gie_tpu_torch.metricsio.store",
+                 "gie_tpu_torch.extproc.server",
+                 "gie_tpu_torch.fairness.budgets",
+                 "gie_tpu_torch.runtime.metrics",
+                 "gie_tpu_torch.runtime.clock"):
+        assert name in slice_modules
+    forbidden = [n for n in loaded
+                 if n in _HOST_ONLY or n.startswith(
+                     tuple(m + "." for m in _HOST_ONLY))]
+    assert forbidden == []
+    # And no source file of those modules names them, even lazily.
+    bad = []
+    for name in slice_modules:
+        path = REPO / (name.replace(".", "/") + ".py")
+        if not path.exists():
+            path = path.with_suffix("") / "__init__.py"
+        bad += [(name, imp) for imp in _imported_modules(path)
+                if imp in _HOST_ONLY or imp.startswith(
+                    tuple(m + "." for m in _HOST_ONLY))]
+    assert bad == []
+
+
+@pytest.mark.parametrize("kwargs, slice_name", [
+    ({"resilience": object()}, "resilience slice"),
+    ({"federation": object()}, "federation slice"),
+    ({"trainer": object()}, "latency-predictor slice"),
+    ({"background_warm": True}, "warm-lattice slice"),
+])
+def test_out_of_slice_picker_arg_raises(kwargs, slice_name):
+    from gie_tpu_torch.datastore import Datastore
+    from gie_tpu_torch.metricsio import MetricsStore
+    from gie_tpu_torch.sched.batching import BatchingTPUPicker
+
+    with pytest.raises(NotImplementedError, match=slice_name):
+        BatchingTPUPicker(Scheduler(device="cpu"), Datastore(),
+                          MetricsStore(), **kwargs)
