@@ -31,7 +31,21 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      half of each round, every answer checked, the path's kernel counted
      against the waves dispatched; then 32 sequential picks replayed
      through a CPU picker with the same noise, primaries equal;
-  6. the `kernels` line: launches on the main path (phases 3-5), error,
+  6. the ext-proc server, once per configuration of phases 3-4: the
+     ExtProcServerRunner main() would build from its argv (--no-resilience
+     --no-obs, --scheduler-config carrying the configuration, 4 acceptors)
+     over a FakeCluster of 256 ready pods, each a VLLMStub on its own
+     loopback address in a process of its own, scraped every 500 ms; 4
+     client processes (Envoy's part) send 4 bursts of 1024 concurrent
+     streams over 16 channels (request headers, a JSON body of the mix,
+     then response headers echoing the pick); every stream must get a
+     ready primary, the path's kernel launches must equal the picker's
+     waves, readiness must be SERVING and /metrics must parse; then 32
+     sequential streams replayed through a CPU runner, response bytes
+     equal;
+  7. `python -m gie_tpu_torch.runtime.main --demo` as a subprocess: health
+     SERVING, 64 golden streams answered, exit 0 after SIGTERM;
+  8. the `kernels` line: launches on the main path (phases 3-6), error,
      times, bound.
 Then the card's name and power limit (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}.
@@ -44,6 +58,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from types import SimpleNamespace
@@ -403,7 +418,7 @@ def pick_stack(dev, cfg, weights, noise_source=None):
 
 def pick_requests(w, n):
     """Round w of the north-star mix as PickRequests."""
-    from gie_tpu_torch.extproc.server import PickRequest
+    from gie_tpu_torch.extproc.pick import PickRequest
 
     rng = np.random.default_rng(100 + w)
     lora = rng.integers(-1, 12, n)
@@ -553,6 +568,651 @@ def phase_picker(dev, name, cfg, weights, kernels, own) -> dict:
     emit(summary)
     return summary
 
+# -- phases 6-7: the ext-proc server -----------------------------------------
+
+STREAM_ROUNDS, STREAMS_PER_ROUND, CHANNELS = 4, 1024, 16
+CLIENTS = 4                    # client processes, CHANNELS // CLIENTS each
+SCRAPE_INTERVAL_MS = 500       # one stub listener process serves 256 pods
+EXTPROC_WORKERS = 4
+REPLAY_STREAMS, MAIN_STREAMS = 32, 64
+SERVE_GRACE_S = 60.0
+STREAM_TIMEOUT_S = 300.0
+
+
+def need_transport():
+    """grpcio and protobuf, which the ext-proc transport needs."""
+    try:
+        import google.protobuf  # noqa: F401
+        import grpc  # noqa: F401
+    except ImportError as e:
+        raise RuntimeError(
+            "the ext-proc server phases need the grpcio and protobuf "
+            f"packages: {e}") from None
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def write_scheduler_config(cfg, weights, tmp) -> str:
+    """`cfg` and `weights` as a --scheduler-config file (YAML; JSON is YAML)."""
+    from gie_tpu_torch.sched.types import Weights
+
+    weights = weights if weights is not None else Weights.default()
+    path = f"{tmp}/scheduler-{cfg.picker}.yaml"
+    with open(path, "w") as f:
+        json.dump({**dataclasses.asdict(cfg),
+                   "weights": dataclasses.asdict(weights)}, f)
+    return path
+
+
+def server_options(argv):
+    """Options exactly as main() parses `argv`."""
+    import argparse
+
+    from gie_tpu_torch.runtime.options import Options
+
+    parser = argparse.ArgumentParser()
+    Options.add_flags(parser)
+    opts = Options.from_args(parser.parse_args(argv))
+    opts.validate()
+    return opts
+
+
+def fleet_ips(n: int) -> list:
+    """Pod i's own loopback address."""
+    return [f"127.1.{i // 200}.{i % 200 + 1}" for i in range(n)]
+
+
+def stub_fleet_process(n: int, seed: int, ready, stop) -> None:
+    """The model-server fleet, in a process of its own: `n` VLLMStubs, pod
+    i on fleet_ips(n)[i], all behind one port. One HTTP listener on the
+    wildcard answers each pod's /metrics by the local address the scrape
+    connected to. A ticker steps every stub's clock and submits a few
+    arrivals each tick, so the queue and KV rows move. Puts the port on
+    `ready`, serves until `stop` is set."""
+    import http.server
+
+    from gie_tpu_torch.simulator import StubConfig, VLLMStub
+
+    ips = fleet_ips(n)
+    stubs = {ip: VLLMStub(StubConfig(), name=f"vllm-{i}")
+             for i, ip in enumerate(ips)}
+    lock = threading.Lock()
+    rng = np.random.default_rng(seed)
+
+    def arrive(stub, k):
+        # Base-model work only: a stub whose max_lora slots are all taken
+        # by other adapters is, by the LoRA filter, no candidate for a new
+        # adapter, and every stream here must be routable.
+        stub.submit((BASE % (k % 16)) * 6, 128.0)
+
+    for stub in stubs.values():                      # standing load
+        for k in range(int(rng.integers(0, 12))):
+            arrive(stub, k)
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"                # keep-alive scrapes
+
+        def do_GET(self):
+            stub = stubs.get(self.connection.getsockname()[0])
+            if stub is None:
+                self.send_error(404)
+                return
+            with lock:
+                body = stub.metrics_text().encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/plain")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+
+    httpd = http.server.ThreadingHTTPServer(("0.0.0.0", 0), Handler)
+    httpd.daemon_threads = True
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    ready.put(httpd.server_address[1])
+    tick = 0
+    while not stop.wait(0.05):
+        tick += 1
+        with lock:
+            for i, stub in enumerate(stubs.values()):
+                if rng.uniform() < 0.05:
+                    arrive(stub, tick + i)
+                stub.step(0.05)
+    httpd.shutdown()
+    httpd.server_close()
+
+
+def fleet_cluster(pool_name: str, ips, port: int):
+    """A FakeCluster: one InferencePool on `port`, a ready pod per ip."""
+    from gie_tpu_torch.api import types as api
+    from gie_tpu_torch.controller import FakeCluster
+    from gie_tpu_torch.datastore.objects import Pod
+
+    cluster = FakeCluster()
+    cluster.apply_pool(api.InferencePool(
+        metadata=api.ObjectMeta(name=pool_name),
+        spec=api.InferencePoolSpec(
+            selector=api.LabelSelector(matchLabels={"app": "vllm"}),
+            targetPorts=[api.Port(port)])))
+    for i, ip in enumerate(ips):
+        cluster.apply_pod(Pod(name=f"vllm-{i}", labels={"app": "vllm"},
+                              ip=ip))
+    return cluster
+
+
+def stream_frames(w: int, i: int):
+    """Stream i of round w as Envoy sends it: request headers (the body
+    follows), the JSON body of the north-star mix, and -> the response
+    headers frame echoing the served endpoint. -> (headers, body,
+    response_headers(hostport), prompt)."""
+    from gie_tpu_torch.extproc import envoy, metadata as md, pb
+
+    prompt = (BASE % ((i + w) % 16)) * 6 + b"user question %d" % (i + N * w)
+    rng = np.random.default_rng(10_000 * (w + 2) + i)
+    lora = int(rng.integers(-1, 12))
+    body = json.dumps({
+        "model": "base" if lora < 0 else ADAPTERS[lora],
+        "prompt": prompt.decode(), "max_tokens": 128}).encode()
+    hmap = pb.HeaderMap(headers=[
+        pb.HeaderValue(key=":method", raw_value=b"POST"),
+        pb.HeaderValue(key=":path", raw_value=b"/v1/completions"),
+        pb.HeaderValue(key="content-type", raw_value=b"application/json"),
+        pb.HeaderValue(key=md.FLOW_FAIRNESS_ID_KEY,
+                       raw_value=b"tenant-%d" % (i % 4))])
+    headers = pb.ProcessingRequest(request_headers=pb.HttpHeaders(
+        headers=hmap, end_of_stream=False)).SerializeToString()
+    body_frame = pb.ProcessingRequest(request_body=pb.HttpBody(
+        body=body, end_of_stream=True)).SerializeToString()
+
+    def response_headers(hostport: str) -> bytes:
+        req = pb.ProcessingRequest(response_headers=pb.HttpHeaders(
+            headers=pb.HeaderMap(headers=[
+                pb.HeaderValue(key=":status", raw_value=b"200")]),
+            end_of_stream=False))
+        req.metadata_context.filter_metadata[
+            md.DESTINATION_ENDPOINT_NAMESPACE].CopyFrom(
+                envoy.make_dynamic_metadata(
+                    md.DESTINATION_ENDPOINT_NAMESPACE,
+                    {md.DESTINATION_ENDPOINT_SERVED_KEY: hostport}
+                ).fields[md.DESTINATION_ENDPOINT_NAMESPACE].struct_value)
+        return req.SerializeToString()
+
+    return headers, body_frame, response_headers, prompt
+
+
+def destination(frame: bytes):
+    """The x-gateway-destination-endpoint value of a request-headers
+    response, or None."""
+    from gie_tpu_torch.extproc import metadata as md, pb
+
+    resp = pb.ProcessingResponse.FromString(frame)
+    if resp.WhichOneof("response") != "request_headers":
+        return None
+    for opt in resp.request_headers.response.header_mutation.set_headers:
+        if opt.header.key == md.DESTINATION_ENDPOINT_KEY:
+            return opt.header.raw_value.decode()
+    return None
+
+
+def open_channels(port: int, n: int):
+    import grpc
+
+    from gie_tpu_torch.extproc.service import SERVICE_NAME
+
+    chans = [grpc.insecure_channel(
+        f"127.0.0.1:{port}", options=(("grpc.use_local_subchannel_pool", 1),))
+        for _ in range(n)]
+    methods = [c.stream_stream(f"/{SERVICE_NAME}/Process") for c in chans]
+    return chans, methods
+
+
+def one_stream(method, w, i):
+    """One Envoy-shaped exchange. -> (destination, seconds to the pick,
+    seconds for the whole stream)."""
+    import queue as _queue
+
+    headers, body, response_headers, _ = stream_frames(w, i)
+    q = _queue.Queue()
+    q.put(headers)
+    q.put(body)
+    t0 = time.perf_counter()
+    # Generous: a burst queues behind 4 x 64 handler threads on a shared
+    # host; the phase reports latency, and fails only on a lost stream.
+    call = method(iter(q.get, None), timeout=STREAM_TIMEOUT_S)
+    first = next(call)
+    t_pick = time.perf_counter() - t0
+    dest = destination(first)
+    next(call)                                  # the request-body response
+    if dest is not None:
+        q.put(response_headers(dest.split(",")[0]))
+        next(call)                              # the response-headers response
+    q.put(None)
+    for _ in call:
+        pass
+    return dest, t_pick, time.perf_counter() - t0
+
+
+def client_process(port: int, channels: int, rounds, share, total: int,
+                   barrier, results) -> None:
+    """Envoy's side, in a process of its own: for each round w, wait on
+    `barrier` with the other clients and the server's process, then open
+    streams i = share, share + k, ... (< total) all at once, one thread
+    each, over this process's channels. Puts (w, [(i, destination, pick s,
+    stream s, error)], first start, last end) on `results`."""
+    chans, methods = open_channels(port, channels)
+    mine = list(range(share, total, CLIENTS))
+    try:
+        for w in rounds:
+            out = [None] * len(mine)
+            t_in = [0.0] * len(mine)
+            t_out = [0.0] * len(mine)
+            gate = threading.Barrier(len(mine) + 1)
+
+            def run(j, w=w, out=out, t_in=t_in, t_out=t_out, gate=gate):
+                gate.wait(300)
+                t_in[j] = time.monotonic()
+                try:
+                    out[j] = (mine[j],) + one_stream(
+                        methods[j % len(methods)], w, mine[j]) + ("",)
+                except Exception as e:
+                    out[j] = (mine[j], None, 0.0, 0.0, repr(e)[:300])
+                t_out[j] = time.monotonic()
+
+            threads = [threading.Thread(target=run, args=(j,))
+                       for j in range(len(mine))]
+            for t in threads:
+                t.start()
+            barrier.wait(600)
+            gate.wait(300)
+            for t in threads:
+                t.join(600)
+            results.put((w, out, min(t_in), max(t_out)))
+    finally:
+        for c in chans:
+            c.close()
+
+
+def health_status(port: int, service: str) -> int:
+    import grpc
+
+    from gie_tpu_torch.extproc.pb import health_pb2
+
+    with grpc.insecure_channel(f"127.0.0.1:{port}") as chan:
+        check_rpc = chan.unary_unary(
+            "/grpc.health.v1.Health/Check",
+            request_serializer=health_pb2.HealthCheckRequest.SerializeToString,
+            response_deserializer=health_pb2.HealthCheckResponse.FromString)
+        return check_rpc(health_pb2.HealthCheckRequest(service=service),
+                         timeout=10).status
+
+
+def check_exposition(port: int) -> dict:
+    """GET /metrics; it must parse as Prometheus text and carry
+    gie_build_info and the pick-latency histogram. Parsed with
+    prometheus_client's parser where installed, else the port's."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as resp:
+        text = resp.read().decode()
+    try:
+        from prometheus_client.parser import text_string_to_metric_families
+        names = {s.name for fam in text_string_to_metric_families(text)
+                 for s in fam.samples}
+        parser = "prometheus_client"
+    except ImportError:
+        from gie_tpu_torch.metricsio.scrape import parse_sample_lines
+        names = {s.name for s in parse_sample_lines(text)}
+        parser = "gie_tpu_torch.metricsio.scrape"
+    for want in ("gie_build_info", "gie_pick_latency_seconds_bucket",
+                 "gie_pick_latency_seconds_count"):
+        check(want in names, f"/metrics lacks {want}")
+    return {"parser": parser, "samples": len(names), "bytes": len(text)}
+
+
+def phase_server(dev, name, cfg, weights, kernels, own, tmp) -> dict:
+    """The ext-proc server on the card for one configuration: the runner
+    main() would build, over 256 stub pods (a process of their own), under
+    bursts of concurrent Envoy-shaped streams from CLIENTS client
+    processes; then sequential streams replayed on a CPU runner."""
+    need_transport()
+    import multiprocessing
+
+    from gie_tpu_torch.runtime import metrics as own_metrics
+    from gie_tpu_torch.runtime.health import SERVING
+    from gie_tpu_torch.runtime.runner import ExtProcServerRunner
+
+    ctx = multiprocessing.get_context("spawn")
+    stop, ready = ctx.Event(), ctx.Queue()
+    procs = [ctx.Process(target=stub_fleet_process, args=(M, 0, ready, stop),
+                         daemon=True)]
+    procs[0].start()
+    runner = None
+    try:
+        fleet_port = ready.get(timeout=120)
+        gport, hport, mport = free_port(), free_port(), free_port()
+        argv = ["--insecure-serving", "--no-resilience", "--no-obs",
+                "--scheduler-config", write_scheduler_config(cfg, weights, tmp),
+                "--pool-name", "smoke", "--grpc-port", str(gport),
+                "--grpc-health-port", str(hport), "--metrics-port", str(mport),
+                "--extproc-workers", str(EXTPROC_WORKERS),
+                "--scrape-interval-ms", str(SCRAPE_INTERVAL_MS)]
+        runner = ExtProcServerRunner(
+            server_options(argv), fleet_cluster("smoke", fleet_ips(M),
+                                                fleet_port))
+        check(runner.scheduler.device.type == "cuda",
+              f"{name}: the runner's scheduler is on {runner.scheduler.device}")
+        runner.setup()
+        runner.start()
+        slots = [ep.slot for ep in runner.datastore.endpoints()]
+        check(len(slots) == M, f"{name}: {len(slots)} of {M} pods ready")
+        deadline = time.monotonic() + 60
+        while True:                       # every pod scraped at least once
+            _, ages = runner.metrics_store.pool_rows(slots)
+            if bool(np.isfinite(ages).all()) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        check(bool(np.isfinite(ages).all()),
+              f"{name}: {int((~np.isfinite(ages)).sum())} pods never scraped")
+        check(health_status(hport, "readiness") == SERVING,
+              f"{name}: readiness is not SERVING")
+
+        rounds = [-1] + list(range(STREAM_ROUNDS))       # -1: warm-up
+        barrier, results = ctx.Barrier(CLIENTS + 1), ctx.Queue()
+        for k in range(CLIENTS):
+            procs.append(ctx.Process(
+                target=client_process,
+                args=(runner.grpc_server.port, CHANNELS // CLIENTS, rounds, k,
+                      STREAMS_PER_ROUND, barrier, results), daemon=True))
+            procs[-1].start()
+        live = {ep.hostport for ep in runner.datastore.endpoints()}
+        picks, streams, walls, answered = [], [], [], 0
+        for w in rounds:
+            if w == 0:                    # the measured rounds start here
+                torch.cuda.synchronize()
+                for fn in kernels.values():
+                    fn.launches = 0
+                waves0 = own_metrics.PIPELINE_WAVES.value()
+                marks = {h: h.count() for h in (
+                    own_metrics.BATCH_SIZE, own_metrics.HOST_ASSEMBLY,
+                    own_metrics.DEVICE_WAIT, own_metrics.PICK_LATENCY)}
+                accepts0 = [own_metrics.WORKER_ACCEPTS.value(k)
+                            for k in range(EXTPROC_WORKERS)]
+            barrier.wait(600)
+            got = [results.get(timeout=900) for _ in range(CLIENTS)]
+            check(all(g[0] == w for g in got), f"{name}: rounds out of step")
+            outcomes = [o for g in got for o in g[1]]
+            errs = [o[4] for o in outcomes if o[4]]
+            check(not errs, f"{name}: {len(errs)} streams failed, first: "
+                            f"{errs[:1]}")
+            if w < 0:
+                continue
+            for _, dest, t_pick, t_stream, _ in outcomes:
+                check(dest is not None,
+                      f"{name}: a stream got no destination")
+                ranked = dest.split(",")
+                check(ranked[0] in live,
+                      f"{name}: primary {ranked[0]} is not a ready pod")
+                check(len(set(ranked)) == len(ranked),
+                      f"{name}: repeated endpoint in {ranked}")
+                picks.append(t_pick)
+                streams.append(t_stream)
+                answered += 1
+            walls.append(max(g[3] for g in got) - min(g[2] for g in got))
+        waves = int(own_metrics.PIPELINE_WAVES.value() - waves0)
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        total = STREAM_ROUNDS * STREAMS_PER_ROUND
+        check(answered == total, f"{name}: {answered} of {total} answered")
+        check(launches[own] == waves,
+              f"{name}: {launches[own]} kernel launches for {waves} waves")
+        check(health_status(hport, "readiness") == SERVING,
+              f"{name}: readiness is not SERVING after the bursts")
+        exposition = check_exposition(mport)
+        recent = {h: observed_since(h, marks[h]) for h in marks}
+        sizes = recent[own_metrics.BATCH_SIZE]
+        queued = recent[own_metrics.PICK_LATENCY]
+        hist = {}
+        for b in sizes:
+            hist[int(b)] = hist.get(int(b), 0) + 1
+        summary = {
+            "phase": "server", "config": name, "endpoints": len(live),
+            "scrape_interval_ms": SCRAPE_INTERVAL_MS,
+            "extproc_workers": EXTPROC_WORKERS, "channels": CHANNELS,
+            "client_processes": CLIENTS,
+            "streams": total, "answered": answered,
+            "streams_per_s": answered / sum(walls),
+            "round_wall_s": walls,
+            "stream_p50_ms": float(np.percentile(streams, 50)) * 1e3,
+            "stream_p99_ms": float(np.percentile(streams, 99)) * 1e3,
+            "stream_max_ms": max(streams) * 1e3,
+            "pick_p50_ms": float(np.percentile(picks, 50)) * 1e3,
+            "pick_p99_ms": float(np.percentile(picks, 99)) * 1e3,
+            # Enqueue to answer inside the picker (PICK_LATENCY): the rest
+            # of a client's pick time is gRPC's queue for a handler thread.
+            "picker_p50_ms": float(np.percentile(queued, 50)) * 1e3,
+            "picker_p99_ms": float(np.percentile(queued, 99)) * 1e3,
+            "picker_max_ms": max(queued) * 1e3,
+            "worker_accepts": [
+                int(own_metrics.WORKER_ACCEPTS.value(k) - accepts0[k])
+                for k in range(EXTPROC_WORKERS)],
+            "waves": waves, "launches": launches,
+            "wave_size_hist": dict(sorted(hist.items())),
+            "wave_size_max": int(max(sizes)),
+            "wave_size_median": statistics.median(sizes),
+            "host_assembly_ms_median": statistics.median(
+                recent[own_metrics.HOST_ASSEMBLY]) * 1e3,
+            "host_assembly_ms_max": max(
+                recent[own_metrics.HOST_ASSEMBLY]) * 1e3,
+            "device_wait_ms_median": statistics.median(
+                recent[own_metrics.DEVICE_WAIT]) * 1e3,
+            "host_parsers": host_parsers(),
+            "metrics": exposition,
+        }
+        summary.update(replay_on_cpu(dev, runner, cfg, weights, fleet_port))
+    finally:
+        stop.set()
+        if runner is not None:
+            runner.stop()
+        for proc in procs:
+            proc.join(30)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    emit(summary)
+    return summary
+
+
+def observed_since(hist, mark: int) -> list:
+    """The raw observations `hist` took since its count was `mark` (its
+    recent() window holds the last RECENT only, so a slice by the window's
+    old length goes empty once the window is full)."""
+    n = hist.count() - mark
+    window = hist.recent()
+    check(n <= len(window), f"{hist.name}: {n} observations since the "
+                            f"mark, {len(window)} kept")
+    return window[len(window) - n:]
+
+
+def host_parsers() -> dict:
+    """Which host parsers the transport ran: native/ (when built) or the
+    pure-Python fallbacks. chip_smoke.py does not build native/."""
+    from gie_tpu_torch.extproc import fieldscan, wire
+
+    return {"fieldscan": "native" if fieldscan.available() else "python",
+            "wire_walk": "native" if wire.available() else "python"}
+
+
+class EnvoyStream:
+    """An in-memory ext-proc stream playing Envoy's side of one exchange:
+    request headers, body, then the response headers echoing the pick."""
+
+    def __init__(self, w: int, i: int):
+        from gie_tpu_torch.extproc import pb
+
+        self._pb = pb
+        headers, body, self._response_headers, _ = stream_frames(w, i)
+        self._frames = [headers, body]
+        self.sent = []
+
+    def recv(self):
+        if not self._frames and self._response_headers is not None:
+            dest = destination(self.sent[0].SerializeToString()) if self.sent else None
+            if dest is not None:
+                self._frames.append(self._response_headers(dest.split(",")[0]))
+            self._response_headers = None
+        if not self._frames:
+            return None
+        return self._pb.ProcessingRequest.FromString(self._frames.pop(0))
+
+    def send(self, resp):
+        self.sent.append(resp)
+
+    def response_bytes(self) -> bytes:
+        return b"".join(len(r.SerializeToString()).to_bytes(4, "big")
+                        + r.SerializeToString() for r in self.sent)
+
+
+def replay_on_cpu(dev, runner, cfg, weights, fleet_port) -> dict:
+    """REPLAY_STREAMS sequential streams through the card runner's
+    StreamingServer and the same frames through a CPU runner, with both
+    scrape engines closed and the same scheduler state, scraped rows (on a
+    fixed clock), LoRA ids and Gumbel noise: the response bytes must be
+    equal."""
+    from gie_tpu_torch.runtime.runner import ExtProcServerRunner
+    from gie_tpu_torch.sched import Scheduler
+    from gie_tpu_torch.sched.constants import Metric
+    from gie_tpu_torch.sched.profile import gumbel_noise
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    drawn = []
+
+    def noise(shape):
+        drawn.append(gumbel_noise(shape, gen, dev))
+        return drawn[-1]
+
+    cpu = ExtProcServerRunner(
+        runner.opts, fleet_cluster("smoke", fleet_ips(M), fleet_port),
+        scheduler=Scheduler(cfg, weights, device="cpu",
+                            noise_source=lambda shape: drawn[-1].cpu()))
+    try:
+        for r in (runner, cpu):
+            r.scraper.close()
+        cpu.setup()
+        runner.scheduler.noise_source = noise
+        cpu.scheduler.install_state(runner.scheduler.export_state())
+        # The card registry numbered adapters in the bursts' arrival order;
+        # the CPU registry takes the same numbers.
+        known = runner.lora_registry._ids
+        for adapter in sorted(known, key=known.get):
+            cpu.lora_registry.id_for(adapter)
+        for r in (runner, cpu):
+            rng = np.random.default_rng(3)
+            rows = [(ep.slot,
+                     {Metric.QUEUE_DEPTH: float(rng.integers(0, 50)),
+                      Metric.KV_CACHE_UTIL: float(rng.uniform(0, 0.95)),
+                      Metric.MAX_LORA: 8.0},
+                     [r.lora_registry.id_for(ADAPTERS[j])
+                      for j in rng.choice(12, 3, replace=False)], ())
+                    for ep in r.datastore.endpoints()]
+            r.metrics_store._clock = lambda: 0.0
+            r.metrics_store.update_rows(rows, now=0.0)
+        equal = 0
+        for i in range(REPLAY_STREAMS):
+            sent = []
+            for r in (runner, cpu):
+                stream = EnvoyStream(50, i)
+                r.streaming.process(stream)
+                check(len(stream.sent) == 3, f"replay stream {i}: "
+                                             f"{len(stream.sent)} responses")
+                sent.append(stream.response_bytes())
+            equal += sent[0] == sent[1]
+    finally:
+        cpu.stop()
+    check(equal == REPLAY_STREAMS, f"{equal} of {REPLAY_STREAMS} replayed "
+                                   "streams byte-equal to the CPU runner")
+    return {"replay_streams": REPLAY_STREAMS, "replay_equal": equal}
+
+
+def phase_main(cfg, weights, tmp) -> dict:
+    """`python -m gie_tpu_torch.runtime.main --demo` as a subprocess on
+    explicit ports: health SERVING, MAIN_STREAMS golden streams answered
+    with a destination, then SIGTERM and exit 0 within its grace."""
+    import os
+    import signal
+
+    need_transport()
+    from gie_tpu_torch.extproc import pb
+    from gie_tpu_torch.runtime.health import SERVING
+
+    gport, hport, mport = free_port(), free_port(), free_port()
+    cmd = [sys.executable, "-m", "gie_tpu_torch.runtime.main", "--demo",
+           "--demo-pods", "8", "--insecure-serving", "--no-resilience",
+           "--no-obs", "--scheduler-config",
+           write_scheduler_config(cfg, weights, tmp),
+           "--pool-name", "smoke", "--grpc-port", str(gport),
+           "--grpc-health-port", str(hport), "--metrics-port", str(mport)]
+    log_path = f"{tmp}/main.log"
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        t0 = time.monotonic()
+        status = None
+        while time.monotonic() - t0 < 300 and proc.poll() is None:
+            try:
+                status = health_status(hport, "readiness")
+            except Exception:
+                status = None
+            if status == SERVING:
+                break
+            time.sleep(0.5)
+        ready_s = time.monotonic() - t0
+        check(status == SERVING, f"main: readiness not SERVING after "
+                                 f"{ready_s:.1f} s; log:\n{tail(log_path)}")
+        golden = pb.ProcessingRequest(request_headers=pb.HttpHeaders(
+            headers=pb.HeaderMap(headers=[
+                pb.HeaderValue(key=":path", raw_value=b"/v1/completions"),
+                pb.HeaderValue(key="x-model", value="llama")]),
+            end_of_stream=True)).SerializeToString()
+        chans, methods = open_channels(gport, 4)
+        answered = 0
+        try:
+            for i in range(MAIN_STREAMS):
+                out = list(methods[i % 4](iter([golden]), timeout=60))
+                answered += bool(out) and destination(out[0]) is not None
+        finally:
+            for c in chans:
+                c.close()
+        check(answered == MAIN_STREAMS,
+              f"main: {answered} of {MAIN_STREAMS} streams answered")
+        t1 = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(SERVE_GRACE_S)
+        check(rc == 0, f"main: exit code {rc} after SIGTERM; log:\n"
+                       f"{tail(log_path)}")
+        summary = {"phase": "main", "ready_s": ready_s, "streams": MAIN_STREAMS,
+                   "answered": answered, "exit_code": rc,
+                   "exit_s": time.monotonic() - t1}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    emit(summary)
+    return summary
+
+
+def tail(path: str, n: int = 4000) -> str:
+    with open(path, errors="replace") as f:
+        return f.read()[-n:]
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -598,12 +1258,21 @@ def main() -> int:
                              ProfileConfig(picker="topk", use_pallas_topk=True),
                              None, kernels, "fused_blend_topk")
 
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_sink = phase_server(dev, "tuned+use_pallas_sinkhorn", cfg,
+                                  weights, kernels, "fused_sinkhorn_plan", tmp)
+        serve_topk = phase_server(
+            dev, "topk+use_pallas_topk",
+            ProfileConfig(picker="topk", use_pallas_topk=True), None,
+            kernels, "fused_blend_topk", tmp)
+        phase_main(cfg, weights, tmp)
+
     line = []
     for rec, phases, source, replaces in (
-        (records["fused_sinkhorn_plan"], (sink, pick_sink),
+        (records["fused_sinkhorn_plan"], (sink, pick_sink, serve_sink),
          "gie_tpu_torch/ops/csrc/fused_sinkhorn.cu",
          "gie_tpu/ops/fused_sinkhorn.py:66"),
-        (records["fused_blend_topk"], (topk, pick_topk),
+        (records["fused_blend_topk"], (topk, pick_topk, serve_topk),
          "gie_tpu_torch/ops/csrc/fused_topk.cu",
          "gie_tpu/ops/fused_topk.py:80"),
     ):

@@ -1,25 +1,33 @@
-"""The pick path's own metrics (port of gie_tpu/runtime/metrics.py).
+"""The EPP's own metrics (port of gie_tpu/runtime/metrics.py).
 
 The same metric names, label names and histogram buckets as the
-reference, for the subset the pick service writes. They are backed by a
-small in-process collector instead of prometheus_client, so the pick
-service runs where only PyTorch is installed; Prometheus exposition of
-REGISTRY comes with the Runner slice of the port (ROADMAP.md, Queue 1).
+reference, for the subset the port writes (the pick service, the ext-proc
+transport, the scrape engine and the runner). They are backed by a small
+in-process collector instead of prometheus_client, so the port runs where
+only PyTorch (and, for the transport, grpcio and protobuf) is installed.
 
-Every metric offers what its prometheus_client counterpart offers the
-pick path (`labels()`, `inc()`, `dec()`, `set()`, `observe()`), and
-values that tests and chip_smoke.py read back: `value(*labels)` for
-counters and gauges, `count`/`sum`/`bucket_counts` for histograms, and
-the most recent raw observations (`recent()`), which per-wave medians
-need and bucket counts cannot give.
+Every metric offers what its prometheus_client counterpart offers its
+callers (`labels()`, `inc()`, `dec()`, `set()`, `set_function()`,
+`observe()`), and values that tests and chip_smoke.py read back:
+`value(*labels)` for counters and gauges, `count`/`sum`/`bucket_counts`
+for histograms, and the most recent raw observations (`recent()`), which
+per-wave medians need and bucket counts cannot give.
+
+`generate_latest()` renders REGISTRY in the Prometheus text format 0.0.4
+exactly as prometheus_client's generate_latest does: HELP and TYPE lines,
+`_total` counter samples, `_bucket`/`_count`/`_sum` histogram samples, and
+a `_created` gauge family beside every counter and histogram.
+`start_metrics_server` serves it on /metrics with the /debugz pages
+(obs/debugz.py).
 """
 
 from __future__ import annotations
 
 import bisect
 import threading
+import time
 from collections import deque
-from typing import Optional
+from typing import Callable, Optional
 
 # Every metric this module defines, in definition order.
 REGISTRY: list["_Metric"] = []
@@ -47,7 +55,7 @@ class _Child:
         self._metric._set(self._key, value)
 
     def observe(self, value: float, exemplar: Optional[dict] = None) -> None:
-        del exemplar  # exemplars come with the exposition (Runner slice)
+        del exemplar  # trace exemplars come with the observability slice
         self._metric._observe(self._key, value)
 
 
@@ -62,6 +70,11 @@ class _Metric:
         self.buckets = tuple(buckets)
         self._lock = threading.Lock()
         self._values: dict[tuple, object] = {}
+        # Creation time of each label combination (the `_created` series);
+        # an unlabelled metric exists from its definition on.
+        self._created: dict[tuple, float] = {}
+        if not self.labelnames:
+            self._created[()] = time.time()
         REGISTRY.append(self)
 
     def labels(self, *values, **by_name) -> _Child:
@@ -106,6 +119,34 @@ class _Metric:
     def reset(self) -> None:
         with self._lock:
             self._values.clear()
+            if self.labelnames:
+                self._created.clear()
+
+    def _touch(self, key: tuple) -> None:
+        """Record `key`'s creation time (caller holds the lock)."""
+        if key not in self._created:
+            self._created[key] = time.time()
+
+    def _samples(self) -> list[tuple[str, tuple, float]]:
+        """(sample name, label values, value) in exposition order."""
+        raise NotImplementedError
+
+    def _expose(self, out: list[str]) -> None:
+        """Append this metric's families in the text format 0.0.4."""
+        family = self.name
+        doc = _escape_help(self.documentation)
+        out.append(f"# HELP {family} {doc}\n# TYPE {family} {self.kind}\n")
+        for sample, labels, value in self._samples():
+            out.append(_sample_line(sample, labels, value))
+        with self._lock:
+            created = sorted(self._created.items())
+        if self.kind in ("counter", "histogram") and created:
+            base = family[:-6] if family.endswith("_total") else family
+            out.append(f"# HELP {base}_created {doc}\n"
+                       f"# TYPE {base}_created gauge\n")
+            for key, ts in created:
+                out.append(_sample_line(
+                    f"{base}_created", tuple(zip(self.labelnames, key)), ts))
 
 
 class Counter(_Metric):
@@ -115,15 +156,34 @@ class Counter(_Metric):
         if amount < 0:
             raise ValueError(f"counter {self.name} can only increase")
         with self._lock:
+            self._touch(key)
             self._values[key] = self._values.get(key, 0.0) + float(amount)
 
     def value(self, *labels) -> float:
         with self._lock:
             return float(self._values.get(tuple(str(v) for v in labels), 0.0))
 
+    def _samples(self):
+        with self._lock:
+            items = list(self._values.items())
+            if not self.labelnames and not items:
+                items = [((), 0.0)]
+        return [(self.name, tuple(zip(self.labelnames, key)), value)
+                for key, value in items]
+
 
 class Gauge(_Metric):
     kind = "gauge"
+
+    def __init__(self, name: str, documentation: str,
+                 labelnames: tuple = ()):
+        super().__init__(name, documentation, labelnames)
+        self._function: Optional[Callable[[], float]] = None
+
+    def set_function(self, fn: Callable[[], float]) -> None:
+        """Evaluate `fn` at exposition time (an unlabelled gauge only)."""
+        self._bare()
+        self._function = fn
 
     def _add(self, key: tuple, amount: float) -> None:
         with self._lock:
@@ -134,8 +194,20 @@ class Gauge(_Metric):
             self._values[key] = float(value)
 
     def value(self, *labels) -> float:
+        if self._function is not None:
+            return float(self._function())
         with self._lock:
             return float(self._values.get(tuple(str(v) for v in labels), 0.0))
+
+    def _samples(self):
+        if self._function is not None:
+            return [(self.name, (), float(self._function()))]
+        with self._lock:
+            items = list(self._values.items())
+            if not self.labelnames and not items:
+                items = [((), 0.0)]
+        return [(self.name, tuple(zip(self.labelnames, key)), value)
+                for key, value in items]
 
 
 class _Series:
@@ -154,6 +226,7 @@ class Histogram(_Metric):
     def _observe(self, key: tuple, value: float) -> None:
         value = float(value)
         with self._lock:
+            self._touch(key)
             series = self._values.get(key)
             if series is None:
                 series = self._values[key] = _Series(len(self.buckets))
@@ -187,11 +260,77 @@ class Histogram(_Metric):
             s = self._series(labels)
             return [] if s is None else list(s.recent)
 
+    def _samples(self):
+        with self._lock:
+            items = [(key, list(s.counts), s.count, s.sum)
+                     for key, s in self._values.items()]
+            if not self.labelnames and not items:
+                items = [((), [0] * (len(self.buckets) + 1), 0, 0.0)]
+        out = []
+        edges = [_go_float(b) for b in self.buckets] + ["+Inf"]
+        for key, counts, count, total in items:
+            labels = tuple(zip(self.labelnames, key))
+            cumulative = 0
+            for edge, n in zip(edges, counts):
+                cumulative += n
+                out.append((f"{self.name}_bucket", labels + (("le", edge),),
+                            float(cumulative)))
+            out.append((f"{self.name}_count", labels, float(count)))
+            out.append((f"{self.name}_sum", labels, total))
+        return out
+
 
 def reset() -> None:
     """Zero every metric (tests and chip_smoke.py, between phases)."""
     for metric in REGISTRY:
         metric.reset()
+
+
+# -- text exposition (format 0.0.4, as prometheus_client renders it) ------
+
+CONTENT_TYPE_LATEST = "text/plain; version=0.0.4; charset=utf-8"
+
+
+def _go_float(value: float) -> str:
+    """prometheus_client's floatToGoString: Go's float formatting."""
+    value = float(value)
+    if value == float("inf"):
+        return "+Inf"
+    if value == float("-inf"):
+        return "-Inf"
+    if value != value:
+        return "NaN"
+    s = repr(value)
+    dot = s.find(".")
+    # Go switches to exponents sooner than Python.
+    if value > 0 and dot > 6:
+        mantissa = f"{s[0]}.{s[1:dot]}{s[dot + 1:]}".rstrip("0.")
+        return f"{mantissa}e+0{dot - 1}"
+    return s
+
+
+def _escape_help(text: str) -> str:
+    return text.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _escape_label(value: str) -> str:
+    return (value.replace("\\", "\\\\").replace("\n", "\\n")
+            .replace('"', '\\"'))
+
+
+def _sample_line(name: str, labels: tuple, value) -> str:
+    if labels:
+        body = ",".join(f'{k}="{_escape_label(str(v))}"' for k, v in labels)
+        return f"{name}{{{body}}} {_go_float(value)}\n"
+    return f"{name} {_go_float(value)}\n"
+
+
+def generate_latest() -> bytes:
+    """REGISTRY in the text format 0.0.4."""
+    out: list[str] = []
+    for metric in REGISTRY:
+        metric._expose(out)
+    return "".join(out).encode("utf-8")
 
 
 PICKS = Counter(
@@ -204,6 +343,21 @@ BATCH_SIZE = Histogram(
     "gie_sched_batch_size",
     "Requests per scheduling cycle",
     buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024))
+STREAMS = Gauge("gie_active_streams", "Open ext-proc streams")
+# Multi-core acceptors (extproc/workers.py, --extproc-workers): streams
+# accepted per SO_REUSEPORT worker; the label is the worker index.
+WORKER_ACCEPTS = Counter(
+    "gie_extproc_worker_accepted_streams_total",
+    "ext-proc streams accepted, by SO_REUSEPORT worker index",
+    ["worker"])
+# Admission (extproc/server.py): per-request EPP overhead between "request
+# fully received" and "routing decision sent", by lane.
+ADMISSION_SECONDS = Histogram(
+    "gie_extproc_admission_seconds",
+    "Per-request admission processing time (pick + parse/scan + response "
+    "build) by lane (fast = zero-parse scan path, legacy = full parse)",
+    ["lane"],
+    buckets=(1e-5, 3e-5, 1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 0.1, 0.3))
 QUEUE_DEPTH = Gauge(
     "gie_flow_queue_depth",
     "Picks waiting in the flow-control queue (reference flow-controller "
@@ -233,6 +387,32 @@ PIPELINE_WAVES = Counter(
     "rate(gie_device_wait_seconds_sum) /"
     " (rate(gie_device_wait_seconds_sum) + dispatcher idle time); the "
     "per-wave histograms above give both terms")
+# Multiplexed scrape engine (metricsio/engine.py): ingestion health.
+SCRAPE_STALENESS = Histogram(
+    "gie_scrape_staleness_seconds",
+    "Time between consecutive successful scrapes of the same endpoint "
+    "(attach-to-first-scrape for new endpoints)",
+    buckets=(0.01, 0.025, 0.05, 0.075, 0.1, 0.15, 0.25, 0.5, 1.0, 2.5))
+SCRAPE_FETCH = Histogram(
+    "gie_scrape_fetch_seconds",
+    "Per-endpoint fetch + parse latency on the scrape-engine shards",
+    buckets=(1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 0.1, 0.3, 1.0))
+SCRAPE_REUSE = Gauge(
+    "gie_scrape_connection_reuse_ratio",
+    "Fraction of keep-alive HTTP fetches that reused a live connection "
+    "(low values mean model servers are closing idle keep-alives faster "
+    "than the scrape interval)")
+SCRAPE_FAILS_MAX = Gauge(
+    "gie_scrape_consecutive_failures_max",
+    "Largest consecutive-failure streak among attached endpoints (the "
+    "worst endpoint's adaptive-backoff driver)")
+SCRAPE_ENDPOINTS = Gauge(
+    "gie_scrape_endpoints",
+    "Endpoints currently attached to the scrape engine")
+SLOT_OVERFLOW = Gauge(
+    "gie_endpoint_slot_overflow_total",
+    "Endpoint admissions refused because every scheduler slot (M_MAX) was "
+    "taken — the pool outgrew the compiled capacity")
 DEADLINE_SHED = Counter(
     "gie_deadline_shed_total",
     "Requests shed with 503 because their propagated deadline expired",
@@ -254,6 +434,18 @@ HOLD_BUDGET_BYPASS = Counter(
     "Saturation holds skipped because the request's remaining deadline "
     "budget could not survive another hold retry (picked best-effort "
     "now instead of held to die)")
+# Build identity: the constant-1 info gauge, joinable onto any series.
+BUILD_INFO = Gauge(
+    "gie_build_info",
+    "Constant 1 with build/runtime identity labels: package version and "
+    "the lane/resilience/obs/wire feature-flag mix (plus acceptor count) "
+    "this replica runs",
+    ["version", "fast_lane", "resilience", "obs", "wire", "workers"])
+STREAM_ERRORS = Counter(
+    "gie_extproc_stream_errors_total",
+    "Stream-fatal ext-proc failures surfaced to Envoy, by gRPC status "
+    "code (label values are the bounded grpc.StatusCode enum)",
+    ["code"])
 TRACES_EXPORTED = Counter(
     "gie_obs_traces_exported_total",
     "Request traces exported to the /debugz feeds, by why they were "
@@ -280,3 +472,106 @@ TENANT_SERVE_ERRORS = Counter(
     "Data-plane serve errors (5xx/reset) observed per tenant at the "
     "response hop — the per-tenant half of gie_serve_outcome_total",
     ["tenant"])
+# Scorer identity: the same constant-1 info idiom as gie_build_info.
+POLICY_INFO = Gauge(
+    "gie_policy_info",
+    "Constant 1 with scheduling-policy identity labels: active scorer "
+    "kind (blend|learned), the loaded policy artifact's schema version/"
+    "checksum/trained-at (empty for the heuristic), and the live blend "
+    "weights as name=value pairs",
+    ["scorer", "artifact_schema", "checksum", "trained_at", "weights"])
+
+
+def set_policy_info(scorer: str, weights: dict,
+                    artifact: Optional[dict] = None) -> None:
+    """Stamp the constant-1 policy-identity series (runner startup).
+    ``weights`` is {column: float}: the LIVE values the cycle blends."""
+    prov = (artifact or {}).get("provenance", {})
+    POLICY_INFO.labels(
+        scorer=str(scorer),
+        artifact_schema=str((artifact or {}).get("schema", "")),
+        checksum=str((artifact or {}).get("checksum", "")),
+        trained_at=str(prov.get("trained_at", "")),
+        weights=",".join(
+            f"{name}={float(val):g}" for name, val in sorted(
+                weights.items())),
+    ).set(1)
+
+
+def set_build_info(fast_lane: bool, resilience: bool, obs: bool,
+                   wire: bool = False, workers: int = 1) -> None:
+    """Stamp the constant-1 build-identity series (runner startup)."""
+    from gie_tpu_torch import __version__
+
+    BUILD_INFO.labels(
+        version=__version__,
+        fast_lane=str(bool(fast_lane)).lower(),
+        resilience=str(bool(resilience)).lower(),
+        obs=str(bool(obs)).lower(),
+        wire=str(bool(wire)).lower(),
+        workers=str(int(workers)),
+    ).set(1)
+
+
+_POOL_SNAPSHOT = {"fn": lambda: {}, "registered": False,
+                  "cache": {}, "cached_at": -1.0}
+
+
+def _pool_snapshot_cached() -> dict:
+    """One snapshot per scrape, not one per gauge: the 5 gauges evaluate
+    within the same exposition pass, and each uncached call would take the
+    scheduler lock and read the assumed load back from the card."""
+    now = time.monotonic()
+    if now - _POOL_SNAPSHOT["cached_at"] > 0.25:
+        _POOL_SNAPSHOT["cache"] = _POOL_SNAPSHOT["fn"]()
+        _POOL_SNAPSHOT["cached_at"] = now
+    return _POOL_SNAPSHOT["cache"]
+
+
+def register_pool_aggregates(snapshot) -> None:
+    """Pool-level aggregate gauges for autoscaling. `snapshot` is a
+    callable returning a dict with keys ready_endpoints /
+    queue_depth_total / kv_cache_util_mean / assumed_load_total /
+    saturated_fraction; each gauge evaluates it at scrape time
+    (set_function). Re-registration swaps the snapshot source instead of
+    duplicating the gauges (the registry is process-global; tests build
+    several runners)."""
+    _POOL_SNAPSHOT["fn"] = snapshot
+    _POOL_SNAPSHOT["cached_at"] = -1.0  # new source: drop any cache
+    if _POOL_SNAPSHOT["registered"]:
+        return
+    _POOL_SNAPSHOT["registered"] = True
+    specs = [
+        ("gie_pool_endpoints", "Ready routable endpoints in the pool",
+         "ready_endpoints"),
+        ("gie_pool_queue_depth_total",
+         "Sum of scraped queue depth across ready endpoints",
+         "queue_depth_total"),
+        ("gie_pool_kv_cache_util_mean",
+         "Mean scraped KV-cache utilization across ready endpoints",
+         "kv_cache_util_mean"),
+        ("gie_pool_assumed_load_total",
+         "Total in-flight assumed load (picks not yet reconciled)",
+         "assumed_load_total"),
+        ("gie_pool_saturated_fraction",
+         "Fraction of ready endpoints past the saturation thresholds",
+         "saturated_fraction"),
+    ]
+    for name, doc, field in specs:
+        Gauge(name, doc).set_function(
+            lambda field=field: float(
+                _pool_snapshot_cached().get(field, 0.0)))
+
+
+def start_metrics_server(port: int, providers=None,
+                         debugz_bind: str = "127.0.0.1",
+                         debugz_token=None):
+    """Start the operator HTTP listener: /metrics (the text exposition of
+    REGISTRY) plus the /debugz pages of whatever providers the caller
+    registers, loopback-only unless ``debugz_bind`` names a non-loopback
+    address (obs/debugz.py). Returns the server (close() to stop)."""
+    from gie_tpu_torch.obs.debugz import start_debugz_server
+
+    return start_debugz_server(port, providers,
+                               debugz_bind=debugz_bind,
+                               debugz_token=debugz_token)

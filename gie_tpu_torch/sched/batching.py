@@ -34,7 +34,7 @@ import torch
 
 from gie_tpu_torch.api.types import LITERAL_BANDS
 from gie_tpu_torch.extproc import metadata as mdkeys
-from gie_tpu_torch.extproc.server import (
+from gie_tpu_torch.extproc.pick import (
     INTERNAL,
     INVALID_ARGUMENT,
     UNAVAILABLE,

@@ -62,6 +62,11 @@ def load_scheduler_config(text: str) -> tuple[ProfileConfig, Weights]:
     return ProfileConfig(**cfg_kwargs), weights
 
 
+def load_scheduler_config_file(path: str) -> tuple[ProfileConfig, Weights]:
+    with open(path) as f:
+        return load_scheduler_config(f.read())
+
+
 def tuned_profile() -> tuple[ProfileConfig, Weights]:
     """The production default profile: the Sinkhorn OT picker with the
     session-stickiness column (weight 8.0) and prefix weight 4.0."""

@@ -43,6 +43,12 @@ _LATER = {
     "resilience": "the resilience slice",
     "federation": "the federation slice",
     "background_warm": "the warm-lattice slice",
+    "kube": "the kube slice",
+    "obs": "the observability slice",
+    "replication": "the replication slice",
+    "autoscale": "the autoscale slice",
+    "kv_events": "the KV-events slice",
+    "fleet": "the fleet slice",
 }
 
 

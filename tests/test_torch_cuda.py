@@ -268,7 +268,7 @@ def test_batching_picker_answers_a_burst_on_card(dev, config):
     and the path's kernel launched once per dispatched wave."""
     from gie_tpu_torch.datastore import Datastore
     from gie_tpu_torch.datastore.objects import EndpointPool, Pod
-    from gie_tpu_torch.extproc.server import PickRequest
+    from gie_tpu_torch.extproc.pick import PickRequest
     from gie_tpu_torch.metricsio import MetricsStore
     from gie_tpu_torch.runtime.metrics import PIPELINE_WAVES
     from gie_tpu_torch.sched.batching import BatchingTPUPicker
@@ -317,3 +317,132 @@ def test_batching_picker_answers_a_burst_on_card(dev, config):
         assert counter.launches - before == dispatched >= 1
     finally:
         picker.close()
+
+
+# -- the ext-proc server on the card ---------------------------------------
+
+
+def _card_runner(config: str, pods: int = 16):
+    """The port's ExtProcServerRunner as main() builds it (no scheduler
+    injected, so no device argument), scraping off and rows on a fixed
+    clock, over a FakeCluster of `pods` ready pods."""
+    import json
+    import tempfile
+
+    from gie_tpu_torch.api import types as api
+    from gie_tpu_torch.controller import FakeCluster
+    from gie_tpu_torch.datastore.objects import Pod
+    from gie_tpu_torch.runtime.options import Options
+    from gie_tpu_torch.runtime.runner import ExtProcServerRunner
+    from gie_tpu_torch.sched.types import Weights
+
+    if config == "topk-kernel":
+        cfg, weights = ProfileConfig(picker="topk", use_pallas_topk=True), None
+    else:
+        cfg, weights = tuned_profile()
+        cfg = dataclasses.replace(cfg, use_pallas_sinkhorn=True)
+    with tempfile.NamedTemporaryFile("w", suffix=".yaml", delete=False) as f:
+        json.dump({**dataclasses.asdict(cfg), "weights": dataclasses.asdict(
+            weights if weights is not None else Weights.default())}, f)
+    cluster = FakeCluster()
+    cluster.apply_pool(api.InferencePool(
+        metadata=api.ObjectMeta(name="pool"),
+        spec=api.InferencePoolSpec(
+            selector=api.LabelSelector(matchLabels={"app": "x"}),
+            targetPorts=[api.Port(8000)])))
+    for i in range(pods):
+        cluster.apply_pod(Pod(name=f"p{i}", labels={"app": "x"},
+                              ip=f"10.9.0.{i + 1}"))
+    runner = ExtProcServerRunner(
+        Options(pool_name="pool", resilience=False, obs=False,
+                secure_serving=False, scheduler_config=f.name), cluster)
+    runner.scraper.close()
+    runner.setup()
+    rng = np.random.default_rng(0)
+    runner.metrics_store.update_rows(
+        [(ep.slot, {Metric.QUEUE_DEPTH: float(rng.integers(0, 50))}, (), ())
+         for ep in runner.datastore.endpoints()])
+    return runner
+
+
+class _GoldenStream:
+    """Request headers, a JSON body, then the response headers echoing the
+    pick, as Envoy sends them (in memory)."""
+
+    def __init__(self, i: int):
+        from gie_tpu_torch.extproc import envoy, pb
+
+        self.pb, self.envoy = pb, envoy
+        body = b'{"model": "adapter-%d", "prompt": "%s", "max_tokens": 64}' % (
+            i % 4, b"SYSTEM: be brief. " * 20 + b"q %d" % i)
+        self.frames = [
+            pb.ProcessingRequest(request_headers=pb.HttpHeaders(
+                headers=pb.HeaderMap(headers=[pb.HeaderValue(
+                    key=":path", raw_value=b"/v1/completions")]))),
+            pb.ProcessingRequest(request_body=pb.HttpBody(
+                body=body, end_of_stream=True))]
+        self.sent = []
+
+    def recv(self):
+        if not self.frames and len(self.sent) == 2:
+            opts = self.sent[0].request_headers.response.header_mutation
+            dest = [o.header.raw_value.decode() for o in opts.set_headers
+                    if o.header.key == "x-gateway-destination-endpoint"]
+            req = self.pb.ProcessingRequest(
+                response_headers=self.pb.HttpHeaders(
+                    headers=self.pb.HeaderMap(headers=[self.pb.HeaderValue(
+                        key=":status", raw_value=b"200")])))
+            req.metadata_context.filter_metadata["envoy.lb"].CopyFrom(
+                self.envoy.make_dynamic_metadata(
+                    "envoy.lb", {"x-gateway-destination-endpoint-served":
+                                 dest[0].split(",")[0]},
+                ).fields["envoy.lb"].struct_value)
+            self.frames.append(req)
+        return self.frames.pop(0) if self.frames else None
+
+    def send(self, resp):
+        self.sent.append(resp)
+
+
+def test_runner_without_device_holds_its_state_on_the_card(dev):
+    """main()'s runner builds its Scheduler with no device argument: the
+    scheduler and its carried state live on the card, and a stream's
+    pick launches the configured kernel there."""
+    runner = _card_runner("topk-kernel")
+    try:
+        assert runner.scheduler.device.type == "cuda"
+        before = fused_blend_topk.launches
+        stream = _GoldenStream(0)
+        runner.streaming.process(stream)
+        assert len(stream.sent) == 3
+        state = runner.scheduler.state
+        tensors = [v for part in (state, state.prefix)
+                   for v in vars(part).values() if isinstance(v, torch.Tensor)]
+        assert len(tensors) >= 5 and all(t.is_cuda for t in tensors)
+        assert fused_blend_topk.launches == before + 1
+    finally:
+        runner.stop()
+
+
+@pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel", "topk-kernel"])
+def test_golden_stream_makes_no_synchronizing_call(dev, config):
+    """A whole Envoy-shaped stream through runner.streaming.process (pick,
+    headers and body responses, served feedback releasing the charge)
+    under set_sync_debug_mode("error"): any call that waits for the card
+    on the pick path raises and fails the stream."""
+    runner = _card_runner(config)
+    try:
+        for i in range(3):                     # build, warm the pinned pool
+            runner.streaming.process(_GoldenStream(i))
+        torch.cuda.synchronize()
+        before = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            stream = _GoldenStream(7)
+            runner.streaming.process(stream)
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+        assert len(stream.sent) == 3
+        assert stream.sent[0].WhichOneof("response") == "request_headers"
+    finally:
+        runner.stop()
