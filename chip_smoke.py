@@ -29,24 +29,46 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      must return with its event pending); then 4 rounds of 1024
      concurrent pick() calls released by a barrier, served feedback for
      half of each round, every answer checked, the path's kernel counted
-     against the waves dispatched; then 32 sequential picks replayed
-     through a CPU picker with the same noise, primaries equal;
+     against the waves dispatched; then 2 more rounds with a flight
+     recorder installed, one record a pick, the completer's time per pick
+     printed for both; then 32 sequential picks replayed through a CPU
+     picker with the same noise, primaries equal;
   6. the ext-proc server, once per configuration of phases 3-4: the
-     ExtProcServerRunner main() would build from its argv (--no-resilience
-     --no-obs, --scheduler-config carrying the configuration, 4 acceptors)
-     over a FakeCluster of 256 ready pods, each a VLLMStub on its own
-     loopback address in a process of its own, scraped every 500 ms; 4
-     client processes (Envoy's part) send 4 bursts of 1024 concurrent
-     streams over 16 channels (request headers, a JSON body of the mix,
-     then response headers echoing the pick); every stream must get a
-     ready primary, the path's kernel launches must equal the picker's
-     waves, readiness must be SERVING and /metrics must parse; then 32
-     sequential streams replayed through a CPU runner, response bytes
-     equal;
-  7. `python -m gie_tpu_torch.runtime.main --demo` as a subprocess: health
-     SERVING, 64 golden streams answered, exit 0 after SIGTERM;
-  8. the `kernels` line: launches on the main path (phases 3-6), error,
-     times, bound.
+     ExtProcServerRunner main() would build from its argv (the reference's
+     defaults: resilience and obs on, --obs-sample-rate 0 so the flight
+     recorder records and no tracer runs; --scheduler-config carrying the
+     configuration, 4 acceptors) over a FakeCluster of 256 ready pods,
+     each a VLLMStub on its own loopback address in a process of its own,
+     scraped every 500 ms; 4 client processes (Envoy's part) send 4
+     bursts of 1024 concurrent streams over 16 channels (request headers,
+     a JSON body of the mix, then response headers echoing the pick);
+     every stream must get a ready primary, the path's kernel launches
+     must equal the picker's waves, the ladder must hold FULL (no
+     transition, no degraded or probe wave, gie_degraded_mode 0) with no
+     open breaker, the recorder must take one record per stream,
+     readiness and the "resilience" sub-service must be SERVING and
+     /metrics must parse (a "server-resilience" line prints what the
+     ladder and the board did); then 32 sequential streams replayed
+     through a CPU runner, response bytes equal;
+  7. `python -m gie_tpu_torch.runtime.main --demo` as a subprocess with
+     the reference's defaults plus --obs-sample-rate 1.0 and
+     --obs-otlp-endpoint at a loopback sink this script runs: readiness
+     and the "resilience" sub-service SERVING, 64 golden streams answered,
+     /debugz/picks holding their records and /debugz/trace one stream's
+     trace, a trace_id exemplar on the OpenMetrics pick-latency histogram,
+     OTLP spans at the sink, exit 0 within 10 s of SIGTERM;
+  8. chaos on the card, once per configuration of phases 3-4: the phase-5
+     picker stack with a ResilienceState at the default LadderConfig on a
+     clock stepped 0.25 s per wave, 56 sequential one-request waves with
+     device.dispatch=error:1.0 armed through the port's FaultInjector for
+     waves 4-15: every pick answered with a ready primary, the ladder's
+     descent and hysteretic climb back to FULL checked against
+     LadderConfig, kernel launches equal to full plus probe waves, the
+     degraded primaries equal to a CPU picker's under the same schedule,
+     each degraded record naming its rung; prints the rung timeline and
+     the pick time per rung;
+  9. the `kernels` line: launches on the main path (phases 3-6 and 8),
+     error, times, bound.
 Then the card's name and power limit (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -74,6 +96,7 @@ N, M = 1024, 256
 WAVES = 5
 BASE = b"SYSTEM: You are a helpful assistant specialised in task %d. "
 ROUNDS, PARITY_PICKS = 4, 32
+RECORDER_ROUNDS = 2        # phase 5's extra bursts with a flight recorder
 ADAPTERS = ["adapter-%d" % k for k in range(12)]
 SPIN = 10_000_000          # torch.cuda._sleep cycles: ~5 ms on an H100
 
@@ -381,11 +404,12 @@ def phase_slice(dev, name, cfg, weights, kernels, own) -> dict:
     return summary
 
 
-def pick_stack(dev, cfg, weights, noise_source=None):
+def pick_stack(dev, cfg, weights, noise_source=None, resilience=None):
     """A Datastore of M ready pods in one pool, a MetricsStore of the
     north-star rows (queue 0-49, KV 0-0.95, three resident adapters of
     twelve, on a fixed clock) and a BatchingTPUPicker over a Scheduler on
-    `dev`. -> (scheduler, datastore, picker)."""
+    `dev`, with `resilience` (a ResilienceState) when given.
+    -> (scheduler, datastore, picker)."""
     from gie_tpu_torch.datastore import Datastore
     from gie_tpu_torch.datastore.objects import EndpointPool, Pod
     from gie_tpu_torch.metricsio import MetricsStore
@@ -412,7 +436,7 @@ def pick_stack(dev, cfg, weights, noise_source=None):
          [ids[j] for j in rng.choice(12, 3, replace=False)], ())
         for ep in ds.endpoints()], now=0.0)
     picker = BatchingTPUPicker(sched, ds, ms, lora_registry=registry,
-                               max_wait_s=0.002)
+                               max_wait_s=0.002, resilience=resilience)
     return sched, ds, picker
 
 
@@ -483,6 +507,7 @@ def phase_picker(dev, name, cfg, weights, kernels, own) -> dict:
         live = {ep.hostport for ep in ds.endpoints()}
         allowed = {ep.hostport for ep in cands}
         burst(picker, cands, pick_requests(-1, N))          # warm-up round
+        fanout = time_completer(picker)
         torch.cuda.synchronize()
         own_metrics.reset()
         for fn in kernels.values():
@@ -534,8 +559,29 @@ def phase_picker(dev, name, cfg, weights, kernels, own) -> dict:
                 own_metrics.HOST_ASSEMBLY.recent()) * 1e3,
             "device_wait_ms_median": statistics.median(
                 own_metrics.DEVICE_WAIT.recent()) * 1e3,
+            **fanout_summary(fanout, answered),
             "load_sum_before_after_release": released,
         }
+        # The completer's cost of the flight records: RECORDER_ROUNDS more
+        # bursts with a recorder installed, against the rounds above.
+        from gie_tpu_torch import obs
+        from gie_tpu_torch.obs.recorder import FlightRecorder
+
+        obs.install(recorder=FlightRecorder(512))
+        recorded = time_completer(picker)
+        try:
+            for w in range(ROUNDS, ROUNDS + RECORDER_ROUNDS):
+                res, _, _ = burst(picker, cands, pick_requests(w, N))
+                check(all(r is not None for r in res),
+                      f"{name}: a pick came back empty with the recorder on")
+            records = newest_seq(obs.RECORDER) + 1
+        finally:
+            obs.uninstall()
+        check(records == RECORDER_ROUNDS * N,
+              f"{name}: {records} flight records for "
+              f"{RECORDER_ROUNDS * N} picks")
+        summary["recorder_on"] = fanout_summary(recorded,
+                                                RECORDER_ROUNDS * N)
     finally:
         picker.close()
 
@@ -568,6 +614,204 @@ def phase_picker(dev, name, cfg, weights, kernels, own) -> dict:
     emit(summary)
     return summary
 
+# -- phase 8: chaos on the card ----------------------------------------------
+
+CHAOS_WAVES = 56
+CHAOS_FAULT = (4, 16)      # waves dispatched under device.dispatch=error:1.0
+CHAOS_STEP_S = 0.25        # the ladder's clock advances this much per wave
+RUNG_LABELS = ("full", "cached", "round_robin", "static")
+
+
+def time_completer(picker) -> list:
+    """Wrap `picker`'s per-wave completer so that each call appends its
+    wall time (s) to the returned list: the completer's time has no
+    metric of its own."""
+    inner = picker._complete_wave
+    seconds = []
+
+    def timed(wave):
+        t0 = time.perf_counter()
+        inner(wave)
+        seconds.append(time.perf_counter() - t0)
+
+    picker._complete_wave = timed
+    return seconds
+
+
+def degraded_picks() -> float:
+    """gie_degraded_picks_total summed over its rungs."""
+    from gie_tpu_torch.runtime import metrics as own_metrics
+
+    return sum(own_metrics.DEGRADED_PICKS.value(r)
+               for r in RUNG_LABELS[1:])
+
+
+def chaos_run(dev, cfg, weights, noise_source) -> dict:
+    """CHAOS_WAVES sequential one-request waves through the phase-5 picker
+    stack on `dev` with a ResilienceState at the default LadderConfig,
+    its breakers and ladder on a clock stepped CHAOS_STEP_S per wave, and
+    the port's FaultInjector failing every device dispatch of the waves
+    in CHAOS_FAULT; a flight recorder is installed. -> per-wave timeline
+    (rung before the wave, the rung its record names, primary, charged
+    slot, pick time), ladder transitions and tallies."""
+    from gie_tpu_torch import obs
+    from gie_tpu_torch.obs.recorder import FlightRecorder
+    from gie_tpu_torch.resilience import (
+        BreakerBoard,
+        DegradationLadder,
+        LadderConfig,
+        ResilienceState,
+        faults,
+    )
+
+    clock = SimpleNamespace(t=0.0)
+
+    def now():
+        return clock.t
+
+    rs = ResilienceState(board=BreakerBoard(clock=now),
+                         ladder=DegradationLadder(LadderConfig(), clock=now))
+    recorder = FlightRecorder(4 * CHAOS_WAVES)
+    obs.install(recorder=recorder)
+    sched, ds, picker = pick_stack(dev, cfg, weights, noise_source,
+                                   resilience=rs)
+    degraded0 = degraded_picks()
+    live = {ep.hostport for ep in ds.endpoints()}
+    waves, fired = [], 0
+    try:
+        for w in range(CHAOS_WAVES):
+            if w == CHAOS_FAULT[0]:
+                faults.install(faults.FaultInjector(
+                    5, faults.parse_spec(["device.dispatch=error:1.0"])))
+            elif w == CHAOS_FAULT[1]:
+                fired = faults.installed().fired.get("device.dispatch", 0)
+                faults.uninstall()
+            before = int(rs.ladder.rung())
+            t0 = time.perf_counter()
+            res = picker.pick(pick_requests(200 + w, 1)[0],
+                              ds.pick_candidates())
+            pick_ms = (time.perf_counter() - t0) * 1e3
+            rec = recorder.snapshot(1)[0]
+            check(res.endpoint in live and rec["chosen"] == res.endpoint,
+                  f"chaos wave {w}: primary {res.endpoint} is not a ready "
+                  f"pod or not its record's ({rec.get('chosen')})")
+            waves.append({"wave": w, "t": clock.t, "before": before,
+                          "by": rec["rung"], "primary": res.endpoint,
+                          "charged": res.charged_slot, "ms": pick_ms})
+            clock.t += CHAOS_STEP_S
+    finally:
+        faults.uninstall()
+        obs.uninstall()
+        picker.close()
+    return {"waves": waves, "transitions": list(rs.ladder.transitions),
+            "end_rung": int(rs.ladder.rung()), "healthy": rs.healthy(),
+            "fired": fired, "degraded_picks": degraded_picks() - degraded0,
+            "cfg": rs.ladder.cfg}
+
+
+def phase_chaos(dev, name, cfg, weights, kernels, own) -> dict:
+    """Chaos on the card for one configuration (chaos_run), then the same
+    fault schedule, rows and wave order through a CPU picker with the
+    card's Gumbel draws replayed: every pick answered with a ready
+    primary; the first failing wave answered degraded and the ladder
+    descending after dispatch_error_streak failures; every climb only
+    after min_dwell_s on the rung and recover_streak good probes, back
+    to FULL; kernel launches equal to full plus probe waves; the degraded
+    primaries equal the CPU picker's; each degraded record names its
+    rung."""
+    from gie_tpu_torch.runtime import metrics as own_metrics
+    from gie_tpu_torch.sched.profile import gumbel_noise
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    drawn = []
+
+    def noise(shape):
+        drawn.append(gumbel_noise(shape, gen, dev))
+        return drawn[-1]
+
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    waves0 = own_metrics.PIPELINE_WAVES.value()
+    card = chaos_run(dev, cfg, weights, noise)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    dispatched = int(own_metrics.PIPELINE_WAVES.value() - waves0)
+    replay = list(drawn)
+    cpu = chaos_run(torch.device("cpu"), cfg, weights,
+                    lambda shape: replay.pop(0).cpu())
+
+    lcfg, waves = card["cfg"], card["waves"]
+    full = [w for w in waves if w["by"] == "full" and w["before"] == 0]
+    probe = [w for w in waves if w["by"] == "full" and w["before"] > 0]
+    degraded = [w for w in waves if w["by"] != "full"]
+    check(launches[own] == len(full) + len(probe) == dispatched,
+          f"{name}: {launches[own]} launches, {dispatched} dispatched waves, "
+          f"{len(full)} full + {len(probe)} probe waves")
+    check(len(degraded) == card["degraded_picks"],
+          f"{name}: {len(degraded)} degraded records for "
+          f"{card['degraded_picks']} degraded picks")
+    check(all(w["charged"] == -1 for w in degraded),
+          f"{name}: a degraded pick was charged")
+    first = waves[CHAOS_FAULT[0]]
+    check(first["by"] == "cached",
+          f"{name}: the first failing wave was answered by {first['by']}")
+    trans = card["transitions"]
+    down_at = CHAOS_FAULT[0] + lcfg.dispatch_error_streak - 1
+    check(bool(trans) and trans[0] == (waves[down_at]["t"], 1),
+          f"{name}: first transition {trans[:1]}, expected CACHED at "
+          f"wave {down_at}")
+    for (t_prev, prev_rung), (t_up, rung) in zip(trans, trans[1:]):
+        if rung >= prev_rung:
+            continue                                 # a descent
+        good = [w for w in probe if t_prev < w["t"] <= t_up]
+        check(t_up - t_prev >= lcfg.min_dwell_s
+              and len(good) >= lcfg.recover_streak,
+              f"{name}: climbed to {rung} at t={t_up} after "
+              f"{t_up - t_prev} s and {len(good)} good probes")
+    check(card["end_rung"] == 0 and trans[-1][1] == 0 and card["healthy"],
+          f"{name}: ended on rung {card['end_rung']}, healthy "
+          f"{card['healthy']}")
+    check(card["fired"] >= lcfg.dispatch_error_streak,
+          f"{name}: the fault fired {card['fired']} times")
+    for w in degraded:
+        check(w["by"] in RUNG_LABELS[1:],
+              f"{name}: wave {w['wave']} record names rung {w['by']}")
+        if not CHAOS_FAULT[0] <= w["wave"] < CHAOS_FAULT[1]:
+            check(w["by"] == RUNG_LABELS[w["before"]],
+                  f"{name}: wave {w['wave']} on rung {w['before']} "
+                  f"recorded {w['by']}")
+    same = [a["primary"] == b["primary"] and a["by"] == b["by"]
+            for a, b in zip(waves, cpu["waves"])]
+    check(all(s for s, w in zip(same, waves) if w["by"] != "full"),
+          f"{name}: degraded primaries differ from the CPU picker's")
+    by_rung = {}
+    for w in waves:
+        key = "probe" if w in probe else w["by"]
+        by_rung.setdefault(key, []).append(w["ms"])
+    summary = {
+        "phase": "chaos", "config": name, "waves": CHAOS_WAVES,
+        "fault_waves": list(CHAOS_FAULT), "clock_step_s": CHAOS_STEP_S,
+        "fault_fired": card["fired"],
+        "timeline": [{"wave": next(w["wave"] for w in waves
+                                   if w["t"] == t_), "t": t_,
+                      "rung": RUNG_LABELS[r]} for t_, r in trans],
+        "full_waves": len(full), "probe_waves": len(probe),
+        "degraded_waves": len(degraded),
+        "degraded_picks": card["degraded_picks"],
+        "launches": launches, "dispatched_waves": dispatched,
+        "degraded_equal_cpu": sum(s for s, w in zip(same, waves)
+                                  if w["by"] != "full"),
+        "full_equal_cpu": sum(s for s, w in zip(same, waves)
+                              if w["by"] == "full"),
+        "pick_ms_median_by_rung": {k: statistics.median(v)
+                                   for k, v in sorted(by_rung.items())},
+    }
+    emit(summary)
+    return summary
+
+
 # -- phases 6-7: the ext-proc server -----------------------------------------
 
 STREAM_ROUNDS, STREAMS_PER_ROUND, CHANNELS = 4, 1024, 16
@@ -575,7 +819,7 @@ CLIENTS = 4                    # client processes, CHANNELS // CLIENTS each
 SCRAPE_INTERVAL_MS = 500       # one stub listener process serves 256 pods
 EXTPROC_WORKERS = 4
 REPLAY_STREAMS, MAIN_STREAMS = 32, 64
-SERVE_GRACE_S = 60.0
+MAIN_EXIT_S = 10.0             # SIGTERM to exit of main --demo
 STREAM_TIMEOUT_S = 300.0
 
 
@@ -855,27 +1099,20 @@ def health_status(port: int, service: str) -> int:
 
 
 def check_exposition(port: int) -> dict:
-    """GET /metrics; it must parse as Prometheus text and carry
-    gie_build_info and the pick-latency histogram. Parsed with
-    prometheus_client's parser where installed, else the port's."""
+    """GET /metrics; it must parse as Prometheus text (the port's own
+    parser) and carry gie_build_info and the pick-latency histogram."""
     import urllib.request
+
+    from gie_tpu_torch.metricsio.scrape import parse_sample_lines
 
     with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
                                 timeout=30) as resp:
         text = resp.read().decode()
-    try:
-        from prometheus_client.parser import text_string_to_metric_families
-        names = {s.name for fam in text_string_to_metric_families(text)
-                 for s in fam.samples}
-        parser = "prometheus_client"
-    except ImportError:
-        from gie_tpu_torch.metricsio.scrape import parse_sample_lines
-        names = {s.name for s in parse_sample_lines(text)}
-        parser = "gie_tpu_torch.metricsio.scrape"
+    names = {s.name for s in parse_sample_lines(text)}
     for want in ("gie_build_info", "gie_pick_latency_seconds_bucket",
                  "gie_pick_latency_seconds_count"):
         check(want in names, f"/metrics lacks {want}")
-    return {"parser": parser, "samples": len(names), "bytes": len(text)}
+    return {"samples": len(names), "bytes": len(text)}
 
 
 def phase_server(dev, name, cfg, weights, kernels, own, tmp) -> dict:
@@ -886,6 +1123,7 @@ def phase_server(dev, name, cfg, weights, kernels, own, tmp) -> dict:
     need_transport()
     import multiprocessing
 
+    from gie_tpu_torch import obs
     from gie_tpu_torch.runtime import metrics as own_metrics
     from gie_tpu_torch.runtime.health import SERVING
     from gie_tpu_torch.runtime.runner import ExtProcServerRunner
@@ -899,7 +1137,7 @@ def phase_server(dev, name, cfg, weights, kernels, own, tmp) -> dict:
     try:
         fleet_port = ready.get(timeout=120)
         gport, hport, mport = free_port(), free_port(), free_port()
-        argv = ["--insecure-serving", "--no-resilience", "--no-obs",
+        argv = ["--insecure-serving",
                 "--scheduler-config", write_scheduler_config(cfg, weights, tmp),
                 "--pool-name", "smoke", "--grpc-port", str(gport),
                 "--grpc-health-port", str(hport), "--metrics-port", str(mport),
@@ -910,6 +1148,11 @@ def phase_server(dev, name, cfg, weights, kernels, own, tmp) -> dict:
                                                 fleet_port))
         check(runner.scheduler.device.type == "cuda",
               f"{name}: the runner's scheduler is on {runner.scheduler.device}")
+        rs = runner.resilience
+        check(rs is not None and obs.RECORDER is not None
+              and obs.TRACER is None,
+              f"{name}: resilience {rs is not None}, recorder "
+              f"{obs.RECORDER is not None}, tracer {obs.TRACER is not None}")
         runner.setup()
         runner.start()
         slots = [ep.slot for ep in runner.datastore.endpoints()]
@@ -946,6 +1189,10 @@ def phase_server(dev, name, cfg, weights, kernels, own, tmp) -> dict:
                     own_metrics.DEVICE_WAIT, own_metrics.PICK_LATENCY)}
                 accepts0 = [own_metrics.WORKER_ACCEPTS.value(k)
                             for k in range(EXTPROC_WORKERS)]
+                transitions0 = len(rs.ladder.transitions)
+                degraded0 = degraded_picks()
+                fanout = time_completer(runner.picker)
+                seq0 = newest_seq(obs.RECORDER)
             barrier.wait(600)
             got = [results.get(timeout=900) for _ in range(CLIENTS)]
             check(all(g[0] == w for g in got), f"{name}: rounds out of step")
@@ -970,11 +1217,46 @@ def phase_server(dev, name, cfg, weights, kernels, own, tmp) -> dict:
         waves = int(own_metrics.PIPELINE_WAVES.value() - waves0)
         launches = {k: fn.launches for k, fn in kernels.items()}
         total = STREAM_ROUNDS * STREAMS_PER_ROUND
+        transitions = rs.ladder.transitions[transitions0:]
+        rungs = {}
+        for rec in obs.RECORDER.snapshot():        # the ring's newest 512
+            if rec["seq"] > seq0:
+                rungs[rec["rung"]] = rungs.get(rec["rung"], 0) + 1
+        ladder = {
+            "transitions": [(t_, RUNG_LABELS[r]) for t_, r in transitions],
+            "end_rung": RUNG_LABELS[int(rs.ladder.rung())],
+            "gie_degraded_mode": own_metrics.DEGRADED_MODE.value(),
+            "open_breakers": rs.board.open_count(),
+            "breaker_states": rs.board.states(),
+            "degraded_picks": degraded_picks() - degraded0,
+            "dispatched_waves": waves,
+            # A probe is a wave dispatched while the ladder is below FULL:
+            # none when it never left FULL (else the check below fails).
+            "probe_waves": 0 if not transitions else None,
+            "records_appended": newest_seq(obs.RECORDER) - seq0,
+            "ring_records_by_rung": rungs,
+        }
+        emit({"phase": "server-resilience", "config": name, **ladder})
         check(answered == total, f"{name}: {answered} of {total} answered")
         check(launches[own] == waves,
               f"{name}: {launches[own]} kernel launches for {waves} waves")
+        check(not ladder["transitions"] and ladder["end_rung"] == "full"
+              and ladder["degraded_picks"] == 0
+              and set(rungs) == {"full"}
+              and ladder["gie_degraded_mode"] == 0.0,
+              f"{name}: the ladder left FULL with no fault injected: "
+              f"{ladder}")
+        check(ladder["open_breakers"] == 0,
+              f"{name}: breakers open with no fault injected: "
+              f"{ladder['breaker_states']}")
+        check(ladder["records_appended"] == answered,
+              f"{name}: {ladder['records_appended']} flight records for "
+              f"{answered} streams")
         check(health_status(hport, "readiness") == SERVING,
               f"{name}: readiness is not SERVING after the bursts")
+        check(health_status(hport, "resilience") == SERVING,
+              f"{name}: the resilience sub-service is not SERVING after "
+              "the bursts")
         exposition = check_exposition(mport)
         recent = {h: observed_since(h, marks[h]) for h in marks}
         sizes = recent[own_metrics.BATCH_SIZE]
@@ -1013,8 +1295,10 @@ def phase_server(dev, name, cfg, weights, kernels, own, tmp) -> dict:
                 recent[own_metrics.HOST_ASSEMBLY]) * 1e3,
             "device_wait_ms_median": statistics.median(
                 recent[own_metrics.DEVICE_WAIT]) * 1e3,
+            **fanout_summary(fanout, answered),
             "host_parsers": host_parsers(),
             "metrics": exposition,
+            **ladder,
         }
         summary.update(replay_on_cpu(dev, runner, cfg, weights, fleet_port))
     finally:
@@ -1028,6 +1312,22 @@ def phase_server(dev, name, cfg, weights, kernels, own, tmp) -> dict:
                 proc.join(10)
     emit(summary)
     return summary
+
+
+def fanout_summary(s: list, picks: int) -> dict:
+    """The completer's time per wave (materialize and fan-out, flight
+    records included while a recorder is installed) from time_completer's
+    list."""
+    return {"fanout_waves": len(s),
+            "fanout_ms_median": statistics.median(s) * 1e3 if s else None,
+            "fanout_us_per_pick": sum(s) / picks * 1e6 if picks else None}
+
+
+def newest_seq(recorder) -> int:
+    """The sequence number of `recorder`'s newest record (-1 when empty):
+    the count of records ever appended, less one, past the ring's size."""
+    newest = recorder.snapshot(1)
+    return newest[0]["seq"] if newest else -1
 
 
 def observed_since(hist, mark: int) -> list:
@@ -1142,11 +1442,54 @@ def replay_on_cpu(dev, runner, cfg, weights, fleet_port) -> dict:
     return {"replay_streams": REPLAY_STREAMS, "replay_equal": equal}
 
 
+def otlp_sink():
+    """A loopback OTLP/HTTP collector: counts the spans POSTed to
+    /v1/traces. -> (server, port, spans list); close() with shutdown()."""
+    import http.server
+
+    spans = []
+
+    class Sink(http.server.BaseHTTPRequestHandler):
+        def do_POST(self):
+            n = int(self.headers.get("Content-Length", 0) or 0)
+            payload = json.loads(self.rfile.read(n))
+            for rs in payload.get("resourceSpans", []):
+                for ss in rs.get("scopeSpans", []):
+                    spans.extend(ss.get("spans", []))
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def log_message(self, *a):
+            pass
+
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Sink)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, httpd.server_address[1], spans
+
+
+def http_get(port: int, path: str, accept: str = "") -> bytes:
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}")
+    if accept:
+        req.add_header("Accept", accept)
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        return resp.read()
+
+
 def phase_main(cfg, weights, tmp) -> dict:
-    """`python -m gie_tpu_torch.runtime.main --demo` as a subprocess on
-    explicit ports: health SERVING, MAIN_STREAMS golden streams answered
-    with a destination, then SIGTERM and exit 0 within its grace."""
+    """`python -m gie_tpu_torch.runtime.main --demo` as a subprocess with
+    the reference's default flags (resilience and obs on) plus
+    --obs-sample-rate 1.0 and --obs-otlp-endpoint at a loopback sink, on
+    explicit ports: readiness and the "resilience" sub-service SERVING,
+    MAIN_STREAMS golden streams (each with its own W3C traceparent)
+    answered, /debugz/picks holding their records and /debugz/trace one
+    stream's trace, the OpenMetrics /metrics carrying a trace_id exemplar
+    on the pick-latency histogram, OTLP spans at the sink, then SIGTERM
+    and exit 0 within MAIN_EXIT_S."""
     import os
+    import re
     import signal
 
     need_transport()
@@ -1154,12 +1497,14 @@ def phase_main(cfg, weights, tmp) -> dict:
     from gie_tpu_torch.runtime.health import SERVING
 
     gport, hport, mport = free_port(), free_port(), free_port()
+    sink, sink_port, spans = otlp_sink()
     cmd = [sys.executable, "-m", "gie_tpu_torch.runtime.main", "--demo",
-           "--demo-pods", "8", "--insecure-serving", "--no-resilience",
-           "--no-obs", "--scheduler-config",
+           "--demo-pods", "8", "--insecure-serving", "--scheduler-config",
            write_scheduler_config(cfg, weights, tmp),
            "--pool-name", "smoke", "--grpc-port", str(gport),
-           "--grpc-health-port", str(hport), "--metrics-port", str(mport)]
+           "--grpc-health-port", str(hport), "--metrics-port", str(mport),
+           "--obs-sample-rate", "1.0",
+           "--obs-otlp-endpoint", f"http://127.0.0.1:{sink_port}"]
     log_path = f"{tmp}/main.log"
     with open(log_path, "w") as log:
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
@@ -1178,34 +1523,78 @@ def phase_main(cfg, weights, tmp) -> dict:
         ready_s = time.monotonic() - t0
         check(status == SERVING, f"main: readiness not SERVING after "
                                  f"{ready_s:.1f} s; log:\n{tail(log_path)}")
-        golden = pb.ProcessingRequest(request_headers=pb.HttpHeaders(
-            headers=pb.HeaderMap(headers=[
-                pb.HeaderValue(key=":path", raw_value=b"/v1/completions"),
-                pb.HeaderValue(key="x-model", value="llama")]),
-            end_of_stream=True)).SerializeToString()
+        check(health_status(hport, "resilience") == SERVING,
+              "main: the resilience sub-service is not SERVING")
+        trace_ids = [f"{0x5e00 + i:032x}" for i in range(MAIN_STREAMS)]
+
+        def golden(i):
+            return pb.ProcessingRequest(request_headers=pb.HttpHeaders(
+                headers=pb.HeaderMap(headers=[
+                    pb.HeaderValue(key=":path", raw_value=b"/v1/completions"),
+                    pb.HeaderValue(key="x-model", value="llama"),
+                    pb.HeaderValue(key="traceparent", raw_value=(
+                        f"00-{trace_ids[i]}-{i + 1:016x}-01").encode())]),
+                end_of_stream=True)).SerializeToString()
+
         chans, methods = open_channels(gport, 4)
         answered = 0
         try:
             for i in range(MAIN_STREAMS):
-                out = list(methods[i % 4](iter([golden]), timeout=60))
+                out = list(methods[i % 4](iter([golden(i)]), timeout=60))
                 answered += bool(out) and destination(out[0]) is not None
         finally:
             for c in chans:
                 c.close()
         check(answered == MAIN_STREAMS,
               f"main: {answered} of {MAIN_STREAMS} streams answered")
+        check(health_status(hport, "resilience") == SERVING,
+              "main: the resilience sub-service is not SERVING after the "
+              "streams")
+        picks = json.loads(http_get(mport, f"/debugz/picks?n={MAIN_STREAMS}"))
+        recorded = {r.get("trace_id") for r in picks}
+        check(len(picks) == MAIN_STREAMS and recorded == set(trace_ids),
+              f"main: /debugz/picks holds {len(picks)} records, "
+              f"{len(recorded & set(trace_ids))} of the streams' traces")
+        check({r.get("rung") for r in picks} == {"full"},
+              f"main: picks answered by {sorted({r.get('rung') for r in picks})}")
+        one = json.loads(http_get(mport, f"/debugz/trace?id={trace_ids[7]}"))
+        check(one.get("trace_id") == trace_ids[7] and one.get("events"),
+              f"main: /debugz/trace returned {one}")
+        om = http_get(mport, "/metrics",
+                      accept="application/openmetrics-text; version=1.0.0")
+        exemplar = re.search(
+            rb'gie_pick_latency_seconds_bucket\{le="[^"]+"\} [0-9.e+]+ '
+            rb'# \{trace_id="([0-9a-f]{32})"\}', om)
+        check(exemplar is not None and om.rstrip().endswith(b"# EOF"),
+              "main: the OpenMetrics exposition has no trace_id exemplar "
+              "on gie_pick_latency_seconds")
+        deadline = time.monotonic() + 10
+        while not spans and time.monotonic() < deadline:
+            time.sleep(0.1)
+        spans_before_stop = len(spans)
+        check(spans_before_stop > 0, "main: the OTLP sink received no span")
         t1 = time.monotonic()
         proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(SERVE_GRACE_S)
+        rc = proc.wait(MAIN_EXIT_S)
+        exit_s = time.monotonic() - t1
         check(rc == 0, f"main: exit code {rc} after SIGTERM; log:\n"
                        f"{tail(log_path)}")
+        exported = {s["traceId"] for s in spans}
+        check(set(trace_ids) <= exported,
+              f"main: {len(set(trace_ids) & exported)} of {MAIN_STREAMS} "
+              "streams' traces reached the OTLP sink")
         summary = {"phase": "main", "ready_s": ready_s, "streams": MAIN_STREAMS,
-                   "answered": answered, "exit_code": rc,
-                   "exit_s": time.monotonic() - t1}
+                   "answered": answered, "records": len(picks),
+                   "exemplar_trace_id": exemplar.group(1).decode(),
+                   "otlp_spans_before_stop": spans_before_stop,
+                   "otlp_spans": len(spans), "exit_code": rc,
+                   "exit_s": exit_s}
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait(30)
+        sink.shutdown()
+        sink.server_close()
     emit(summary)
     return summary
 
@@ -1267,12 +1656,20 @@ def main() -> int:
             kernels, "fused_blend_topk", tmp)
         phase_main(cfg, weights, tmp)
 
+    chaos_sink = phase_chaos(dev, "tuned+use_pallas_sinkhorn", cfg, weights,
+                             kernels, "fused_sinkhorn_plan")
+    chaos_topk = phase_chaos(dev, "topk+use_pallas_topk",
+                             ProfileConfig(picker="topk", use_pallas_topk=True),
+                             None, kernels, "fused_blend_topk")
+
     line = []
     for rec, phases, source, replaces in (
-        (records["fused_sinkhorn_plan"], (sink, pick_sink, serve_sink),
+        (records["fused_sinkhorn_plan"],
+         (sink, pick_sink, serve_sink, chaos_sink),
          "gie_tpu_torch/ops/csrc/fused_sinkhorn.cu",
          "gie_tpu/ops/fused_sinkhorn.py:66"),
-        (records["fused_blend_topk"], (topk, pick_topk, serve_topk),
+        (records["fused_blend_topk"],
+         (topk, pick_topk, serve_topk, chaos_topk),
          "gie_tpu_torch/ops/csrc/fused_topk.cu",
          "gie_tpu/ops/fused_topk.py:80"),
     ):

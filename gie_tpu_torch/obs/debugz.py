@@ -1,20 +1,22 @@
-"""/debugz introspection plane on the metrics HTTP surface (a slim copy
-of gie_tpu/obs/debugz.py).
+"""/debugz introspection plane on the metrics HTTP surface (copy of
+gie_tpu/obs/debugz.py over the port's own collector).
 
 One stdlib ThreadingHTTPServer serves the EPP's single operator port:
 
-  /metrics            Prometheus text exposition (format 0.0.4) of the
-                      port's own collector (runtime/metrics.py), gzipped
-                      under Accept-Encoding as the reference's.
+  /metrics            Prometheus exposition of runtime/metrics.py.
+                      Content-negotiated: an ``Accept:
+                      application/openmetrics-text`` scrape gets the
+                      OpenMetrics form, which is what carries the
+                      trace-ID EXEMPLARS attached to
+                      gie_extproc_admission_seconds /
+                      gie_pick_latency_seconds / gie_serve_latency_seconds
+                      buckets — the bucket -> trace join
+                      (docs/OBSERVABILITY.md).
   /debugz             JSON catalog of the registered zpages.
-  /debugz/<page>      one zpage, JSON. The runner registers: queue /
-                      tenants / datastore / scheduler / drain / policy /
-                      buildinfo.
-
-Not carried here: the OpenMetrics form with trace-ID exemplars and the
-flight-recorder and trace pages, which come with the observability slice
-of the port (ROADMAP.md, Queue 1). The loopback gate and the bearer-token
-gate on /debugz are the reference's.
+  /debugz/<page>      one zpage, JSON. The runner registers: traces /
+                      trace / picks / pick / breakers / ladder / outlier /
+                      drain / queue / tenants / datastore / scheduler /
+                      policy / buildinfo.
 
 Providers are callables ``(query: dict[str, str]) -> object`` so the
 plane stays dependency-inverted: it knows nothing about the runner's
@@ -180,7 +182,8 @@ class DebugzServer:
         if path == "/debugz":
             self._send_json(req, {
                 "pages": sorted(f"/debugz/{name}" for name in self.providers),
-                "metrics": "/metrics",
+                "metrics": "/metrics (Accept: application/openmetrics-text "
+                           "for exemplars)",
             })
             return
         if path.startswith("/debugz/"):
@@ -195,13 +198,22 @@ class DebugzServer:
         # Everything else is the exposition — prometheus_client's
         # start_http_server serves metrics on ANY path, and existing
         # scrape configs may point at non-/metrics paths.
-        self._serve_metrics(req)
+        self._serve_metrics(req, parse_qsl(parsed.query))
 
-    def _serve_metrics(self, req: BaseHTTPRequestHandler) -> None:
-        """The exposition, gzipped under Accept-Encoding (Prometheus sends
-        it by default)."""
-        body = own_metrics.generate_latest()
-        ctype = own_metrics.CONTENT_TYPE_LATEST
+    def _serve_metrics(self, req: BaseHTTPRequestHandler,
+                       query_pairs: list) -> None:
+        """Exposition with prometheus_client-handler parity: ``name[]``
+        metric filtering, gzip under Accept-Encoding (Prometheus sends
+        it by default), and OpenMetrics under content negotiation (the
+        exemplar transport)."""
+        names = [v for k, v in query_pairs if k == "name[]"]
+        accept = req.headers.get("Accept", "")
+        if "application/openmetrics-text" in accept:
+            body = own_metrics.generate_openmetrics(names=names)
+            ctype = own_metrics.CONTENT_TYPE_OPENMETRICS
+        else:
+            body = own_metrics.generate_latest(names=names)
+            ctype = own_metrics.CONTENT_TYPE_LATEST
         req.send_response(200)
         req.send_header("Content-Type", ctype)
         if "gzip" in req.headers.get("Accept-Encoding", ""):

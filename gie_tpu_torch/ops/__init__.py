@@ -4,6 +4,11 @@ The dispatch rule, one for every kernel of the port: a wrapper given CPU
 tensors computes the plain version; given CUDA tensors it launches the
 kernel (built on first use, ops/build.py) or raises. There is no fallback
 from a CUDA tensor to the plain version.
+
+A kernel that cannot run at all raises KernelUnavailable: its build or load
+failed, it refuses the shape, or the driver refused its launch
+configuration. That is a fault of the deployment, not of a sick device, so
+the picker re-raises it instead of answering the wave on a degraded rung.
 """
 
 from __future__ import annotations
@@ -11,6 +16,15 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+
+class KernelUnavailable(RuntimeError):
+    """A kernel that cannot run here (build, load, shape or launch
+    configuration refused)."""
+
+
+class ShapeRefused(KernelUnavailable, ValueError):
+    """A kernel refuses its inputs' shape."""
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

@@ -19,6 +19,8 @@ import tempfile
 import threading
 import time
 
+from gie_tpu_torch.ops import KernelUnavailable
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 LIB_NAME = "libgie_tpu_torch_kernels.so"
@@ -40,6 +42,13 @@ SIGNATURES = {
     "gie_fused_blend_topk": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "gie_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
+# cudaError_t codes a launcher returns when the kernel itself cannot run on
+# this device (invalid value or configuration, invalid device function,
+# invalid kernel image, no image for the device, invalid or unsupported
+# PTX, too many resources, cooperative launch too large, not supported).
+# Any other code is the device's: a sticky fault of an earlier launch
+# surfaces here too.
+KERNEL_ERRORS = frozenset({1, 9, 98, 200, 209, 218, 222, 701, 720, 801})
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -108,33 +117,48 @@ def _compile(out_dir: str) -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use."""
-    global _lib
+    """The kernels' shared library, built on first use. Raises
+    KernelUnavailable when it cannot be built or loaded."""
     with _lock:
         if _lib is None:
-            t0 = time.perf_counter()
-            out_dir = os.path.join(BUILD_ROOT, source_hash())
-            path = os.path.join(out_dir, LIB_NAME)
-            cached = os.path.exists(path)
-            if cached:
-                with open(os.path.join(out_dir, "build.log")) as f:
-                    log = f.read()
-            else:
-                os.makedirs(BUILD_ROOT, exist_ok=True)
-                log = _compile(out_dir)
-            lib = ctypes.CDLL(path)
-            for name, (argtypes, restype) in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = restype
-            last_build.update(seconds=time.perf_counter() - t0,
-                              cached=cached, dir=out_dir, log=log)
-            _lib = lib
+            try:
+                _load()
+            except KernelUnavailable:
+                raise
+            except Exception as e:
+                raise KernelUnavailable(
+                    f"the port's CUDA kernels cannot be built or loaded: {e}"
+                ) from e
         return _lib
 
 
+def _load() -> None:
+    """Build (or reuse) and load the library; the caller holds _lock."""
+    global _lib
+    t0 = time.perf_counter()
+    out_dir = os.path.join(BUILD_ROOT, source_hash())
+    path = os.path.join(out_dir, LIB_NAME)
+    cached = os.path.exists(path)
+    if cached:
+        with open(os.path.join(out_dir, "build.log")) as f:
+            log = f.read()
+    else:
+        os.makedirs(BUILD_ROOT, exist_ok=True)
+        log = _compile(out_dir)
+    lib = ctypes.CDLL(path)
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+    last_build.update(seconds=time.perf_counter() - t0,
+                      cached=cached, dir=out_dir, log=log)
+    _lib = lib
+
+
 def check(err: int, name: str) -> None:
-    """Raise if a C entry point reported a CUDA error."""
+    """Raise if a C entry point reported a CUDA error: KernelUnavailable
+    for a code in KERNEL_ERRORS, RuntimeError for the device's own."""
     if err != 0:
         text = library().gie_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} failed to launch: CUDA error {err}: {text}")
+        cls = KernelUnavailable if err in KERNEL_ERRORS else RuntimeError
+        raise cls(f"{name} failed to launch: CUDA error {err}: {text}")

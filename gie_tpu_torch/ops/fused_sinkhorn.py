@@ -14,7 +14,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from gie_tpu_torch.ops import build, check_input, current, on_cuda, raw_stream
+from gie_tpu_torch.ops import (
+    ShapeRefused, build, check_input, current, on_cuda, raw_stream)
 
 
 class Layout(NamedTuple):
@@ -34,7 +35,7 @@ _layouts: dict = {}
 
 def layout(device: torch.device, n: int, m: int) -> Layout:
     """The kernel's grid, band and scratch for an [n, m] solve (cached per
-    device and shape). Raises ValueError when a block's K slab does not fit
+    device and shape). Raises ShapeRefused when a block's K slab does not fit
     in shared memory: the kernel takes N up to SMs x the rows one block
     holds (7128 rows at M=1024 on a 132-SM H100)."""
     key = (device.index, n, m)
@@ -46,7 +47,7 @@ def layout(device: torch.device, n: int, m: int) -> Layout:
         build.check(err, "fused_sinkhorn_plan")
         lay = _layouts[key] = Layout(*out)
     if lay.smem_bytes > lay.smem_max:
-        raise ValueError(
+        raise ShapeRefused(
             f"fused_sinkhorn_plan: N={n} x M={m} needs a K slab of {lay.rows} "
             f"rows per block, {lay.smem_bytes} bytes of shared memory; a "
             f"block has at most {lay.smem_max}")

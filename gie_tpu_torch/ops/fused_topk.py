@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from gie_tpu_torch.ops import build, check_input, current, on_cuda, raw_stream
+from gie_tpu_torch.ops import (
+    ShapeRefused, build, check_input, current, on_cuda, raw_stream)
 from gie_tpu_torch.sched.constants import NEG_SCORE as NEG
 
 # What the kernel takes (ops/csrc/fused_topk.cu): S scorer columns and k
@@ -69,7 +70,7 @@ def fused_blend_topk(
     check_input(wvec, "wvec", torch.float32, (s,))
     check_input(mask, "mask", torch.bool, (n, m))
     if not (1 <= s <= MAX_S and 1 <= k <= MAX_K):
-        raise ValueError(f"fused_blend_topk takes 1 <= S <= {MAX_S} scorer "
+        raise ShapeRefused(f"fused_blend_topk takes 1 <= S <= {MAX_S} scorer "
                          f"columns and 1 <= k <= {MAX_K}; got S={s}, k={k}")
     lib = build.library()
     dev = stacked.device

@@ -17,7 +17,12 @@ per-wave medians need and bucket counts cannot give.
 exactly as prometheus_client's generate_latest does: HELP and TYPE lines,
 `_total` counter samples, `_bucket`/`_count`/`_sum` histogram samples, and
 a `_created` gauge family beside every counter and histogram.
-`start_metrics_server` serves it on /metrics with the /debugz pages
+`generate_openmetrics()` renders it in OpenMetrics 1.0.0 exactly as
+prometheus_client's openmetrics.generate_latest does, with the trace-ID
+EXEMPLAR an observation carried on its histogram bucket (the bucket ->
+trace join, docs/OBSERVABILITY.md). Both take `names`, the
+prometheus_client `name[]` filter. `start_metrics_server` serves them on
+/metrics, chosen by the scrape's Accept header, with the /debugz pages
 (obs/debugz.py).
 """
 
@@ -55,15 +60,15 @@ class _Child:
         self._metric._set(self._key, value)
 
     def observe(self, value: float, exemplar: Optional[dict] = None) -> None:
-        del exemplar  # trace exemplars come with the observability slice
-        self._metric._observe(self._key, value)
+        self._metric._observe(self._key, value, exemplar)
 
 
 class _Metric:
     kind = ""
 
     def __init__(self, name: str, documentation: str,
-                 labelnames: tuple = (), buckets: tuple = ()):
+                 labelnames: tuple = (), buckets: tuple = (),
+                 registry: Optional[list] = REGISTRY):
         self.name = name
         self.documentation = documentation
         self.labelnames = tuple(labelnames)
@@ -75,7 +80,8 @@ class _Metric:
         self._created: dict[tuple, float] = {}
         if not self.labelnames:
             self._created[()] = time.time()
-        REGISTRY.append(self)
+        if registry is not None:
+            registry.append(self)
 
     def labels(self, *values, **by_name) -> _Child:
         if by_name:
@@ -113,7 +119,8 @@ class _Metric:
     def _set(self, key: tuple, value: float) -> None:
         raise TypeError(f"{self.kind} {self.name} has no set")
 
-    def _observe(self, key: tuple, value: float) -> None:
+    def _observe(self, key: tuple, value: float,
+                 exemplar: Optional[dict] = None) -> None:
         raise TypeError(f"{self.kind} {self.name} has no observe")
 
     def reset(self) -> None:
@@ -127,26 +134,64 @@ class _Metric:
         if key not in self._created:
             self._created[key] = time.time()
 
-    def _samples(self) -> list[tuple[str, tuple, float]]:
-        """(sample name, label values, value) in exposition order."""
+    @property
+    def family(self) -> str:
+        """The OpenMetrics family name (a counter's without `_total`)."""
+        if self.kind == "counter" and self.name.endswith("_total"):
+            return self.name[:-6]
+        return self.name
+
+    def _samples(self) -> list[tuple[str, tuple, float, Optional[tuple]]]:
+        """(sample name, (label, value) pairs, value, exemplar) in the
+        OpenMetrics order: each label combination's samples together,
+        its `_created` last. An exemplar is (labels dict, value, unix
+        time) or None."""
         raise NotImplementedError
 
-    def _expose(self, out: list[str]) -> None:
+    def _created_at(self, key: tuple) -> list:
+        """The `_created` sample of one label combination (caller holds
+        the lock)."""
+        ts = self._created.get(key)
+        if ts is None:
+            return []
+        return [(f"{self.family}_created", tuple(zip(self.labelnames, key)),
+                 ts, None)]
+
+    def _expose(self, out: list[str], names=None) -> None:
         """Append this metric's families in the text format 0.0.4."""
-        family = self.name
+        samples = _filtered(self._samples(), names)
+        if samples is None:
+            return
+        family = self.family + ("_total" if self.kind == "counter" else "")
         doc = _escape_help(self.documentation)
         out.append(f"# HELP {family} {doc}\n# TYPE {family} {self.kind}\n")
-        for sample, labels, value in self._samples():
-            out.append(_sample_line(sample, labels, value))
-        with self._lock:
-            created = sorted(self._created.items())
-        if self.kind in ("counter", "histogram") and created:
-            base = family[:-6] if family.endswith("_total") else family
-            out.append(f"# HELP {base}_created {doc}\n"
-                       f"# TYPE {base}_created gauge\n")
-            for key, ts in created:
-                out.append(_sample_line(
-                    f"{base}_created", tuple(zip(self.labelnames, key)), ts))
+        created = f"{self.family}_created"
+        for sample, labels, value, _ex in samples:
+            if sample != created:
+                out.append(_sample_line(sample, labels, value))
+        tail = [s for s in samples if s[0] == created]
+        if tail:
+            out.append(f"# HELP {created} {doc}\n# TYPE {created} gauge\n")
+            for sample, labels, value, _ex in tail:
+                out.append(_sample_line(sample, labels, value))
+
+    def _expose_openmetrics(self, out: list[str], names=None) -> None:
+        """Append this metric's family in OpenMetrics 1.0.0."""
+        samples = _filtered(self._samples(), names)
+        if samples is None:
+            return
+        doc = _escape_label(self.documentation)
+        out.append(f"# HELP {self.family} {doc}\n"
+                   f"# TYPE {self.family} {self.kind}\n")
+        for sample, labels, value, exemplar in samples:
+            line = _sample_line(sample, labels, value)
+            if exemplar is not None:
+                ex_labels, ex_value, ex_ts = exemplar
+                body = ",".join(f'{k}="{_escape_label(str(v))}"'
+                                for k, v in sorted(ex_labels.items()))
+                line = (f"{line[:-1]} # {{{body}}} "
+                        f"{_go_float(ex_value)} {ex_ts}\n")
+            out.append(line)
 
 
 class Counter(_Metric):
@@ -164,20 +209,24 @@ class Counter(_Metric):
             return float(self._values.get(tuple(str(v) for v in labels), 0.0))
 
     def _samples(self):
+        out = []
         with self._lock:
             items = list(self._values.items())
             if not self.labelnames and not items:
                 items = [((), 0.0)]
-        return [(self.name, tuple(zip(self.labelnames, key)), value)
-                for key, value in items]
+            for key, value in items:
+                out.append((self.name, tuple(zip(self.labelnames, key)),
+                            value, None))
+                out.extend(self._created_at(key))
+        return out
 
 
 class Gauge(_Metric):
     kind = "gauge"
 
     def __init__(self, name: str, documentation: str,
-                 labelnames: tuple = ()):
-        super().__init__(name, documentation, labelnames)
+                 labelnames: tuple = (), registry: Optional[list] = REGISTRY):
+        super().__init__(name, documentation, labelnames, registry=registry)
         self._function: Optional[Callable[[], float]] = None
 
     def set_function(self, fn: Callable[[], float]) -> None:
@@ -201,39 +250,47 @@ class Gauge(_Metric):
 
     def _samples(self):
         if self._function is not None:
-            return [(self.name, (), float(self._function()))]
+            return [(self.name, (), float(self._function()), None)]
         with self._lock:
             items = list(self._values.items())
             if not self.labelnames and not items:
                 items = [((), 0.0)]
-        return [(self.name, tuple(zip(self.labelnames, key)), value)
+        return [(self.name, tuple(zip(self.labelnames, key)), value, None)
                 for key, value in items]
 
 
 class _Series:
-    __slots__ = ("counts", "sum", "count", "recent")
+    __slots__ = ("counts", "sum", "count", "recent", "exemplars")
 
     def __init__(self, n_buckets: int):
         self.counts = [0] * (n_buckets + 1)   # the last is +Inf
         self.sum = 0.0
         self.count = 0
         self.recent: deque = deque(maxlen=RECENT)
+        # Per bucket, the last exemplar observed into it (or None).
+        self.exemplars: list = [None] * (n_buckets + 1)
 
 
 class Histogram(_Metric):
     kind = "histogram"
 
-    def _observe(self, key: tuple, value: float) -> None:
+    def _observe(self, key: tuple, value: float,
+                 exemplar: Optional[dict] = None) -> None:
         value = float(value)
         with self._lock:
             self._touch(key)
             series = self._values.get(key)
             if series is None:
                 series = self._values[key] = _Series(len(self.buckets))
-            series.counts[bisect.bisect_left(self.buckets, value)] += 1
+            bucket = bisect.bisect_left(self.buckets, value)
+            series.counts[bucket] += 1
             series.sum += value
             series.count += 1
             series.recent.append(value)
+            if exemplar:
+                series.exemplars[bucket] = (
+                    {str(k): str(v) for k, v in exemplar.items()},
+                    value, time.time())
 
     def _series(self, labels) -> Optional[_Series]:
         return self._values.get(tuple(str(v) for v in labels))
@@ -261,22 +318,26 @@ class Histogram(_Metric):
             return [] if s is None else list(s.recent)
 
     def _samples(self):
+        n = len(self.buckets) + 1
         with self._lock:
-            items = [(key, list(s.counts), s.count, s.sum)
+            items = [(key, list(s.counts), s.count, s.sum, list(s.exemplars),
+                      self._created_at(key))
                      for key, s in self._values.items()]
             if not self.labelnames and not items:
-                items = [((), [0] * (len(self.buckets) + 1), 0, 0.0)]
+                items = [((), [0] * n, 0, 0.0, [None] * n,
+                          self._created_at(()))]
         out = []
         edges = [_go_float(b) for b in self.buckets] + ["+Inf"]
-        for key, counts, count, total in items:
+        for key, counts, count, total, exemplars, created in items:
             labels = tuple(zip(self.labelnames, key))
             cumulative = 0
-            for edge, n in zip(edges, counts):
-                cumulative += n
+            for edge, k, ex in zip(edges, counts, exemplars):
+                cumulative += k
                 out.append((f"{self.name}_bucket", labels + (("le", edge),),
-                            float(cumulative)))
-            out.append((f"{self.name}_count", labels, float(count)))
-            out.append((f"{self.name}_sum", labels, total))
+                            float(cumulative), ex))
+            out.append((f"{self.name}_count", labels, float(count), None))
+            out.append((f"{self.name}_sum", labels, total, None))
+            out.extend(created)
         return out
 
 
@@ -320,16 +381,39 @@ def _escape_label(value: str) -> str:
 
 def _sample_line(name: str, labels: tuple, value) -> str:
     if labels:
-        body = ",".join(f'{k}="{_escape_label(str(v))}"' for k, v in labels)
+        body = ",".join(f'{k}="{_escape_label(str(v))}"'
+                        for k, v in sorted(labels))
         return f"{name}{{{body}}} {_go_float(value)}\n"
     return f"{name} {_go_float(value)}\n"
 
 
-def generate_latest() -> bytes:
-    """REGISTRY in the text format 0.0.4."""
+def _filtered(samples: list, names) -> Optional[list]:
+    """prometheus_client's `name[]` restriction: only the samples whose
+    name is listed, and None (no family at all) when none is."""
+    if not names:
+        return samples
+    kept = [s for s in samples if s[0] in names]
+    return kept or None
+
+
+def generate_latest(registry: list = REGISTRY, names=None) -> bytes:
+    """`registry` in the text format 0.0.4."""
     out: list[str] = []
-    for metric in REGISTRY:
-        metric._expose(out)
+    for metric in registry:
+        metric._expose(out, names)
+    return "".join(out).encode("utf-8")
+
+
+CONTENT_TYPE_OPENMETRICS = (
+    "application/openmetrics-text; version=1.0.0; charset=utf-8")
+
+
+def generate_openmetrics(registry: list = REGISTRY, names=None) -> bytes:
+    """`registry` in OpenMetrics 1.0.0, exemplars included."""
+    out: list[str] = []
+    for metric in registry:
+        metric._expose_openmetrics(out, names)
+    out.append("# EOF\n")
     return "".join(out).encode("utf-8")
 
 
@@ -413,6 +497,25 @@ SLOT_OVERFLOW = Gauge(
     "gie_endpoint_slot_overflow_total",
     "Endpoint admissions refused because every scheduler slot (M_MAX) was "
     "taken — the pool outgrew the compiled capacity")
+# Unified resilience layer (resilience/): the degradation ladder's current
+# rung (0 = full device pick, 1 = cached-snapshot pick, 2 = weighted
+# round-robin, 3 = static subset), breaker quarantine, and degraded-pick
+# volume.
+DEGRADED_MODE = Gauge(
+    "gie_degraded_mode",
+    "Pick-path degradation ladder rung (0 full TPU pick, 1 cached-"
+    "snapshot pick, 2 weighted round-robin, 3 static subset)")
+DEGRADED_PICKS = Counter(
+    "gie_degraded_picks_total",
+    "Picks served by a degraded ladder rung",
+    ["rung"])  # cached|round_robin|static
+BREAKER_OPEN = Gauge(
+    "gie_breaker_open_endpoints",
+    "Endpoints currently quarantined by an OPEN circuit breaker")
+OUTLIER_EJECTIONS = Counter(
+    "gie_outlier_ejections_total",
+    "Endpoints quarantined by p99 serve-latency outlier ejection "
+    "(windowed per-endpoint quantile vs pool median, --outlier-ejection)")
 DEADLINE_SHED = Counter(
     "gie_deadline_shed_total",
     "Requests shed with 503 because their propagated deadline expired",

@@ -6,9 +6,7 @@ Mirror of reference pkg/lwepp/server/options.go:25-94 (defaults: ext-proc
 gRPC 9002, dedicated health 9003, metrics 9090, pool group
 inference.networking.k8s.io, TLS on) plus the scheduler's knobs. Flags
 whose subsystem a later slice of the port brings parse here and are
-refused by the runner (runtime/runner.py); --fault-scenario, whose
-validation loads a recorded scenario, is refused here.
-"""
+refused by the runner (runtime/runner.py)."""
 
 from __future__ import annotations
 
@@ -908,10 +906,12 @@ class Options:
                 # would break its bit-for-bit replay claim.
                 raise ValueError(
                     "--fault-scenario and --fault are mutually exclusive")
-            from gie_tpu_torch.sched.profile import _not_ported
+            from gie_tpu_torch.resilience import scenarios as _scenarios
 
-            raise _not_ported("--fault-scenario (resilience/scenarios.py)",
-                              "resilience")
+            try:
+                _scenarios.load(self.fault_scenario)
+            except ValueError as e:
+                raise ValueError(f"--fault-scenario: {e}") from None
         if self.drain_deadline_s <= 0:
             raise ValueError("--drain-deadline-s must be > 0")
         if self.fed_peers or self.fed_port > 0 or self.fed_drain:

@@ -8,13 +8,15 @@ context/signal (internal/runnable/grpc.go:44-57 GracefulStop).
 
 With no injected scheduler the runner builds `Scheduler(*tuned_profile())`
 (or `--scheduler-config`) with no device argument, so it runs on the CUDA
-card and raises where there is none. Subsystems that later slices of the
-port bring are refused at construction with the port's not-ported error,
-never skipped silently (`refuse_out_of_slice`): the resilience layer and
-the observability layer, both on by default in the reference (run with
-`--no-resilience --no-obs`), and the kube, leader-election, replication,
-autoscale, federation, KV-events, fleet, multi-device, learned-scorer,
-latency-predictor and chaos flags.
+card and raises where there is none. The resilience layer (breaker
+board, degradation ladder, outlier ejection, --fault / --fault-scenario
+injection) and the observability layer (flight recorder, tracer, OTLP
+export, /debugz pages, dump rotation) are wired as the reference wires
+them, both on by default. Subsystems that later slices of the port bring
+are refused at construction with the port's not-ported error, never
+skipped silently (`refuse_out_of_slice`): the kube, leader-election,
+replication, autoscale, federation, KV-events, fleet, multi-device,
+learned-scorer and latency-predictor flags.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Optional
 
 import grpc
 
-from gie_tpu_torch import __version__
+from gie_tpu_torch import __version__, obs
 from gie_tpu_torch.api.objectives import InferenceObjective, ObjectiveRegistry
 from gie_tpu_torch.api.types import GROUP
 from gie_tpu_torch.controller.cluster import ClusterClient
@@ -41,6 +43,18 @@ from gie_tpu_torch.fairness import FairnessConfig, FairnessState, parse_weights
 from gie_tpu_torch.metricsio import MetricsStore
 from gie_tpu_torch.metricsio.engine import ScrapeEngine
 from gie_tpu_torch.metricsio.mappings import BY_NAME
+from gie_tpu_torch.obs.otlp import OtlpSpanExporter
+from gie_tpu_torch.obs.recorder import DumpRotator, FlightRecorder
+from gie_tpu_torch.obs.trace import Tracer
+from gie_tpu_torch.resilience import (
+    DegradationLadder,
+    LadderConfig,
+    OutlierConfig,
+    OutlierEjector,
+    ResilienceState,
+    faults,
+    scenarios,
+)
 from gie_tpu_torch.runtime import metrics as own_metrics
 from gie_tpu_torch.runtime.health import HealthService, start_dedicated_health_server
 from gie_tpu_torch.runtime.logging import get_logger
@@ -62,10 +76,6 @@ def refuse_out_of_slice(opts: Options) -> None:
                   if f.name.startswith("fed_")
                   and getattr(opts, f.name) != getattr(defaults, f.name)]
     refusals = (
-        (opts.resilience, "the resilience layer (on by default; run with "
-                          "--no-resilience)", "resilience"),
-        (opts.obs, "the observability layer (on by default; run with "
-                   "--no-obs)", "obs"),
         (opts.leader_elect, "--leader-elect", "kube"),
         (opts.replication_port > 0, "--replication-port", "replication"),
         (opts.autoscale_mode != "off", "--autoscale-mode", "autoscale"),
@@ -76,8 +86,6 @@ def refuse_out_of_slice(opts: Options) -> None:
         (opts.mesh_devices > 1, "--mesh-devices", "mesh"),
         (opts.scorer == "learned", "--scorer learned", "scorer"),
         (opts.enable_predictor, "--enable-predictor", "predictor_fn"),
-        (bool(opts.fault_specs), "--fault", "resilience"),
-        (bool(opts.fault_scenario), "--fault-scenario", "resilience"),
     )
     for refused, what, key in refusals:
         if refused:
@@ -108,6 +116,62 @@ class ExtProcServerRunner:
             self.scheduler = Scheduler(cfg, weights=weights)
         self.metrics_store = MetricsStore()
         self.mapping = BY_NAME[opts.model_server_type]
+        # gie-obs (obs/, docs/OBSERVABILITY.md): the pick flight recorder
+        # (always, when obs is on — written at wave cadence) and the
+        # request tracer (only at a sampling rate > 0; rate 0 leaves the
+        # admission path at one module-attr load + branch).
+        self._obs_installed = False
+        self._otlp = None
+        self._scenario_name = ""
+        if opts.obs:
+            tenant_rates = {
+                spec.partition("=")[0]: float(spec.partition("=")[2])
+                for spec in opts.obs_tenant_sample
+            }
+            tracer = None
+            if opts.obs_sample_rate > 0 or tenant_rates:
+                # A tenant-rate map alone (fleet rate 0) still installs
+                # the tracer: one noisy tenant at 1.0 while the fleet
+                # stays dark is exactly the per-tenant override's job.
+                tracer = Tracer(
+                    opts.obs_sample_rate, seed=opts.obs_sample_seed,
+                    slow_s=opts.obs_slow_ms / 1000.0,
+                    tenant_rates=tenant_rates)
+            if tracer is not None and opts.obs_otlp_endpoint:
+                # OTLP span export (obs/otlp.py): exported traces also
+                # POST to the collector as OTLP/HTTP JSON, batched on a
+                # background thread — finish() only enqueues.
+                self._otlp = OtlpSpanExporter(opts.obs_otlp_endpoint)
+                tracer.on_export = self._otlp.export
+                self.log.info("otlp span export armed",
+                              endpoint=opts.obs_otlp_endpoint)
+            obs.install(tracer=tracer,
+                        recorder=FlightRecorder(opts.obs_ring))
+            self._obs_installed = True
+        # Unified resilience layer (resilience/, docs/RESILIENCE.md): one
+        # breaker board (scrape outcomes write, pick path reads), one
+        # degradation ladder (batching collector drives), the scrape
+        # engine's own staleness clock as the blackout signal.
+        self.resilience = None
+        if opts.resilience:
+            ejector = None
+            if opts.outlier_ejection:
+                # p99 serve-latency outlier ejection: fed by the serve-
+                # outcome path, evaluated at wave cadence, tripping the
+                # breaker serve plane.
+                ejector = OutlierEjector(OutlierConfig(
+                    window_s=opts.outlier_window_s,
+                    quantile=opts.outlier_quantile,
+                    ratio=opts.outlier_ratio))
+            self.resilience = ResilienceState(
+                ladder=DegradationLadder(LadderConfig(
+                    cached_kv_weight=opts.ladder_cached_kv_weight,
+                    serve_window_s=opts.ladder_serve_window_s,
+                    serve_error_rate=opts.ladder_serve_error_rate,
+                    serve_min_samples=opts.ladder_serve_min_samples,
+                    wrr_queue_alpha=opts.ladder_wrr_alpha)),
+                static_subset=opts.resilience_static_subset,
+                ejector=ejector)
         # Multi-tenant fairness (docs/FAIRNESS.md): weighted-DRR flow
         # ordering + per-tenant budgets; uniform weights unless
         # --fairness-weights names tenants.
@@ -125,7 +189,15 @@ class ExtProcServerRunner:
             lora=self.lora_registry,
             interval_s=opts.scrape_interval_ms / 1000.0,
             workers=opts.scrape_workers or None,
+            breaker_board=(self.resilience.board
+                           if self.resilience is not None else None),
         )
+        if self.resilience is not None:
+            # The engine's last-success clocks are the blackout signal:
+            # they cover ingestion-side outages (every endpoint
+            # unreachable and backing off, a wedged shard) that row ages
+            # alone miss.
+            self.resilience.staleness_fn = self.scraper.staleness_seconds
         self.datastore = Datastore(
             on_slot_reclaimed=self._slot_reclaimed,
             drain_deadline_s=opts.drain_deadline_s)
@@ -143,8 +215,10 @@ class ExtProcServerRunner:
             # The port has no jit to warm and its picker refuses True until
             # the warm-lattice slice; False changes no pick.
             background_warm=False,
+            resilience=self.resilience,
             fairness=self.fairness,
         )
+        self._dump_thread: Optional[threading.Thread] = None
         own_metrics.register_pool_aggregates(self._pool_snapshot)
         # Objective registry (proposal 1199): named objectives -> bands,
         # populated from --objective NAME=CRITICALITY declarations.
@@ -204,9 +278,54 @@ class ExtProcServerRunner:
 
     def _debugz_providers(self) -> dict:
         """The /debugz zpage catalog (obs/debugz.py): closures over the
-        live subsystems, the reference's pages whose providers exist
-        without the flight recorder. Every provider reads a snapshot or
-        report surface that takes at most a leaf lock briefly."""
+        live subsystems. Every provider reads a snapshot or report
+        surface that takes at most a leaf lock briefly — never the pick
+        lock — and all JSON serialization happens in the HTTP layer."""
+
+        def traces(q: dict):
+            t = obs.TRACER
+            if t is None:
+                return {"disabled":
+                        "tracing off (--obs-sample-rate 0 or --no-obs)"}
+            return {"tracer": t.report(),
+                    "traces": t.traces(q.get("kind", "recent"),
+                                       n=int(q.get("n", "50")))}
+
+        def trace(q: dict):
+            t = obs.TRACER
+            if t is None:
+                return {"disabled": "tracing off"}
+            found = t.get(q.get("id", ""))
+            return found if found is not None else {
+                "error": "no such trace (feed wrapped, or it was never "
+                         "exported — unsampled and uneventful)"}
+
+        def picks(q: dict):
+            r = obs.RECORDER
+            if r is None:
+                return {"disabled": "--no-obs"}
+            return r.snapshot(n=int(q.get("n", "100")))
+
+        def pick(q: dict):
+            # The per-request pick EXPLANATION: the flight-recorder
+            # decision record joined with its exported trace (when one
+            # exists) — "why did request X land on pod Y".
+            r = obs.RECORDER
+            if r is None:
+                return {"disabled": "--no-obs"}
+            seq = q.get("seq")
+            rec = r.find(trace_id=q.get("trace", ""),
+                         seq=int(seq) if seq is not None else None)
+            if rec is None:
+                return {"error": "no record for that trace/seq (ring "
+                                 "wrapped, or the pick predates obs)"}
+            out = {"record": rec}
+            t = obs.TRACER
+            if t is not None and rec.get("trace_id"):
+                tr = t.get(rec["trace_id"])
+                if tr is not None:
+                    out["trace"] = tr
+            return out
 
         def drain(q: dict):
             report = self.datastore.debug_report()
@@ -217,7 +336,11 @@ class ExtProcServerRunner:
                               if e["draining"]],
             }
 
-        return {
+        providers = {
+            "traces": traces,
+            "trace": trace,
+            "picks": picks,
+            "pick": pick,
             "queue": lambda q: self.picker.queue_report(),
             "tenants": lambda q: self.picker.tenants_report(),
             "datastore": lambda q: self.datastore.debug_report(),
@@ -228,11 +351,20 @@ class ExtProcServerRunner:
                 "version": __version__,
                 "fast_lane": self.opts.extproc_fast_lane,
                 "resilience": self.opts.resilience,
-                "obs": False,
+                "obs": self._obs_installed,
                 "obs_sample_rate": self.opts.obs_sample_rate,
                 "fault_scenario": self.opts.fault_scenario or None,
             },
         }
+        if self.resilience is not None:
+            providers["breakers"] = (
+                lambda q: self.resilience.board.report())
+            providers["ladder"] = (
+                lambda q: self.resilience.report())
+            if self.resilience.ejector is not None:
+                providers["outlier"] = (
+                    lambda q: self.resilience.ejector.report())
+        return providers
 
     def _policy_weights(self) -> dict:
         w = self.scheduler.weights
@@ -252,6 +384,11 @@ class ExtProcServerRunner:
     def _slot_reclaimed(self, slot: int) -> None:
         self.scheduler.evict_endpoint(slot)
         self.scraper.detach(slot)
+        if self.resilience is not None and self.resilience.ejector is not None:
+            # Latency history must not outlive the endpoint: a reused
+            # slot's new pod starts with a clean quantile window (the
+            # breaker's own drop rides the scrape detach above).
+            self.resilience.ejector.drop(slot)
 
     def _sync_scrapers(self) -> None:
         for ep in self.datastore.local_endpoints():
@@ -305,17 +442,38 @@ class ExtProcServerRunner:
     def start(self) -> int:
         """Start health, metrics, and the ext-proc listener; returns the
         bound ext-proc port."""
+        if self.opts.fault_specs:
+            # gie-chaos (resilience/faults.py): arm the seeded injector.
+            # Operator-driven chaos experiments only — production runs
+            # leave this off and pay one flag check per woven site.
+            faults.install(faults.FaultInjector(
+                self.opts.fault_seed,
+                faults.parse_spec(self.opts.fault_specs)))
+            self.log.info("fault injection armed",
+                          seed=self.opts.fault_seed,
+                          specs=self.opts.fault_specs)
+        elif self.opts.fault_scenario:
+            # Recorded chaos scenario (resilience/scenarios.py): the file
+            # carries its own seed + rules — the replayable form of
+            # --fault/--fault-seed, bit-for-bit across runs.
+            scn = scenarios.load(self.opts.fault_scenario)
+            scn.arm()
+            self._scenario_name = scn.name
+            self.log.info("chaos scenario armed", name=scn.name,
+                          seed=scn.seed, path=scn.path)
+        resilience_fn = (self.resilience.healthy
+                         if self.resilience is not None else None)
         # Dedicated health first — NOT_SERVING beats connection-refused
         # during startup (reference main.go:104-109).
         self.health_server, _ = start_dedicated_health_server(
-            self.ready, self.opts.grpc_health_port)
+            self.ready, self.opts.grpc_health_port, None, resilience_fn)
         # The wire lane rides on the fast lane's header scan:
         # --no-extproc-fast-lane quietly implies the legacy gRPC lane.
         wire_lane = self.opts.extproc_wire and self.opts.extproc_fast_lane
         own_metrics.set_build_info(
             fast_lane=self.opts.extproc_fast_lane,
             resilience=self.opts.resilience,
-            obs=False,
+            obs=self._obs_installed,
             wire=wire_lane, workers=self.opts.extproc_workers)
         own_metrics.set_policy_info(
             scorer=getattr(self.scheduler.cfg, "scorer", "blend"),
@@ -333,7 +491,7 @@ class ExtProcServerRunner:
         # registered per acceptor so probes hit the same socket spread
         # real traffic does.
         def _add_health(srv):
-            HealthService(self.ready).add_to_server(srv)
+            HealthService(self.ready, None, resilience_fn).add_to_server(srv)
 
         pool = ExtProcWorkerPool(
             self.streaming, self.opts.extproc_workers, wire=wire_lane,
@@ -345,6 +503,27 @@ class ExtProcServerRunner:
         port = pool.bind(addr, creds)
         pool.start()
         self.grpc_server = pool
+        if self.opts.obs_dump_interval_s > 0 and self._obs_installed:
+            # Periodic flight-recorder harvesting (--obs-dump-interval-s):
+            # the rotator bounds the file count itself; the thread holds
+            # no lock across the dump.
+            rotator = DumpRotator(self.opts.obs_dump_dir,
+                                  keep=self.opts.obs_dump_keep)
+
+            def _dump_loop():
+                while not self._stopped.wait(self.opts.obs_dump_interval_s):
+                    path = rotator.rotate_once()
+                    if path:
+                        self.log.v(3).info("flight recorder rotated",
+                                           path=path)
+
+            self._dump_thread = threading.Thread(
+                target=_dump_loop, daemon=True)
+            self._dump_thread.start()
+            self.log.info("obs dump rotation started",
+                          dir=self.opts.obs_dump_dir,
+                          interval_s=self.opts.obs_dump_interval_s,
+                          keep=self.opts.obs_dump_keep)
         self.log.info(
             "ext-proc server started",
             port=port,
@@ -365,6 +544,10 @@ class ExtProcServerRunner:
         if self._stopped.is_set():
             return
         self._stopped.set()
+        if self._dump_thread is not None:
+            # _stopped is already set; the wait()-gated loop exits on its
+            # next wake.
+            self._dump_thread.join(timeout=5)
         if self.grpc_server is not None:
             self.grpc_server.stop(grace).wait()
         if self.health_server is not None:
@@ -376,6 +559,21 @@ class ExtProcServerRunner:
                 self.debugz_server.close()
             except Exception:
                 pass  # listener teardown must not block shutdown
+        if self._obs_installed:
+            if self.opts.fault_scenario:
+                # Chaos-scenario artifact: the ring buffer IS the
+                # explanation of what the scenario did to the pick path —
+                # dump it so a failed run reads back its own decisions.
+                path = obs.dump_artifact(
+                    self.opts.obs_dump_dir,
+                    name=self._scenario_name or "scenario")
+                if path:
+                    self.log.info("flight recorder dumped", path=path)
+            obs.uninstall()
+        if self._otlp is not None:
+            self._otlp.close()
+        if self.opts.fault_specs:
+            faults.uninstall()
         if self._cert_reloader is not None:
             self._cert_reloader.close()
         self.log.info("shutdown complete")

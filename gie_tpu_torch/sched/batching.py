@@ -14,12 +14,23 @@ materializes the results and fans them out. The card runs cycle k while
 the host assembles cycle k+1, and a bounded in-flight depth caps the tail
 latency a dispatched wave can accumulate behind its predecessors.
 
-Not carried by this slice, and refused at construction: the resilience
-ladder and breaker filter (`resilience=`), federation spill
-(`federation=`), the latency predictor and SLO admission (`trainer=`),
-and background lattice warming (`background_warm=True`). The flight
-recorder comes with the observability slice; trace events still ride
-`PickRequest.trace`.
+With a ResilienceState (`resilience=`), each wave first asks the
+degradation ladder whether it takes the device cycle (always at FULL; as
+a probe at probe cadence while degraded) or is answered host-side on a
+degraded rung (`_degraded_pick`: numpy over the MetricsStore's host rows,
+no device state touched, nothing charged), and quarantined endpoints
+leave each request's candidates. A failed dispatch or materialize
+answers its wave degraded instead of failing it, except for a kernel
+that cannot run here at all (ops.KernelUnavailable: build, load or shape
+refused), which fails the wave as it does without a ResilienceState: the
+Scheduler builds its kernels at construction, so that error belongs to
+the deployment, not to a sick device. While a flight recorder
+is installed (obs.RECORDER), the completer writes one decision record
+per request from host arrays only.
+
+Not carried by this slice, and refused at construction: federation
+spill (`federation=`), the latency predictor and SLO admission
+(`trainer=`), and background lattice warming (`background_warm=True`).
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gie_tpu_torch import obs
 from gie_tpu_torch.api.types import LITERAL_BANDS
 from gie_tpu_torch.extproc import metadata as mdkeys
 from gie_tpu_torch.extproc.pick import (
@@ -44,8 +56,10 @@ from gie_tpu_torch.extproc.pick import (
     ShedError,
 )
 from gie_tpu_torch.fairness import FairnessState
+from gie_tpu_torch.ops import KernelUnavailable
 from gie_tpu_torch.resilience import deadline as deadline_mod
 from gie_tpu_torch.resilience import faults
+from gie_tpu_torch.resilience.ladder import ResilienceState, Rung
 from gie_tpu_torch.runtime import metrics as own_metrics
 from gie_tpu_torch.runtime.clock import MONOTONIC, Clock
 from gie_tpu_torch.sched import constants as C
@@ -105,7 +119,7 @@ def _fair_order(items: list["_Pending"]) -> list["_Pending"]:
 class _Pending:
     __slots__ = ("req", "candidates", "event", "result", "error",
                  "enqueued_at", "abandoned", "band", "cand_slots",
-                 "excl_drain", "tenant", "cost")
+                 "excl_breaker", "excl_drain", "tenant", "cost")
 
     def __init__(self, req: PickRequest, candidates: list,
                  band: Optional[int] = None,
@@ -131,7 +145,10 @@ class _Pending:
         self.cand_slots = np.fromiter(
             (getattr(ep, "slot", -1) for ep in candidates),
             np.int64, len(candidates))
-        # Slots graceful drain excluded for THIS item (provenance).
+        # Slots the wave-level filters excluded for THIS item (flight-
+        # recorder provenance): breaker quarantine and graceful drain.
+        # Empty tuples until a filter actually fires.
+        self.excl_breaker: tuple = ()
         self.excl_drain: tuple = ()
         # Tenant identity + request cost, resolved ONCE at enqueue for the
         # fairness layer; cost shares request_cost_host's units.
@@ -197,12 +214,16 @@ def assemble_wave(
 class _Wave:
     """One dispatched wave in flight between dispatcher and completer."""
 
-    __slots__ = ("batch", "pending", "endpoints", "plen", "dlen")
+    __slots__ = ("batch", "pending", "endpoints", "eps_metrics", "plen",
+                 "dlen")
 
-    def __init__(self, batch, pending, endpoints, plen, dlen):
+    def __init__(self, batch, pending, endpoints, eps_metrics, plen, dlen):
         self.batch = batch            # list[_Pending], waiters to wake
         self.pending = pending        # profile.PendingWave
         self.endpoints = endpoints    # datastore endpoints at dispatch time
+        # The wave's metrics rows as the CPU EndpointBatch holds them (the
+        # flight recorder's scorer breakdown; never the device copy).
+        self.eps_metrics = eps_metrics
         self.plen = plen
         self.dlen = dlen
 
@@ -273,14 +294,11 @@ class BatchingTPUPicker:
         queue_max_age_s: float = 0.0,
         pipeline_depth=2,
         background_warm: bool = False,
-        resilience=None,
+        resilience: Optional[ResilienceState] = None,
         fairness: Optional[FairnessState] = None,
         federation=None,
         clock: Clock = MONOTONIC,
     ):
-        if resilience is not None:
-            raise _not_ported("a resilience state (the degradation ladder "
-                              "and breaker filter)", "resilience")
         if federation is not None:
             raise _not_ported("federation spill", "federation")
         if trainer is not None:
@@ -358,6 +376,17 @@ class BatchingTPUPicker:
         # ordering, per-tenant budgets and the over-fair-share shed.
         self.fairness = (fairness if fairness is not None
                          else FairnessState(clock=clock.now))
+        # Unified resilience layer (resilience/, docs/RESILIENCE.md):
+        # breaker board filtering candidates, degradation ladder deciding
+        # per WAVE whether this wave takes the full device path, a probe
+        # wave, or a host-side degraded pick. None = no ladder.
+        self.resilience = resilience
+        # Smooth-weighted-round-robin credit per slot and the static-
+        # subset rotation cursor (degraded rungs; collector/completer
+        # threads only — the two never pick the same wave).
+        self._wrr_credit: dict[int, float] = {}
+        self._static_rr = 0
+        self._degraded_lock = threading.Lock()
         self._worker = threading.Thread(target=self._loop, daemon=True)
         self._worker.start()
         self._completer = threading.Thread(
@@ -484,11 +513,29 @@ class BatchingTPUPicker:
 
     def observe_served(self, served_hostport: str, ctx) -> None:
         """Served-endpoint feedback -> assumed-load release + data-plane
-        serve outcome (metrics and the tenant ledger)."""
+        serve outcome (breaker, ladder, metrics and the tenant ledger)."""
         pick_result = getattr(ctx, "pick_result", None)
         self._release_charge(pick_result, served_hostport)
         status = int(getattr(ctx, "resp_status", 0) or 0)
         primary = getattr(pick_result, "endpoint", "")
+        rec = getattr(pick_result, "record", None)
+        if rec is not None:
+            # Close the flight-recorder record with what the data plane
+            # actually did: who served, which fallback rank Envoy walked
+            # to, the observed verdict and serve latency. Field writes
+            # on a published dict are GIL-atomic; zpage reads snapshot.
+            rec["served"] = served_hostport
+            ranked = [primary] + list(
+                getattr(pick_result, "fallbacks", None) or [])
+            rec["fallback_rank"] = (
+                ranked.index(served_hostport)
+                if served_hostport in ranked else -1)
+            if status > 0:
+                rec["outcome"] = f"{status // 100}xx"
+                picked_at = float(getattr(ctx, "picked_at", 0.0) or 0.0)
+                if picked_at:
+                    rec["serve_latency_ms"] = round(max(
+                        self._clock.now() - picked_at, 0.0) * 1e3, 1)
         if primary and served_hostport and served_hostport != primary:
             # Envoy walked the fallback list: the primary refused the
             # connection or reset before the fallback served.
@@ -536,22 +583,48 @@ class BatchingTPUPicker:
             return
         self._release_charge(pick_result)
         primary = getattr(pick_result, "endpoint", "")
-        if primary and getattr(ctx, "aborted", True):
+        aborted = getattr(ctx, "aborted", True)
+        rec = getattr(pick_result, "record", None)
+        if rec is not None:
+            rec["outcome"] = "reset" if aborted else "closed"
+        if primary and aborted:
             self._note_serve_outcome(primary, ok=False, cls="reset",
                                      tenant=_ctx_tenant(ctx))
 
     def _note_serve_outcome(self, hostport: str, ok: bool, cls: str,
                             latency_s: float = 0.0, trace=None,
                             tenant: str = "") -> None:
-        """One data-plane serve outcome -> gie_serve_outcome_total, the
-        serve-latency histogram and the per-tenant ledger. (The breaker
-        board and ladder it also feeds in the reference come with the
-        resilience slice.)"""
-        del hostport, trace  # read by the breaker board and exemplars
+        """Fan one data-plane serve outcome into the resilience layer:
+        gie_serve_outcome_total, the serving endpoint's breaker (windowed
+        error-rate + streak), the ladder's pool-wide serve floor, the
+        outlier ejector and the per-tenant budget ledger. A head-sampled
+        request's serve-latency observation carries a trace-ID exemplar
+        (docs/OBSERVABILITY.md)."""
         own_metrics.SERVE_OUTCOME.labels(cls).inc()
         if latency_s > 0.0:
-            own_metrics.SERVE_LATENCY.observe(latency_s)
+            if trace is not None and getattr(trace, "sampled", False):
+                own_metrics.SERVE_LATENCY.observe(
+                    latency_s, {"trace_id": trace.trace_id})
+            else:
+                own_metrics.SERVE_LATENCY.observe(latency_s)
         self.fairness.note_serve(tenant, ok=ok, cls=cls)
+        rs = self.resilience
+        if rs is None:
+            return
+        ep = self.datastore.endpoint_by_hostport(hostport)
+        if ep is not None and rs.board.record_serve_outcome(
+                ep.slot, ok, latency_s=latency_s):
+            # State transition: refresh the gauge here rather than
+            # paying open_count()'s lock per request.
+            own_metrics.BREAKER_OPEN.set(rs.board.open_count())
+        if (ep is not None and ok and latency_s > 0.0
+                and rs.ejector is not None):
+            # p99 outlier ejection input: only SUCCESSFUL serves'
+            # latencies — a fast local-reply 503 would drag a sick
+            # endpoint's quantile down. The eval itself runs at wave
+            # cadence (ResilienceState.observe).
+            rs.ejector.note(ep.slot, latency_s)
+        rs.ladder.note_serve_outcome(ok)
 
     def observe_response_complete(self, ctx) -> None:
         """Response-stream-complete feedback. In the reference it trains
@@ -828,8 +901,40 @@ class BatchingTPUPicker:
             batch = runnable
             if not batch:
                 return held
-        # Drained-cost ledger: this batch IS the wave.
+        # Drained-cost ledger: this batch IS the wave (full device path or
+        # degraded rung alike).
         self.fairness.note_wave(batch)
+        rs = self.resilience
+        if rs is not None:
+            # Per-WAVE resilience decision (never per request): fold the
+            # staleness clock into the ladder, then either serve this
+            # wave host-side on the current degraded rung or let it
+            # through the full device path (always when FULL; as a probe
+            # at probe cadence while level-degraded).
+            rs.observe()
+            rung = rs.ladder.rung()
+            if rung != Rung.FULL and not rs.ladder.should_probe():
+                self._degraded_pick(batch, rung)
+                return held
+            if rs.board.has_open:
+                # Breaker candidate filter: quarantined endpoints drop
+                # out of each item's candidate set — unless that would
+                # empty it (availability beats quarantine; the breaker's
+                # own half-open probes need traffic to heal).
+                for it in batch:
+                    allowed, dropped = [], []
+                    for ep in it.candidates:
+                        if rs.board.quarantined(getattr(ep, "slot", -1)):
+                            dropped.append(ep)
+                        else:
+                            allowed.append(ep)
+                    if allowed and dropped:
+                        it.excl_breaker = tuple(
+                            int(getattr(ep, "slot", -1)) for ep in dropped)
+                        it.candidates = allowed
+                        it.cand_slots = np.fromiter(
+                            (getattr(ep, "slot", -1) for ep in allowed),
+                            np.int64, len(allowed))
         t0 = time.perf_counter()
         n = len(batch)
         endpoints = self.datastore.endpoints()
@@ -838,10 +943,24 @@ class BatchingTPUPicker:
         reqs, plen, dlen, _lora = assemble_wave(batch, mb, self.lora_registry)
         eps = self.metrics_store.endpoint_batch(endpoints, m_slots=mb)
         # Async dispatch: the cycle is queued on the card and the host
-        # returns; a failure here fails this wave's waiters.
-        if faults.ENABLED:
-            faults.check("device.dispatch")
-        pending = self.scheduler.pick_async(reqs, eps)
+        # returns. A failure here fails this wave's waiters, or, with a
+        # resilience state, answers them degraded.
+        try:
+            if faults.ENABLED:
+                faults.check("device.dispatch")
+            pending = self.scheduler.pick_async(reqs, eps)
+        except KernelUnavailable:
+            raise  # a kernel that cannot run here is no sick device
+        except Exception:
+            if rs is None:
+                raise  # the collector fails the waiters
+            # Device dispatch failed: feed the ladder and serve THIS wave
+            # host-side at CACHED or worse — a sick device must cost a
+            # slower pick, never an UNAVAILABLE storm.
+            rs.ladder.note_dispatch_error()
+            self._degraded_pick(
+                batch, Rung(max(rs.ladder.rung(), Rung.CACHED)))
+            return held
         asm_s = time.perf_counter() - t0
         own_metrics.HOST_ASSEMBLY.observe(asm_s)
         if self._depth_auto:
@@ -858,7 +977,8 @@ class BatchingTPUPicker:
             self._inflight += 1
         own_metrics.PIPELINE_DEPTH.inc()
         own_metrics.PIPELINE_WAVES.inc()
-        self._waves.put(_Wave(batch, pending, endpoints, plen, dlen))
+        self._waves.put(
+            _Wave(batch, pending, endpoints, eps.metrics, plen, dlen))
         return held
 
     # -- completer (pipeline stage 2) --------------------------------------
@@ -905,53 +1025,115 @@ class BatchingTPUPicker:
         """Materialize one wave's results (waiting on its own event only)
         and fan them out."""
         batch, plen, dlen = wave.batch, wave.plen, wave.dlen
+        rs = self.resilience
         t0 = time.perf_counter()
-        result = wave.pending.materialize()
+        try:
+            result = wave.pending.materialize()
+        except KernelUnavailable:
+            raise
+        except Exception:
+            if rs is None:
+                raise  # _completer_loop fails the waiters
+            # The dispatched cycle died on the card: descend the ladder
+            # and serve this wave's waiters host-side instead of failing
+            # them.
+            rs.ladder.note_dispatch_error()
+            self._degraded_pick(batch, Rung(max(rs.ladder.rung(),
+                                                Rung.CACHED)))
+            return
         wait_s = time.perf_counter() - t0
         own_metrics.DEVICE_WAIT.observe(wait_s)
+        if rs is not None:
+            # Full-path success (steady state or a probe wave while
+            # degraded): the ladder's ascent signal, with the device wait
+            # as the pick-latency-breach clock.
+            rs.ladder.note_dispatch_ok(latency_s=wait_s)
         if self._depth_auto:
             self._cycle_ewma = (wait_s if self._cycle_ewma == 0.0
                                 else 0.9 * self._cycle_ewma + 0.1 * wait_s)
         by_slot = {ep.slot: ep for ep in wave.endpoints}
         indices = result.indices
         status = result.status
-        # Ranked-fallback-tail hygiene: the subset mask constrained the
-        # PRIMARY at dispatch, but the ranked tail spans the whole pool, so
-        # DRAINING endpoints (read now: a drain marked between dispatch and
-        # fan-out still excludes) must not ride along as failover targets.
+        # Ranked-fallback-tail hygiene flags, read once per wave: the
+        # subset mask constrained the PRIMARY at dispatch, but the ranked
+        # tail spans the whole pool, so quarantined or DRAINING endpoints
+        # (read now: a drain marked between dispatch and fan-out still
+        # excludes) must not ride along as failover targets.
+        board_open = rs is not None and rs.board.has_open
         any_draining = any(
             getattr(ep, "draining", False) for ep in wave.endpoints)
+        now_mono = self._clock.now()
+        # Flight recorder (obs/, docs/OBSERVABILITY.md): one decision
+        # record per request, built HERE on the completer from host
+        # arrays only — the materialized result and the wave's CPU
+        # metrics rows. Nothing is built while obs is off.
+        recorder = obs.RECORDER
+        rec_scores = rec_metrics = affinity = None
+        rec_draining: list = []
+        if recorder is not None:
+            rec_scores = result.scores
+            rec_metrics = wave.eps_metrics.numpy()
+            affinity = result.affinity
+            rec_draining = sorted(
+                int(s) for s, ep in by_slot.items()
+                if getattr(ep, "draining", False))
+
+        def _rec_base(item: _Pending) -> dict:
+            req = item.req
+            tr = req.trace
+            return {
+                "ts": time.time(),
+                "trace_id": tr.trace_id if tr is not None else "",
+                "model": req.model,
+                "band": _BAND_NAMES.get(item.band, str(item.band)),
+                "prompt_bytes": int(len(req.body) if req.body else 0),
+                "decode_tokens": float(req.decode_tokens or 0.0),
+                "tenant": item.tenant,
+                "rung": "full",
+                "candidates": [int(s) for s in item.cand_slots],
+                "excluded_breaker": list(item.excl_breaker),
+                "excluded_drain": list(item.excl_drain),
+                "fed_remote": [],
+                "draining": rec_draining,
+                "deadline_remaining_ms": (
+                    round((req.deadline_at - now_mono) * 1e3, 1)
+                    if req.deadline_at else None),
+            }
+
         for i, item in enumerate(batch):
-            lat = self._clock.now() - item.enqueued_at
-            own_metrics.PICK_LATENCY.observe(lat)
-            tr = item.req.trace
-            if tr is not None:
-                tr.event("picked")
+            self._observe_pick_latency(item)
             if status[i] == C.Status.SHED:
                 own_metrics.PICKS.labels(outcome="shed").inc()
                 item.error = ShedError(band=item.band, tenant=item.tenant)
                 self.fairness.note_shed(
                     item.tenant, _BAND_NAMES.get(item.band, "standard"))
-                continue
-            if status[i] != C.Status.OK:
-                own_metrics.PICKS.labels(outcome="unavailable").inc()
-                item.error = ExtProcError(UNAVAILABLE,
-                                          "no endpoints available")
+                if recorder is not None:
+                    rec = _rec_base(item)
+                    rec["outcome"] = "shed"
+                    recorder.append(rec)
                 continue
             picked_slots = [
                 int(s) for s in indices[i] if s >= 0 and s in by_slot]
-            if picked_slots and any_draining:
+            if picked_slots and (board_open or any_draining):
                 # Keep the raw list only if filtering would empty it
-                # (availability beats drain).
-                healthy = [s for s in picked_slots
-                           if not getattr(by_slot[s], "draining", False)]
+                # (availability beats quarantine AND drain, the same rule
+                # as the dispatch-side filters).
+                healthy = [
+                    s for s in picked_slots
+                    if not ((board_open and rs.board.quarantined(s))
+                            or (any_draining and getattr(
+                                by_slot[s], "draining", False)))]
                 if healthy:
                     picked_slots = healthy
             picked = [by_slot[s].hostport for s in picked_slots]
-            if not picked:
+            if status[i] != C.Status.OK or not picked:
                 own_metrics.PICKS.labels(outcome="unavailable").inc()
                 item.error = ExtProcError(UNAVAILABLE,
                                           "no endpoints available")
+                if recorder is not None:
+                    rec = _rec_base(item)
+                    rec["outcome"] = "unavailable"
+                    recorder.append(rec)
                 continue
             res = PickResult(endpoint=picked[0], fallbacks=picked[1:])
             res.assumed_cost = request_cost_host(
@@ -960,8 +1142,215 @@ class BatchingTPUPicker:
             # routable, picked[0] differs and observe_served's guard skips
             # the release.
             res.charged_slot = int(indices[i][0])
+            if recorder is not None:
+                rec = _rec_base(item)
+                rec["outcome"] = "picked"
+                rec["chosen"] = picked[0]
+                rec["chosen_slot"] = picked_slots[0]
+                rec["fallbacks"] = picked[1:]
+                # Ranked blend scores straight from the cycle's result —
+                # the chosen endpoint's entry may not be rank 0 when the
+                # tail filter dropped a quarantined/draining primary.
+                rec["ranked"] = [
+                    {"slot": int(s), "score": round(float(v), 5)}
+                    for s, v in zip(indices[i], rec_scores[i]) if s >= 0]
+                # Host-side scorer breakdown for the CHOSEN slot,
+                # mirroring scorers.py's normalization formulas over the
+                # wave's own metrics rows.
+                cfg = self.scheduler.cfg
+                row = rec_metrics[picked_slots[0]]
+                q = float(row[C.Metric.QUEUE_DEPTH])
+                kvu = float(row[C.Metric.KV_CACHE_UTIL])
+                breakdown = {
+                    "queue": round(
+                        min(max(1.0 - q / cfg.queue_norm, 0.0), 1.0), 5),
+                    "kv_cache": round(min(max(1.0 - kvu, 0.0), 1.0), 5),
+                }
+                if affinity is not None:
+                    # Device-side columns: the prefix fraction depends on
+                    # the live table and session on the rendezvous hash.
+                    breakdown["prefix"] = round(float(affinity[i][0]), 5)
+                    breakdown["session"] = round(float(affinity[i][1]), 5)
+                rec["scorers"] = breakdown
+                rec["queue_depth"] = q
+                rec["kv_util"] = kvu
+                res.record = recorder.append(rec)
             item.result = res
         for item in batch:
             if item.result is not None:
                 own_metrics.PICKS.labels(outcome="ok").inc()
             self._clock.set_event(item.event)
+
+    def _observe_pick_latency(self, item: _Pending) -> None:
+        """The "picked" trace stage and the pick-latency observation, with
+        a trace-ID exemplar for a head-sampled request (the bucket ->
+        trace join, docs/OBSERVABILITY.md)."""
+        lat = self._clock.now() - item.enqueued_at
+        tr = item.req.trace
+        if tr is not None:
+            tr.event("picked")
+            if tr.sampled:
+                own_metrics.PICK_LATENCY.observe(
+                    lat, {"trace_id": tr.trace_id})
+                return
+        own_metrics.PICK_LATENCY.observe(lat)
+
+    # -- degraded pick path (resilience ladder rungs 1-3) ------------------
+
+    _RUNG_LABELS = {
+        Rung.CACHED: "cached",
+        Rung.ROUND_ROBIN: "round_robin",
+        Rung.STATIC: "static",
+    }
+
+    def _degraded_pick(self, batch: list[_Pending], rung: Rung) -> None:
+        """Serve one wave entirely host-side on a degraded ladder rung
+        (docs/RESILIENCE.md):
+
+          CACHED       least (queue-depth + scaled KV) over the bounded-
+                       staleness metrics rows, with an in-wave spread so
+                       a burst does not pile onto one endpoint.
+          ROUND_ROBIN  smooth weighted round-robin on the last-known-good
+                       rows (weights from queue depth; stale data is only
+                       trusted as a static weight, not a live signal).
+          STATIC       plain rotation over a fixed subset of live
+                       endpoints — the "never 503 the whole pool" floor.
+
+        No device state is touched and no CUDA tensor is read: the rows
+        come from the MetricsStore's host arrays, nothing is charged
+        (charged_slot = -1 makes observe_served's slot-match guard skip
+        the release), no prefix inserts, no tick. Called from the
+        dispatcher (rung gate, dispatch failure) or the completer
+        (materialize failure), never both for one wave; the shared
+        WRR/rotation cursors are behind _degraded_lock."""
+        endpoints = self.datastore.endpoints()
+        by_slot = {ep.slot: ep for ep in endpoints}
+        # Degraded rungs honor graceful drain exactly like the full path:
+        # a terminating pod leaves new-pick candidacy even while the
+        # ladder is down, with the same availability floor.
+        ready = {s: ep for s, ep in by_slot.items()
+                 if not getattr(ep, "draining", False)}
+        drain_set = {s for s in by_slot if s not in ready} if ready else set()
+        if ready:
+            by_slot = ready
+        rs = self.resilience
+        breaker_set: set = set()
+        if rs is not None and rs.board.has_open and len(by_slot) > 1:
+            allowed = {s for s in by_slot if not rs.board.quarantined(s)}
+            if allowed:  # quarantine never empties the pool
+                breaker_set = set(by_slot) - allowed
+                by_slot = {s: ep for s, ep in by_slot.items()
+                           if s in allowed}
+        live = sorted(by_slot)
+        if not live:
+            for item in batch:
+                item.error = ExtProcError(UNAVAILABLE,
+                                          "no endpoints available")
+                self._clock.set_event(item.event)
+                own_metrics.PICKS.labels(outcome="unavailable").inc()
+            return
+        label = self._RUNG_LABELS.get(rung, "static")
+        kvw = (rs.ladder.cfg.cached_kv_weight if rs is not None else 8.0)
+        # Last-known-good rows: queue depth + KV utilization, read once
+        # per wave. On the RR/STATIC rungs these may be arbitrarily stale
+        # — they only shape static weights there.
+        rows, _ages = self.metrics_store.pool_rows(live)
+        queue = rows[:, C.Metric.QUEUE_DEPTH].astype(np.float64)
+        kv = rows[:, C.Metric.KV_CACHE_UTIL].astype(np.float64)
+        col_of = {s: i for i, s in enumerate(live)}
+        with self._degraded_lock:
+            # Slot hygiene: WRR credit must not outlive the endpoint that
+            # earned it (prune against the unfiltered endpoint set so a
+            # merely-quarantined slot keeps its credit).
+            if self._wrr_credit:
+                pool_slots = {ep.slot for ep in endpoints}
+                for s in [s for s in self._wrr_credit
+                          if s not in pool_slots]:
+                    del self._wrr_credit[s]
+            if rung == Rung.STATIC:
+                subset = live[: max(
+                    rs.static_subset if rs is not None else 4, 1)]
+            for item in batch:
+                cands = [int(s) for s in item.cand_slots if s in by_slot]
+                if not cands:
+                    cands = live
+                if rung == Rung.CACHED:
+                    # Fresh-enough data: least queue+KV now, plus an
+                    # in-wave +1 spread per assignment.
+                    scores = [queue[col_of[s]] + kvw * kv[col_of[s]]
+                              for s in cands]
+                    order = sorted(range(len(cands)),
+                                   key=lambda j: (scores[j], cands[j]))
+                    picked = [cands[j] for j in order]
+                    queue[col_of[picked[0]]] += 1.0
+                elif rung == Rung.ROUND_ROBIN:
+                    # Smooth WRR: weight ~ (1+queue)^-alpha from the last
+                    # good rows; every candidate gains its weight, the
+                    # winner pays the pot back. Alpha 0 is uniform RR,
+                    # 1 the default.
+                    alpha = (rs.ladder.cfg.wrr_queue_alpha
+                             if rs is not None else 1.0)
+                    weights = {
+                        s: (1.0 + max(queue[col_of[s]], 0.0)) ** -alpha
+                        for s in cands}
+                    for s, w in weights.items():
+                        self._wrr_credit[s] = (
+                            self._wrr_credit.get(s, 0.0) + w)
+                    picked = sorted(
+                        cands,
+                        key=lambda s: (-self._wrr_credit[s], s))
+                    self._wrr_credit[picked[0]] -= sum(weights.values())
+                else:  # STATIC
+                    pool = [s for s in cands if s in subset] or cands
+                    self._static_rr += 1
+                    first = pool[self._static_rr % len(pool)]
+                    picked = [first] + [s for s in pool if s != first]
+                res = PickResult(
+                    endpoint=by_slot[picked[0]].hostport,
+                    fallbacks=[by_slot[s].hostport for s in picked[1:4]],
+                )
+                res.assumed_cost = 0.0
+                res.charged_slot = -1  # nothing charged: skip the release
+                recorder = obs.RECORDER
+                if recorder is not None:
+                    # Degraded picks record too (same schema as the full
+                    # path): rung + exclusions explain why this request
+                    # skipped the device cycle; raw row signals stand in
+                    # for the scorer breakdown the rung used.
+                    tr = item.req.trace
+                    j = col_of[picked[0]]
+                    d = item.req.deadline_at
+                    res.record = recorder.append({
+                        "ts": time.time(),
+                        "trace_id": tr.trace_id if tr is not None else "",
+                        "model": item.req.model,
+                        "band": _BAND_NAMES.get(item.band, str(item.band)),
+                        "rung": label,
+                        "candidates": [int(s) for s in item.cand_slots],
+                        "excluded_breaker": sorted(
+                            int(s) for s in item.cand_slots
+                            if s in breaker_set),
+                        "excluded_drain": sorted(
+                            int(s) for s in item.cand_slots
+                            if s in drain_set),
+                        "draining": sorted(int(s) for s in drain_set),
+                        "deadline_remaining_ms": (
+                            round((d - self._clock.now()) * 1e3, 1)
+                            if d else None),
+                        "outcome": "picked",
+                        "chosen": res.endpoint,
+                        "chosen_slot": int(picked[0]),
+                        "fallbacks": list(res.fallbacks),
+                        "scorers": {"degraded_" + label: round(
+                            float(queue[j] + kvw * kv[j]), 5)},
+                        "queue_depth": float(queue[j]),
+                        "kv_util": float(kv[j]),
+                    })
+                item.result = res
+                own_metrics.DEGRADED_PICKS.labels(rung=label).inc()
+                own_metrics.PICKS.labels(outcome="ok").inc()
+                # Same trace lifecycle as the full path: the "picked"
+                # stage and the exemplar must not vanish exactly while
+                # the pool is degraded — that is when traces are read.
+                self._observe_pick_latency(item)
+                self._clock.set_event(item.event)

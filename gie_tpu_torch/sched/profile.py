@@ -40,11 +40,9 @@ _LATER = {
     "picker": "the random-picker slice",
     "predictor_fn": "the latency-predictor slice",
     "mesh": "the multi-device slice",
-    "resilience": "the resilience slice",
     "federation": "the federation slice",
     "background_warm": "the warm-lattice slice",
     "kube": "the kube slice",
-    "obs": "the observability slice",
     "replication": "the replication slice",
     "autoscale": "the autoscale slice",
     "kv_events": "the KV-events slice",
@@ -481,6 +479,26 @@ class Scheduler:
         # to the width the caller's EndpointBatch arrives with.
         self.state = SchedState.init(m=C.M_BUCKETS[0], device=self.device)
         self._lock = threading.Lock()
+        if self.device.type == "cuda":
+            self._prepare_kernels()
+
+    def _prepare_kernels(self) -> None:
+        """Build and load the kernels this profile launches and check the
+        Sinkhorn kernel's layout at every wave bucket, so that a kernel
+        that cannot run here fails construction (KernelUnavailable) rather
+        than a wave."""
+        cfg = self.cfg
+        sinkhorn = cfg.picker == "sinkhorn" and cfg.use_pallas_sinkhorn
+        topk = cfg.picker == "topk" and cfg.use_pallas_topk
+        if not (sinkhorn or topk):
+            return
+        from gie_tpu_torch.ops import build, fused_sinkhorn
+
+        build.library()
+        if sinkhorn:
+            for n in C.N_BUCKETS:
+                for m in C.M_BUCKETS:
+                    fused_sinkhorn.layout(self.device, n, m)
 
     def _noise(self, shape: tuple) -> torch.Tensor:
         if self.noise_source is None:

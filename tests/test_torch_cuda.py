@@ -155,6 +155,55 @@ def test_wrappers_raise_instead_of_falling_back(dev):
 
 
 @pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel", "topk-kernel"])
+def test_scheduler_refuses_an_unavailable_kernel_at_construction(
+        dev, config, monkeypatch):
+    """A CUDA Scheduler builds and loads the kernels its profile launches
+    (and checks the Sinkhorn layout at every wave bucket) when it is
+    constructed: a build or shape refusal raises there, not in a wave."""
+    from gie_tpu_torch.ops import KernelUnavailable, ShapeRefused, build
+    from gie_tpu_torch.ops import fused_sinkhorn as fs
+
+    if config == "topk-kernel":
+        cfg = ProfileConfig(picker="topk", use_pallas_topk=True)
+    else:
+        cfg = dataclasses.replace(tuned_profile()[0], use_pallas_sinkhorn=True)
+    Scheduler(cfg, device=dev)
+    assert build._lib is not None
+    seen = []
+
+    def refuse(device, n, m):
+        seen.append((n, m))
+        raise ShapeRefused(f"N={n} x M={m} refused")
+
+    monkeypatch.setattr(fs, "layout", refuse)
+    if config == "topk-kernel":
+        Scheduler(cfg, device=dev)            # no Sinkhorn kernel to check
+        assert not seen
+
+        def no_library():
+            raise KernelUnavailable("build failed")
+
+        monkeypatch.setattr(build, "library", no_library)
+    with pytest.raises(KernelUnavailable):
+        Scheduler(cfg, device=dev)
+
+
+def test_kernel_error_codes_name_launch_refusals(dev):
+    """The codes ops.build.KERNEL_ERRORS takes for a kernel that cannot run
+    are the runtime's launch refusals; an illegal address is not one."""
+    from gie_tpu_torch.ops import build
+
+    text = {e: build.library().gie_cuda_error_string(e).decode().lower()
+            for e in (*build.KERNEL_ERRORS, 700)}
+    assert "invalid configuration" in text[9]
+    assert "invalid device function" in text[98]
+    assert "no kernel image" in text[209]
+    assert "too many resources" in text[701]
+    assert "cooperative" in text[720]
+    assert "illegal" in text[700] and 700 not in build.KERNEL_ERRORS
+
+
+@pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel", "topk-kernel"])
 def test_scheduler_on_card_matches_cpu(dev, config):
     if config == "topk-kernel":
         cfg, weights = ProfileConfig(picker="topk", use_pallas_topk=True), None
@@ -315,6 +364,71 @@ def test_batching_picker_answers_a_burst_on_card(dev, config):
         assert all(len(set(r.fallbacks)) == len(r.fallbacks) for r in got)
         dispatched = PIPELINE_WAVES.value() - waves
         assert counter.launches - before == dispatched >= 1
+    finally:
+        picker.close()
+
+
+@pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel", "topk-kernel"])
+def test_degraded_wave_touches_no_cuda_and_probe_launches_once(dev, config):
+    """With the ladder held at CACHED, a wave is answered host-side: no
+    kernel launch, no CUDA allocation, nothing charged. When the probe
+    interval has elapsed, the next wave is a probe through the device
+    cycle: the path's kernel launches exactly once."""
+    from gie_tpu_torch.datastore import Datastore
+    from gie_tpu_torch.datastore.objects import EndpointPool, Pod
+    from gie_tpu_torch.extproc.pick import PickRequest
+    from gie_tpu_torch.metricsio import MetricsStore
+    from gie_tpu_torch.resilience import (
+        DegradationLadder, LadderConfig, ResilienceState, Rung)
+    from gie_tpu_torch.runtime.metrics import DEGRADED_PICKS, PIPELINE_WAVES
+    from gie_tpu_torch.sched.batching import BatchingTPUPicker
+
+    if config == "topk-kernel":
+        sched = Scheduler(ProfileConfig(picker="topk", use_pallas_topk=True))
+        counter = fused_blend_topk
+    else:
+        sched = _sinkhorn_scheduler()
+        counter = fused_sinkhorn_plan
+    clock = {"t": 1000.0}
+    rs = ResilienceState(ladder=DegradationLadder(
+        LadderConfig(probe_interval_s=10.0), clock=lambda: clock["t"]),
+        on_change=lambda r: None)
+    ms = MetricsStore()
+    ds = Datastore()
+    ds.pool_set(EndpointPool({"app": "x"}, [8000], "default"))
+    for i in range(40):
+        ds.pod_update_or_add(Pod(name=f"p{i}", labels={"app": "x"},
+                                 ip=f"10.9.0.{i + 1}"))
+    ms.update_rows([(ep.slot, {Metric.QUEUE_DEPTH: float(ep.slot % 7)},
+                     (), ()) for ep in ds.endpoints()])
+    picker = BatchingTPUPicker(sched, ds, ms, max_wait_s=0.002,
+                               resilience=rs)
+
+    def pick(i):
+        return picker.pick(PickRequest(headers={}, body=b"prompt %d" % i),
+                           ds.pick_candidates())
+
+    try:
+        pick(0)                                  # FULL: builds the kernel
+        rs.ladder.force_level(Rung.CACHED)
+        assert rs.ladder.should_probe()          # the probe a descent arms
+        torch.cuda.synchronize()
+        launches, waves = counter.launches, PIPELINE_WAVES.value()
+        degraded = DEGRADED_PICKS.value("cached")
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+        for i in range(1, 5):
+            res = pick(i)
+            assert res.charged_slot == -1 and res.endpoint
+        assert counter.launches == launches
+        assert PIPELINE_WAVES.value() == waves
+        assert DEGRADED_PICKS.value("cached") == degraded + 4
+        assert torch.cuda.memory_stats()[
+            "allocation.all.allocated"] == allocs
+        clock["t"] += 10.0                       # the probe interval
+        res = pick(5)
+        assert res.charged_slot >= 0
+        assert counter.launches == launches + 1
+        assert PIPELINE_WAVES.value() == waves + 1
     finally:
         picker.close()
 

@@ -243,9 +243,12 @@ def test_descriptors_byte_identical():
 # -- refusals -------------------------------------------------------------
 
 LIVE = ["--no-resilience", "--no-obs"]
+# (argv, the _LATER key of the slice it is refused until, or None where
+# the runner builds: the resilience and observability layers, both on by
+# default, and --fault arming are ported).
 REFUSED = [
-    ([], "resilience"),                         # on by default
-    (["--no-resilience"], "obs"),               # on by default
+    ([], None),                                 # resilience + obs on
+    (["--no-resilience"], None),                # obs on
     (LIVE + ["--leader-elect"], "kube"),
     (LIVE + ["--replication-port", "19100"], "replication"),
     (LIVE + ["--autoscale-mode", "recommend"], "autoscale"),
@@ -257,7 +260,7 @@ REFUSED = [
     (LIVE + ["--mesh-devices", "2"], "mesh"),
     (LIVE + ["--scorer", "learned", "--policy-artifact", "x.json"], "scorer"),
     (LIVE + ["--enable-predictor"], "predictor_fn"),
-    (LIVE + ["--fault", "scrape.fetch=error:0.5"], "resilience"),
+    (LIVE + ["--fault", "scrape.fetch=error:0.5"], None),
 ]
 
 
@@ -269,15 +272,33 @@ def test_runner_refuses_out_of_slice(argv, key):
     from gie_tpu_torch.sched import Scheduler
 
     opts = _parse("gie_tpu_torch", argv + ["--pool-name", "p"])
+    if key is None:
+        runner = ExtProcServerRunner(opts, FakeCluster(),
+                                     scheduler=Scheduler(device="cpu"))
+        try:
+            assert (runner.resilience is not None) == opts.resilience
+            assert runner.picker.resilience is runner.resilience
+            assert runner._obs_installed == opts.obs
+        finally:
+            runner.stop()
+        return
     with pytest.raises(NotImplementedError, match=_LATER[key]):
         ExtProcServerRunner(opts, FakeCluster(),
                             scheduler=Scheduler(device="cpu"))
 
 
 def test_fault_scenario_refused_at_validate():
+    """--fault-scenario loads the recorded scenario at validate: a shipped
+    one validates, an unknown name or one beside --fault is refused."""
     opts = _parse("gie_tpu_torch", LIVE + ["--pool-name", "p",
                                            "--fault-scenario", "mixed-soak"])
-    with pytest.raises(NotImplementedError, match="the resilience slice"):
+    opts.validate()
+    opts.fault_scenario = "no-such-scenario"
+    with pytest.raises(ValueError, match="--fault-scenario: no such"):
+        opts.validate()
+    opts.fault_scenario = "mixed-soak"
+    opts.fault_specs = ["scrape.fetch=error:0.5"]
+    with pytest.raises(ValueError, match="mutually exclusive"):
         opts.validate()
 
 

@@ -41,7 +41,14 @@ def test_import_pulls_in_no_jax_and_no_gie_tpu():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("gie_tpu_torch.sched.profile", "gie_tpu_torch.runtime.main",
                  "gie_tpu_torch.runtime.runner", "gie_tpu_torch.extproc.service",
-                 "gie_tpu_torch.metricsio.engine", "gie_tpu_torch.obs.debugz"):
+                 "gie_tpu_torch.metricsio.engine", "gie_tpu_torch.obs.debugz",
+                 "gie_tpu_torch.resilience.breaker",
+                 "gie_tpu_torch.resilience.ladder",
+                 "gie_tpu_torch.resilience.outlier",
+                 "gie_tpu_torch.resilience.scenarios",
+                 "gie_tpu_torch.obs.recorder", "gie_tpu_torch.obs.otlp",
+                 "gie_tpu_torch.obs.metricscheck",
+                 "gie_tpu_torch.obs.__main__"):
         assert name in loaded
     forbidden = [
         name for name in loaded
@@ -61,7 +68,7 @@ def _imported_modules(path: pathlib.Path) -> list[str]:
 
 
 def test_source_scan_finds_no_jax_or_gie_tpu_import():
-    files = sorted(PKG.rglob("*.py"))
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 15
     bad = [
         (str(f.relative_to(REPO)), name)
@@ -155,7 +162,9 @@ def test_pick_service_pulls_in_no_grpc_protobuf_or_prometheus():
                  "gie_tpu_torch.extproc.pick",
                  "gie_tpu_torch.fairness.budgets",
                  "gie_tpu_torch.runtime.metrics",
-                 "gie_tpu_torch.runtime.clock"):
+                 "gie_tpu_torch.runtime.clock",
+                 "gie_tpu_torch.resilience.ladder",
+                 "gie_tpu_torch.resilience.breaker"):
         assert name in slice_modules
     forbidden = [n for n in loaded
                  if n in _HOST_ONLY or n.startswith(
@@ -173,17 +182,32 @@ def test_pick_service_pulls_in_no_grpc_protobuf_or_prometheus():
     assert bad == []
 
 
-@pytest.mark.parametrize("kwargs, slice_name", [
-    ({"resilience": object()}, "resilience slice"),
-    ({"federation": object()}, "federation slice"),
-    ({"trainer": object()}, "latency-predictor slice"),
-    ({"background_warm": True}, "warm-lattice slice"),
-])
-def test_out_of_slice_picker_arg_raises(kwargs, slice_name):
+# (picker keyword, the slice it is refused until, or None where the
+# picker takes it: the resilience state is ported).
+PICKER_ARGS = [
+    ({"resilience": "ResilienceState"}, "resilience slice", None),
+    ({"federation": object()}, "federation slice", NotImplementedError),
+    ({"trainer": object()}, "latency-predictor slice", NotImplementedError),
+    ({"background_warm": True}, "warm-lattice slice", NotImplementedError),
+]
+
+
+@pytest.mark.parametrize(
+    "kwargs, slice_name, raises", PICKER_ARGS,
+    ids=[f"kwargs{i}-{name}" for i, (_, name, _) in enumerate(PICKER_ARGS)])
+def test_out_of_slice_picker_arg_raises(kwargs, slice_name, raises):
     from gie_tpu_torch.datastore import Datastore
     from gie_tpu_torch.metricsio import MetricsStore
+    from gie_tpu_torch.resilience import ResilienceState
     from gie_tpu_torch.sched.batching import BatchingTPUPicker
 
-    with pytest.raises(NotImplementedError, match=slice_name):
+    if raises is None:
+        state = ResilienceState()
+        picker = BatchingTPUPicker(Scheduler(device="cpu"), Datastore(),
+                                   MetricsStore(), resilience=state)
+        assert picker.resilience is state
+        picker.close()
+        return
+    with pytest.raises(raises, match=slice_name):
         BatchingTPUPicker(Scheduler(device="cpu"), Datastore(),
                           MetricsStore(), **kwargs)

@@ -19,7 +19,7 @@ from gie_tpu.sched import sinkhorn as jsinkhorn
 from gie_tpu.utils.testing import make_endpoints
 
 from gie_tpu_torch import convert
-from gie_tpu_torch.ops import build, on_cuda
+from gie_tpu_torch.ops import KernelUnavailable, build, on_cuda
 from gie_tpu_torch.ops.fused_sinkhorn import (
     fused_sinkhorn_plan,
     fused_sinkhorn_plan_reference,
@@ -146,3 +146,31 @@ def test_kernel_sources_are_keyed():
     names = sorted(p.rsplit("/", 1)[-1] for p in build._sources())
     assert names == ["errors.cu", "fused_sinkhorn.cu", "fused_topk.cu"]
     assert build.source_hash() == build.source_hash()
+
+
+def test_build_failure_raises_kernel_unavailable(monkeypatch, tmp_path):
+    """A build that cannot run (no nvcc here) is KernelUnavailable, the
+    error the picker re-raises instead of degrading around it."""
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "BUILD_ROOT", str(tmp_path))
+    monkeypatch.setattr(build, "_nvcc", no_nvcc)
+    with pytest.raises(KernelUnavailable, match="nvcc not found"):
+        build.library()
+    assert build._lib is None
+
+
+@pytest.mark.parametrize("err, kernel", [(9, True), (209, True), (720, True),
+                                         (700, False), (719, False)])
+def test_launch_errors_split_kernel_from_device(monkeypatch, err, kernel):
+    """Launch configuration refused -> KernelUnavailable; an error of the
+    device (illegal address, launch failure: sticky on CUDA) -> a plain
+    RuntimeError, which the degradation ladder takes."""
+    lib = type("Lib", (), {"gie_cuda_error_string":
+                           staticmethod(lambda e: b"text")})
+    monkeypatch.setattr(build, "library", lambda: lib)
+    with pytest.raises(RuntimeError, match=f"CUDA error {err}") as info:
+        build.check(err, "k")
+    assert isinstance(info.value, KernelUnavailable) is kernel

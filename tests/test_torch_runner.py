@@ -279,8 +279,8 @@ def test_grpc_drive_health_and_metrics():
         port_runner.stop()
         ref_runner.stop()
     assert pages == sorted(f"/debugz/{p}" for p in (
-        "buildinfo", "datastore", "drain", "policy", "queue", "scheduler",
-        "tenants"))
+        "buildinfo", "datastore", "drain", "pick", "picks", "policy",
+        "queue", "scheduler", "tenants", "trace", "traces"))
     ref, port = _families(ref_text), _families(text)
     for family in ("gie_build_info", "gie_pick_latency_seconds",
                    "gie_active_streams", "gie_pool_endpoints"):
