@@ -3,7 +3,12 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each (any failure raises and exits non-zero):
+Phases, one JSON line each (any failure raises and exits non-zero). On the
+card every wave of phases 3-6, 8 and 9 is a replay of the scheduling
+cycle captured as a CUDA graph for its shape (sched/graphs.py): the first
+wave of a shape captures it inline, the runner's picker (phases 6-7)
+captures its lattices on background threads, and each kernel's launch
+count adds the launches a replay makes:
   1. device and build: the card, then the kernels built from ops/csrc/;
   2. kernels vs plain: each CUDA kernel against its plain PyTorch version
      at the main path's shapes (1024 requests x 256 and x 1024 endpoints,
@@ -67,8 +72,23 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      degraded primaries equal to a CPU picker's under the same schedule,
      each degraded record naming its rung; prints the rung timeline and
      the pick time per rung;
-  9. the `kernels` line: launches on the main path (phases 3-6 and 8),
-     error, times, bound.
+  9. the warm lattice, once per configuration of phases 3-4: a Scheduler
+     on the card warms every M bucket's N lattice with
+     warm_lattice_async (1024 x 256's first) and joins it: capture time
+     per key and per lattice, each graph's pool bytes, no inline capture
+     after; then 20 waves of the north-star mix handed over as CPU
+     tensors, each replay equal to the former eager path (the cycle
+     launched op by op, as the port ran it before its cycle was
+     captured) on a copy of the state it started from with the same
+     noise (integer columns exact, floats within 1e-5); then 20 chained waves through each path: pick_async's
+     host time, wall time per wave, and under torch.profiler the
+     launching runtime calls (cudaGraphLaunch, kernels, copies) and device
+     operations per wave and the device's idle share. Phases 6-7 also
+     check the runner's lattice kick: its warm threads join with no
+     failure (phase 6), the streams' lattice warms in full (phase 7),
+     and debug_report()["warm_buckets"] is printed;
+ 10. the `kernels` line: launches on the main path (phases 3-6, 8 and 9,
+     replays counted), error, times, bound.
 Then the card's name and power limit (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -812,6 +832,208 @@ def phase_chaos(dev, name, cfg, weights, kernels, own) -> dict:
     return summary
 
 
+# -- phase 9: the warm lattice ---------------------------------------------
+
+WARM_WAVES = 20
+WARM_SEED = 9
+
+
+def eager_wave(state, reqs, eps, cfg, weights, gen, dev):
+    """A wave as the port ran it before its cycle was captured (its former
+    pick_async): every input field up from pinned memory, padded on the
+    card, the noise drawn from `gen`, the cycle launched op by op on
+    `state`, the result rows copied down to pinned memory, an event after
+    them. -> (pinned PickResult, event)."""
+    from gie_tpu_torch.sched.profile import (
+        _batch_to_device, _to_host_async, gumbel_noise, scheduling_cycle)
+    from gie_tpu_torch.sched.types import PickResult, bucket_for, pad_requests
+
+    n, m = int(reqs.valid.shape[0]), int(eps.valid.shape[0])
+    bucket = bucket_for(n)
+    reqs = pad_requests(_batch_to_device(reqs, dev), bucket)
+    eps = _batch_to_device(eps, dev)
+    gumbel = (gumbel_noise((bucket, m), gen, dev) if cfg.picker == "sinkhorn"
+              else None)
+    result, _ = scheduling_cycle(state, reqs, eps, weights, gumbel, cfg=cfg)
+    host = PickResult(**{
+        f.name: (None if getattr(result, f.name) is None
+                 else _to_host_async(getattr(result, f.name)[:n]))
+        for f in dataclasses.fields(PickResult)})
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def same_picks(res, ref, what) -> None:
+    """`res` (numpy) against `ref` (host tensors): integer columns exact,
+    float columns within 1e-5 (the card tests' tolerance: the state update
+    sums with atomics)."""
+    check(np.array_equal(res.indices, ref.indices.numpy())
+          and np.array_equal(res.status, ref.status.numpy()),
+          f"{what}: indices or status differ from the eager cycle")
+    for k in ("scores", "affinity"):
+        a, b = getattr(res, k), getattr(ref, k)
+        check((a is None) == (b is None) and (a is None or np.allclose(
+            a, b.numpy(), atol=1e-5, rtol=0)),
+              f"{what}: {k} differ from the eager cycle by more than 1e-5")
+
+
+def run_waves(dispatch, waves) -> tuple:
+    """`dispatch(reqs) -> (result, event)` over `waves`, each materialized
+    before the next (as pick() does). -> (host ms of each dispatch, wall
+    ms per wave, results)."""
+    host, out = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for reqs in waves:
+        t1 = time.perf_counter()
+        res, event = dispatch(reqs)
+        host.append((time.perf_counter() - t1) * 1e3)
+        event.synchronize()
+        out.append(res)
+    wall = (time.perf_counter() - t0) * 1e3 / len(waves)
+    return host, wall, out
+
+
+# Runtime calls that put work on the card's queue.
+LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
+                "cudaMemcpyAsync")
+
+
+def profiled(dispatch, waves) -> dict:
+    """The waves under torch.profiler: the launching runtime calls a wave
+    makes (by name), the device operations it runs, device busy time, wall
+    time and the device's idle share (1 - busy / wall), per wave."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall, _ = run_waves(dispatch, waves)
+    rows = prof.key_averages()
+    calls = {e.key: e.count / len(waves) for e in rows
+             if e.key in LAUNCH_CALLS}
+    device = [e for e in rows if e.device_type == DeviceType.CUDA]
+    busy = sum(float(getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0.0))
+               for e in device) / 1e3 / len(waves)
+    return {"launch_calls_per_wave": sum(calls.values()),
+            "launch_calls_by_name": calls,
+            "device_ops_per_wave": sum(e.count for e in device) / len(waves),
+            "device_busy_ms_per_wave": busy,
+            "wall_ms_per_wave_profiled": wall,
+            "device_idle_share": 1.0 - busy / wall}
+
+
+def pool_bytes() -> dict:
+    """{memory pool id: bytes of device memory it holds}."""
+    out = {}
+    for seg in torch.cuda.memory_snapshot():
+        pool = tuple(seg["segment_pool_id"])
+        out[pool] = out.get(pool, 0) + seg["total_size"]
+    return out
+
+
+def phase_warm(dev, name, cfg, weights, kernels, own) -> dict:
+    """The warm lattice for one configuration: every M bucket's N lattice
+    captured by warm_lattice_async (1024 x 256's first), capture time per
+    key and per lattice, each graph's pool bytes, no inline capture after
+    the joins; then WARM_WAVES waves of the north-star mix handed over as
+    CPU tensors, each a replay against the former eager path on a copy of
+    the state it started from (same inputs, same noise); then WARM_WAVES
+    chained waves through each path, timed (pick_async's host time, wall
+    time per wave) and profiled (launching calls and device operations
+    per wave, device idle share). The path's kernel launches once a
+    replay."""
+    from gie_tpu_torch.sched import Scheduler
+    from gie_tpu_torch.sched import constants as C
+    from gie_tpu_torch.sched.graphs import H2D_COPIES
+    from gie_tpu_torch.sched.profile import _copy_state
+
+    eps, wave = workload(torch.device("cpu"))
+    waves = [wave(w) for w in range(WARM_WAVES)]
+    lanes = {int(r.chunk_hashes.shape[1]) for r in waves}
+    check(len(lanes) == 1, f"{name}: the waves span chunk buckets {lanes}")
+    lanes = lanes.pop()
+    sched = Scheduler(cfg, weights, device=dev, seed=WARM_SEED)
+    lattices = []
+    for m in (M,) + tuple(b for b in C.M_BUCKETS if b != M):
+        t0 = time.perf_counter()
+        thread = sched.warm_lattice_async(m, lanes)
+        thread.join(600)
+        lattice_s = time.perf_counter() - t0
+        check(not thread.is_alive() and not sched._warm_failures,
+              f"{name}: the lattice at M={m} did not warm: "
+              f"{sched._warm_failures}")
+        lattices.append((m, lattice_s))
+    pools = pool_bytes()
+    keys = {}
+    for (n, m, c), graph in sorted(sched._graphs.items()):
+        keys[f"{n}x{m}x{c}"] = {
+            "capture_ms": graph.capture_s * 1e3,
+            "pool_bytes": pools.get(tuple(graph.graph.pool()), 0)}
+    check(len(keys) == len(C.N_BUCKETS) * len(C.M_BUCKETS),
+          f"{name}: {len(keys)} graphs captured")
+    inline = sched.warm_inline_compiles
+    check(inline == 0, f"{name}: {inline} inline captures after the joins")
+    emit({"phase": "warm-capture", "config": name, "chunk_lanes": lanes,
+          "lattice_s": {str(m): s for m, s in lattices},
+          "keys": keys, "pool_bytes_total": sum(
+              k["pool_bytes"] for k in keys.values()),
+          "warm_inline_compiles": inline})
+
+    def replay(reqs):
+        pending = sched.pick_async(reqs, eps)
+        return pending, pending.event
+
+    # Correctness: each replayed wave against the eager cycle on a copy of
+    # the state it started from, with the same noise.
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(WARM_SEED)
+    for w, reqs in enumerate(waves):
+        with sched._lock:
+            start = _copy_state(sched._use_bucket(M))
+        res = sched.pick(reqs, eps)
+        ref, event = eager_wave(start, reqs, eps, cfg, sched.weights, gen, dev)
+        event.synchronize()
+        same_picks(res, ref, f"{name}: warm wave {w}")
+    check(sched.warm_inline_compiles == 0,
+          f"{name}: a warmed wave captured inline")
+
+    # Timing: chained waves through the eager path (on a copy of the
+    # state) and through pick_async, then the same under the profiler.
+    state = _copy_state(sched.state)
+
+    def eager(reqs):
+        return eager_wave(state, reqs, eps, cfg, sched.weights, gen, dev)
+
+    eager_host, eager_wall, _ = run_waves(eager, waves)
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    replay_host, replay_wall, _ = run_waves(replay, waves)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    check(launches[own] == WARM_WAVES,
+          f"{name}: {launches[own]} kernel launches for {WARM_WAVES} replays")
+    eager_prof = profiled(eager, waves)
+    replay_prof = profiled(replay, waves)
+    check(replay_prof["launch_calls_by_name"].get("cudaGraphLaunch") == 1,
+          f"{name}: {replay_prof['launch_calls_by_name']} a replayed wave")
+    summary = {
+        "phase": "warm", "config": name, "waves": WARM_WAVES,
+        "shape": [N, M, lanes], "h2d_copies_per_wave": H2D_COPIES,
+        "replay_equal_eager": WARM_WAVES, "launches": launches,
+        "eager": {"pick_async_host_ms_median": statistics.median(eager_host),
+                  "wall_ms_per_wave": eager_wall, **eager_prof},
+        "replay": {"pick_async_host_ms_median": statistics.median(
+                       replay_host),
+                   "pick_async_host_ms_max": max(replay_host),
+                   "wall_ms_per_wave": replay_wall, **replay_prof},
+    }
+    emit(summary)
+    return summary
+
+
 # -- phases 6-7: the ext-proc server -----------------------------------------
 
 STREAM_ROUNDS, STREAMS_PER_ROUND, CHANNELS = 4, 1024, 16
@@ -1180,6 +1402,10 @@ def phase_server(dev, name, cfg, weights, kernels, own, tmp) -> dict:
         picks, streams, walls, answered = [], [], [], 0
         for w in rounds:
             if w == 0:                    # the measured rounds start here
+                # A device-wide synchronize while a capture runs fails
+                # both: the warm-up round's lattice kick must be done.
+                for t in runner.picker._warm_threads:
+                    t.join(300)
                 torch.cuda.synchronize()
                 for fn in kernels.values():
                     fn.launches = 0
@@ -1258,6 +1484,21 @@ def phase_server(dev, name, cfg, weights, kernels, own, tmp) -> dict:
               f"{name}: the resilience sub-service is not SERVING after "
               "the bursts")
         exposition = check_exposition(mport)
+        # The runner's lattice kick: its warm threads captured beside the
+        # bursts; every one must end, with no failure.
+        threads = list(runner.picker._warm_threads)
+        for t in threads:
+            t.join(300)
+        report = runner.scheduler.debug_report()
+        warm = {"warm_threads": len(threads),
+                "warm_threads_joined": sum(not t.is_alive() for t in threads),
+                "warm_buckets": report["warm_buckets"],
+                "warm_inline_compiles": report["warm_inline_compiles"],
+                "warm_failures": len(runner.scheduler._warm_failures)}
+        emit({"phase": "server-warm", "config": name, **warm})
+        check(len(threads) >= 1 and warm["warm_threads_joined"] == len(threads)
+              and not warm["warm_failures"],
+              f"{name}: the runner's warm threads: {warm}")
         recent = {h: observed_since(h, marks[h]) for h in marks}
         sizes = recent[own_metrics.BATCH_SIZE]
         queued = recent[own_metrics.PICK_LATENCY]
@@ -1299,6 +1540,7 @@ def phase_server(dev, name, cfg, weights, kernels, own, tmp) -> dict:
             "host_parsers": host_parsers(),
             "metrics": exposition,
             **ladder,
+            **warm,
         }
         summary.update(replay_on_cpu(dev, runner, cfg, weights, fleet_port))
     finally:
@@ -1568,6 +1810,22 @@ def phase_main(cfg, weights, tmp) -> dict:
         check(exemplar is not None and om.rstrip().endswith(b"# EOF"),
               "main: the OpenMetrics exposition has no trace_id exemplar "
               "on gie_pick_latency_seconds")
+        # The runner's lattice kick: the streams' lattice (M=64 for 8
+        # pods, 8 chunk lanes for a bodyless request) warms in full.
+        from gie_tpu_torch.sched.constants import N_BUCKETS
+
+        lattice = {(n, 64, 8) for n in N_BUCKETS}
+        deadline = time.monotonic() + 120
+        while True:
+            report = json.loads(http_get(mport, "/debugz/scheduler"))
+            warm_buckets = {tuple(k) for k in report["warm_buckets"]}
+            if lattice <= warm_buckets or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        emit({"phase": "main-warm", "warm_buckets": report["warm_buckets"],
+              "warm_inline_compiles": report["warm_inline_compiles"]})
+        check(lattice <= warm_buckets,
+              f"main: the streams' lattice is not warm: {report}")
         deadline = time.monotonic() + 10
         while not spans and time.monotonic() < deadline:
             time.sleep(0.1)
@@ -1588,7 +1846,7 @@ def phase_main(cfg, weights, tmp) -> dict:
                    "exemplar_trace_id": exemplar.group(1).decode(),
                    "otlp_spans_before_stop": spans_before_stop,
                    "otlp_spans": len(spans), "exit_code": rc,
-                   "exit_s": exit_s}
+                   "exit_s": exit_s, "warm_buckets": report["warm_buckets"]}
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -1662,14 +1920,20 @@ def main() -> int:
                              ProfileConfig(picker="topk", use_pallas_topk=True),
                              None, kernels, "fused_blend_topk")
 
+    warm_sink = phase_warm(dev, "tuned+use_pallas_sinkhorn", cfg, weights,
+                           kernels, "fused_sinkhorn_plan")
+    warm_topk = phase_warm(dev, "topk+use_pallas_topk",
+                           ProfileConfig(picker="topk", use_pallas_topk=True),
+                           None, kernels, "fused_blend_topk")
+
     line = []
     for rec, phases, source, replaces in (
         (records["fused_sinkhorn_plan"],
-         (sink, pick_sink, serve_sink, chaos_sink),
+         (sink, pick_sink, serve_sink, chaos_sink, warm_sink),
          "gie_tpu_torch/ops/csrc/fused_sinkhorn.cu",
          "gie_tpu/ops/fused_sinkhorn.py:66"),
         (records["fused_blend_topk"],
-         (topk, pick_topk, serve_topk, chaos_topk),
+         (topk, pick_topk, serve_topk, chaos_topk, warm_topk),
          "gie_tpu_torch/ops/csrc/fused_topk.cu",
          "gie_tpu/ops/fused_topk.py:80"),
     ):

@@ -7,13 +7,23 @@ from a CUDA tensor to the plain version.
 
 A kernel that cannot run at all raises KernelUnavailable: its build or load
 failed, it refuses the shape, or the driver refused its launch
-configuration. That is a fault of the deployment, not of a sick device, so
-the picker re-raises it instead of answering the wave on a degraded rung.
+configuration (a cycle that cannot be captured into a CUDA graph raises
+its subclass GraphCaptureFailed). That is a fault of the deployment, not of
+a sick device, so the picker re-raises it instead of answering the wave on
+a degraded rung.
+
+Launch counts: each wrapper carries `launches`, the kernel's launches on
+live waves, and `warmup_launches`, its launches on a throwaway state
+before a capture. A wrapper calls count_launch() where it launches; under
+tally() on the same thread the launch goes to the tally instead, which is
+how a CUDA graph learns what it launches per replay (sched/graphs.py adds
+that to `launches` at every replay).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -25,6 +35,35 @@ class KernelUnavailable(RuntimeError):
 
 class ShapeRefused(KernelUnavailable, ValueError):
     """A kernel refuses its inputs' shape."""
+
+
+class GraphCaptureFailed(KernelUnavailable):
+    """The scheduling cycle could not be captured into a CUDA graph."""
+
+
+_tallies = threading.local()
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of `wrapper`'s kernel: into this thread's tally
+    when one is open, else into `wrapper.launches`."""
+    sink = getattr(_tallies, "sink", None)
+    if sink is None:
+        wrapper.launches += 1
+    else:
+        sink[wrapper] = sink.get(wrapper, 0) + 1
+
+
+@contextlib.contextmanager
+def tally(sink: dict):
+    """Count this thread's launches into `sink` ({wrapper: launches})
+    instead of the wrappers' `launches` while the context is open."""
+    prev = getattr(_tallies, "sink", None)
+    _tallies.sink = sink
+    try:
+        yield sink
+    finally:
+        _tallies.sink = prev
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

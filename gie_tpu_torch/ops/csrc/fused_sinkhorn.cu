@@ -284,12 +284,13 @@ extern "C" int gie_fused_sinkhorn_layout(int n, int m, int* out) {
   if (e != cudaSuccess) return static_cast<int>(e);
   int per_sm = 0;
   if (lay.smem_bytes <= lay.smem_max) {
-    if (lay.smem_bytes > 48 * 1024) {
-      e = cudaFuncSetAttribute(sinkhorn_persistent,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               lay.smem_bytes);
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
+    // Once per shape, never per launch: the kernel may take up to the
+    // device's opt-in maximum, so every shape whose slab fits launches
+    // without another attribute call (none is made under graph capture).
+    e = cudaFuncSetAttribute(sinkhorn_persistent,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             lay.smem_max);
+    if (e != cudaSuccess) return static_cast<int>(e);
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, sinkhorn_persistent, kThreads, lay.smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -306,11 +307,15 @@ extern "C" int gie_fused_sinkhorn_layout(int n, int m, int* out) {
 
 // k f32[n, m], cap f32[m], v_init f32[m] -> plan f32[n, m], v_out f32[m].
 // scratch: at least the layout's scratch_floats floats, 8-byte aligned,
-// caller-allocated. All pointers are device pointers, row-major and
-// contiguous. One cooperative launch on `stream`. Returns a cudaError_t (0
-// = launched): cudaErrorInvalidValue when the K slab does not fit in shared
-// memory, cudaErrorCooperativeLaunchTooLarge when the grid cannot be
-// resident at once.
+// caller-allocated; its contents on entry do not matter (the kernel clears
+// it before round 1), so a captured launch may reuse it on every replay.
+// gie_fused_sinkhorn_layout must have run for this shape on this device
+// (it raises the kernel's shared-memory limit). All pointers are device
+// pointers, row-major and contiguous. One cooperative launch on `stream`,
+// which stream capture records into a CUDA graph like any other launch.
+// Returns a cudaError_t (0 = launched): cudaErrorInvalidValue when the K
+// slab does not fit in shared memory, cudaErrorCooperativeLaunchTooLarge
+// when the grid cannot be resident at once.
 extern "C" int gie_fused_sinkhorn_plan(const float* k, const float* cap,
                                        const float* v_init, float* plan,
                                        float* v_out, float* scratch, int n,
@@ -320,12 +325,6 @@ extern "C" int gie_fused_sinkhorn_plan(const float* k, const float* cap,
   cudaError_t e = make_layout(n, m, &lay);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (lay.smem_bytes > lay.smem_max) return static_cast<int>(cudaErrorInvalidValue);
-  if (lay.smem_bytes > 48 * 1024) {
-    e = cudaFuncSetAttribute(sinkhorn_persistent,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             lay.smem_bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
   cudaLaunchAttribute coop;
   coop.id = cudaLaunchAttributeCooperative;
   coop.val.cooperative = 1;

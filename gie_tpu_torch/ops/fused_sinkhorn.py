@@ -15,7 +15,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from gie_tpu_torch.ops import (
-    ShapeRefused, build, check_input, current, on_cuda, raw_stream)
+    ShapeRefused, build, check_input, count_launch, current, on_cuda,
+    raw_stream)
 
 
 class Layout(NamedTuple):
@@ -115,9 +116,11 @@ def fused_sinkhorn_plan(
             plan.data_ptr(), v_out.data_ptr(), scratch.data_ptr(), n, m,
             iters, raw_stream(dev))
     build.check(err, "fused_sinkhorn_plan")
-    fused_sinkhorn_plan.launches += 1
+    count_launch(fused_sinkhorn_plan)
     return plan, v_out
 
 
-# Launches of the CUDA kernel (plain-version calls do not count).
+# Launches of the CUDA kernel on live waves, and on throwaway states before
+# a capture (ops.count_launch; plain-version calls count in neither).
 fused_sinkhorn_plan.launches = 0
+fused_sinkhorn_plan.warmup_launches = 0

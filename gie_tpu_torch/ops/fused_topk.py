@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 
 from gie_tpu_torch.ops import (
-    ShapeRefused, build, check_input, current, on_cuda, raw_stream)
+    ShapeRefused, build, check_input, count_launch, current, on_cuda,
+    raw_stream)
 from gie_tpu_torch.sched.constants import NEG_SCORE as NEG
 
 # What the kernel takes (ops/csrc/fused_topk.cu): S scorer columns and k
@@ -81,9 +82,11 @@ def fused_blend_topk(
             stacked.data_ptr(), wvec.data_ptr(), mask.data_ptr(),
             vals.data_ptr(), idxs.data_ptr(), s, n, m, k, raw_stream(dev))
     build.check(err, "fused_blend_topk")
-    fused_blend_topk.launches += 1
+    count_launch(fused_blend_topk)
     return vals, idxs
 
 
-# Launches of the CUDA kernel (plain-version calls do not count).
+# Launches of the CUDA kernel on live waves, and on throwaway states before
+# a capture (ops.count_launch; plain-version calls count in neither).
 fused_blend_topk.launches = 0
+fused_blend_topk.warmup_launches = 0

@@ -210,11 +210,9 @@ class ExtProcServerRunner:
             lora_registry=self.lora_registry,
             queue_bound=opts.queue_bound,
             queue_max_age_s=opts.queue_max_age_s,
-            # The reference passes background_warm=True (runner.py:346) so
-            # a new wave-shape lattice background-compiles its jit buckets.
-            # The port has no jit to warm and its picker refuses True until
-            # the warm-lattice slice; False changes no pick.
-            background_warm=False,
+            # As the reference (runner.py:346): a new wave-shape lattice
+            # captures its cycles on a background thread.
+            background_warm=True,
             resilience=self.resilience,
             fairness=self.fairness,
         )

@@ -24,13 +24,21 @@ answers its wave degraded instead of failing it, except for a kernel
 that cannot run here at all (ops.KernelUnavailable: build, load or shape
 refused), which fails the wave as it does without a ResilienceState: the
 Scheduler builds its kernels at construction, so that error belongs to
-the deployment, not to a sick device. While a flight recorder
+the deployment, not to a sick device (a cycle that cannot be captured
+into a CUDA graph raises its subclass GraphCaptureFailed, and fails its
+wave the same way). While a flight recorder
 is installed (obs.RECORDER), the completer writes one decision record
 per request from host arrays only.
 
+With `background_warm=True` (the runner's wiring) the dispatcher's first
+wave of each (M bucket, chunk lanes) lattice hands the rest of its N
+buckets to Scheduler.warm_lattice_async, which captures their cycles on a
+background thread, so a later wave of another size replays a graph
+instead of capturing one inline.
+
 Not carried by this slice, and refused at construction: federation
-spill (`federation=`), the latency predictor and SLO admission
-(`trainer=`), and background lattice warming (`background_warm=True`).
+spill (`federation=`) and the latency predictor and SLO admission
+(`trainer=`).
 """
 
 from __future__ import annotations
@@ -304,8 +312,6 @@ class BatchingTPUPicker:
         if trainer is not None:
             raise _not_ported("a latency-predictor trainer (and the SLO "
                               "admission it drives)", "predictor_fn")
-        if background_warm:
-            raise _not_ported("background_warm=True", "background_warm")
         # Clock seam: every BEHAVIORAL read of time in the pick path goes
         # through this clock. Pipeline stage times stay on the real clock
         # (they are observability, not behavior).
@@ -372,6 +378,14 @@ class BatchingTPUPicker:
         self._depth_waves = 0
         self._depth_want_prev = pipeline_depth
         self._waves = _WaveQueue(clock)
+        # Background lattice warming: the first wave of a new (m,
+        # chunk_lanes) lattice kicks Scheduler.warm_lattice_async for the
+        # rest of its N buckets. Opt-in (the runner turns it on): the warm
+        # threads contend for the host, which latency tests that build
+        # this picker directly must not absorb. Dispatcher-thread-only.
+        self.background_warm = background_warm
+        self._warmed_lattices: set[tuple[int, int]] = set()
+        self._warm_threads: list[threading.Thread] = []
         # Multi-tenant fairness (docs/FAIRNESS.md): weighted-DRR flow
         # ordering, per-tenant budgets and the over-fair-share shed.
         self.fairness = (fairness if fairness is not None
@@ -696,6 +710,10 @@ class BatchingTPUPicker:
                 with self._inflight_cv:
                     self._inflight -= 1
                     self._clock.notify_all(self._inflight_cv)
+        # A lattice warm still capturing must not outlive its picker into
+        # interpreter shutdown.
+        for t in self._warm_threads:
+            t.join(timeout=60)
 
     # -- collector ---------------------------------------------------------
 
@@ -961,6 +979,11 @@ class BatchingTPUPicker:
             self._degraded_pick(
                 batch, Rung(max(rs.ladder.rung(), Rung.CACHED)))
             return held
+        lattice = (mb, int(reqs.chunk_hashes.shape[1]))
+        if self.background_warm and lattice not in self._warmed_lattices:
+            self._warmed_lattices.add(lattice)
+            self._warm_threads.append(
+                self.scheduler.warm_lattice_async(*lattice))
         asm_s = time.perf_counter() - t0
         own_metrics.HOST_ASSEMBLY.observe(asm_s)
         if self._depth_auto:

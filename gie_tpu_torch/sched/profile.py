@@ -7,12 +7,20 @@ masked tensor algebra over the [N, M] grid. `Scheduler` is the facade the
 data plane calls: it pads micro-batches to a bucket, runs the cycle on its
 device with the state updated in place, and takes the request-termination
 feedback that reconciles assumed load.
+
+On CUDA every wave replays the cycle captured as a CUDA graph for its
+(N bucket, M bucket, chunk lanes) key (sched/graphs.py), the counterpart of
+the reference's compiled executable per key; warm_lattice_async captures a
+lattice of keys on a background thread, as the reference compiles one. On
+the CPU the cycle runs eagerly and warming runs it once on a throwaway
+state.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 import threading
 from typing import Callable, Optional
 
@@ -21,6 +29,7 @@ import torch
 
 from gie_tpu_torch.sched import constants as C
 from gie_tpu_torch.sched import filters, pickers, prefix, scorers
+from gie_tpu_torch.sched.graphs import CycleGraph
 from gie_tpu_torch.sched.types import (
     EndpointBatch,
     PickResult,
@@ -29,8 +38,10 @@ from gie_tpu_torch.sched.types import (
     Weights,
     bucket_for,
     pad_requests,
-    resize_state,
+    resize_into,
 )
+
+log = logging.getLogger(__name__)
 
 # Later slices of the port (ROADMAP.md, Queue 1) that bring what this one
 # rejects at construction.
@@ -41,7 +52,6 @@ _LATER = {
     "predictor_fn": "the latency-predictor slice",
     "mesh": "the multi-device slice",
     "federation": "the federation slice",
-    "background_warm": "the warm-lattice slice",
     "kube": "the kube slice",
     "replication": "the replication slice",
     "autoscale": "the autoscale slice",
@@ -184,11 +194,15 @@ def build_stages(
     weights: Weights,
     *,
     cfg: ProfileConfig,
+    wvec: Optional[torch.Tensor] = None,
 ):
     """Filter + score stages -> (mask, shed, named column dict,
     stacked [S,N,M], wvec [S], blended total [N,M]). `total` is None on
     the fused top-k path, whose kernel blends the columns itself (the
     reference computes it there too, and XLA drops it as dead code).
+    `wvec`, when given, is the blend weights of feature_schema(cfg) as a
+    tensor the caller fills (a captured cycle's static buffer); otherwise
+    they come from `weights`.
 
     Saturation is a soft filter: unsaturated candidates are preferred;
     when all are saturated SHEDDABLE traffic is shed (429) and STANDARD
@@ -234,12 +248,18 @@ def build_stages(
         named["lora"] = scorers.lora_affinity_score(reqs, eps, membership)
 
     stacked = torch.stack(list(named.values()))               # [S, N, M]
-    wvec = _weight_vector(weights, tuple(named), mask.device)
+    if wvec is None:
+        wvec = _weight_vector(weights, tuple(named), mask.device)
     total = None
     if not (cfg.picker == "topk" and cfg.use_pallas_topk):
-        total = torch.einsum("s,snm->nm", wvec, stacked) / torch.clamp(
-            wvec.sum(), min=1e-6)
+        total = blend(wvec, stacked)
     return mask, shed, named, stacked, wvec, total
+
+
+def blend(wvec: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor:
+    """The weighted blend of the scorer columns -> f32[N, M]."""
+    return torch.einsum("s,snm->nm", wvec, stacked) / torch.clamp(
+        wvec.sum(), min=1e-6)
 
 
 def _pick_stage(
@@ -287,16 +307,19 @@ def scheduling_cycle(
     gumbel: Optional[torch.Tensor],
     *,
     cfg: ProfileConfig,
+    wvec: Optional[torch.Tensor] = None,
 ) -> tuple[PickResult, SchedState]:
     """One full scheduling cycle. Updates `state`'s tensors IN PLACE (the
     role of the reference's donated buffers) and returns (result, state).
 
     `gumbel` is the standard Gumbel noise f32[N, M] the sinkhorn picker's
     rounding uses (the reference draws it from its PRNG key inside the
-    cycle); other pickers ignore it and take None.
+    cycle); other pickers ignore it and take None. `wvec`: see
+    build_stages. The cycle makes no call that waits for the device, so
+    it can be captured into a CUDA graph (sched/graphs.py).
     """
     mask, shed, named, stacked, wvec, total = build_stages(
-        state, reqs, eps, weights, cfg=cfg)
+        state, reqs, eps, weights, cfg=cfg, wvec=wvec)
 
     result, pick_aux = _pick_stage(
         total, stacked, wvec, mask, shed, reqs, eps, state, gumbel, cfg)
@@ -401,14 +424,17 @@ def _complete_update(state: SchedState, slots: torch.Tensor,
 
 
 def gumbel_noise(shape: tuple, generator: torch.Generator,
-                 device) -> torch.Tensor:
+                 device, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Standard Gumbel noise f32[shape] drawn from `generator`:
     -log(-log(U)) with U clamped to [finfo.tiny, 1), the range
-    jax.random.gumbel draws its uniforms from."""
-    u = torch.rand(shape, generator=generator, dtype=torch.float32,
-                   device=device)
-    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
+    jax.random.gumbel draws its uniforms from. With `out` the noise is
+    drawn into it in place: the same draws, the same values."""
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.rand(shape, generator=generator, dtype=torch.float32,
+               device=device, out=out)
+    out.clamp_(min=torch.finfo(torch.float32).tiny)
+    return out.log_().neg_().log_().neg_()
 
 
 def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -448,10 +474,20 @@ class Scheduler:
     """Host facade over the scheduling cycle.
 
     Thread-safe: calls serialize on a lock around the state, which the
-    cycle updates in place. Randomness: the sinkhorn picker's Gumbel
-    noise comes from a torch.Generator on the scheduler's device seeded
-    with `seed`, or from `noise_source(shape) -> Tensor` when given (the
-    parity tests replay the JAX scheduler's noise through it).
+    cycle updates in place. Each M bucket's state is allocated once, on
+    first use, and never reallocated: a bucket change fills the target
+    bucket's tensors from the current one's (resize_into) and an install
+    copies into them, so the addresses a captured cycle holds stay live.
+    Randomness: the sinkhorn picker's Gumbel noise comes from a
+    torch.Generator on the scheduler's device seeded with `seed`, or from
+    `noise_source(shape) -> Tensor` when given (the parity tests replay
+    the JAX scheduler's noise through it).
+
+    Warming (the reference's compile cache, keyed (n_bucket, m,
+    chunk_lanes)): on CUDA a key is warm once its cycle is captured as a
+    CUDA graph, and every wave of that key replays it; a wave of a cold key
+    captures it inline first and counts `warm_inline_compiles`. On the CPU
+    warming runs the eager cycle once on a throwaway state.
     """
 
     def __init__(
@@ -475,12 +511,29 @@ class Scheduler:
         self.noise_source = noise_source
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
-        # State starts at the smallest M bucket; the first pick migrates it
-        # to the width the caller's EndpointBatch arrives with.
-        self.state = SchedState.init(m=C.M_BUCKETS[0], device=self.device)
         self._lock = threading.Lock()
+        # One state per M bucket; `state` is the live bucket's. It starts
+        # at the smallest bucket; the first pick moves it to the width the
+        # caller's EndpointBatch arrives with.
+        self._states: dict[int, SchedState] = {}
+        self.state = self._bucket_state(C.M_BUCKETS[0])
+        # Warm cache: (n_bucket, m, chunk_lanes) keys whose cycle is ready.
+        self._warm_buckets: set[tuple[int, int, int]] = set()
+        self._warm_lock = threading.Lock()
+        # Waves that had to warm their own key first (each one a wave
+        # stalled behind a capture, the stall warm_lattice_async exists to
+        # remove). Reads are racy but monotonic, which is all its readers
+        # need.
+        self.warm_inline_compiles = 0
+        # A background warm's failure, raised to the next wave of its key.
+        self._warm_failures: dict[tuple[int, int, int], Exception] = {}
+        # CUDA: the captured cycle of each warm key, and the stream that
+        # captures run on.
+        self._graphs: dict[tuple[int, int, int], CycleGraph] = {}
+        self._capture_stream: Optional[torch.cuda.Stream] = None
         if self.device.type == "cuda":
             self._prepare_kernels()
+            self._capture_stream = torch.cuda.Stream(self.device)
 
     def _prepare_kernels(self) -> None:
         """Build and load the kernels this profile launches and check the
@@ -500,13 +553,115 @@ class Scheduler:
                 for m in C.M_BUCKETS:
                     fused_sinkhorn.layout(self.device, n, m)
 
-    def _noise(self, shape: tuple) -> torch.Tensor:
+    def _bucket_state(self, m: int) -> SchedState:
+        """Bucket m's state, allocated on first use. Callers hold _lock
+        (or own the scheduler, in __init__)."""
+        state = self._states.get(m)
+        if state is None:
+            state = self._states[m] = SchedState.init(m=m, device=self.device)
+        return state
+
+    def _use_bucket(self, m: int) -> SchedState:
+        """Make bucket m's state the live one, carrying the current
+        bucket's over (resize_into). Caller holds
+        _lock."""
+        if self.state.m != m:
+            self.state = resize_into(self.state, self._bucket_state(m))
+        return self.state
+
+    def _noise(self, shape: tuple,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.noise_source is None:
-            return gumbel_noise(shape, self._gen, self.device)
+            return gumbel_noise(shape, self._gen, self.device, out=out)
         noise = self.noise_source(shape)
         if not torch.is_tensor(noise):
             noise = torch.from_numpy(np.array(noise, np.float32))
-        return _to_device(noise.to(dtype=torch.float32), self.device)
+        noise = _to_device(noise.to(dtype=torch.float32), self.device)
+        return noise if out is None else out.copy_(noise)
+
+    def _cycle(self, state, reqs, eps, gumbel, wvec) -> PickResult:
+        """The cycle a CycleGraph captures: its weights come in `wvec`."""
+        return scheduling_cycle(state, reqs, eps, self.weights, gumbel,
+                                cfg=self.cfg, wvec=wvec)[0]
+
+    def _warm(self, reqs: RequestBatch, eps: EndpointBatch) -> None:
+        """Make the wave shape of (reqs, eps), already padded to its N
+        bucket, ready OUTSIDE the state lock without touching live state.
+        On CUDA: capture its cycle over the live state of its M bucket
+        (CycleGraph.capture: an eager pass on a throwaway state, then a
+        capture that executes nothing); raises ops.GraphCaptureFailed. On
+        the CPU: run the cycle once on a throwaway state with zero noise,
+        as the reference compiles on one."""
+        n, m = int(reqs.valid.shape[0]), int(eps.valid.shape[0])
+        key = (n, m, int(reqs.chunk_hashes.shape[1]))
+        sinkhorn = self.cfg.picker == "sinkhorn"
+        if self.device.type != "cuda":
+            gumbel = (torch.zeros((n, m), dtype=torch.float32,
+                                  device=self.device) if sinkhorn else None)
+            scheduling_cycle(
+                SchedState.init(m=m, device=self.device),
+                _batch_to_device(reqs, self.device),
+                _batch_to_device(eps, self.device), self.weights, gumbel,
+                cfg=self.cfg)
+            return
+        with self._lock:
+            state = self._bucket_state(m)
+        graph = CycleGraph(key, state, feature_schema(self.cfg), sinkhorn,
+                           self.device)
+        graph.capture(self._cycle, self._capture_stream, self.weights)
+        self._graphs[key] = graph
+
+    def _ensure_warm(self, key: tuple[int, int, int], wave) -> None:
+        """Warm `key` inline unless it is warm: `wave()` -> the (reqs, eps)
+        to warm it with. Raises a background warm's failure of this key."""
+        if key in self._warm_buckets:
+            return
+        with self._warm_lock:
+            failed = self._warm_failures.pop(key, None)
+            if failed is not None:
+                raise failed
+            if key in self._warm_buckets:
+                return
+            # Inline stall: this wave waits for its own warm. The lattice
+            # warmer exists to make this path unreachable in steady state.
+            self.warm_inline_compiles += 1
+            self._warm(*wave())
+            self._warm_buckets.add(key)
+
+    def warm_lattice_async(self, m: int, chunk_lanes: int) -> threading.Thread:
+        """Warm every still-cold N bucket of the (m, chunk_lanes) lattice on
+        a daemon thread, with all-invalid waves (a key is a shape, so a
+        masked wave warms what a live one would). Each bucket holds
+        `_warm_lock` only for its own warm, so a live cold-shape pick
+        interleaves per bucket instead of waiting for the lattice. A warm
+        that fails is logged and raised to the next pick_async of its
+        key, and the thread stops. Returns the thread."""
+
+        def _run() -> None:
+            for n in C.N_BUCKETS:
+                key = (n, m, chunk_lanes)
+                if key in self._warm_buckets:
+                    continue
+                reqs = RequestBatch.empty(n, m, lanes=chunk_lanes)
+                eps = EndpointBatch.empty(m)
+                with self._warm_lock:
+                    if key in self._warm_buckets:
+                        continue
+                    try:
+                        self._warm(reqs, eps)
+                    except Exception as e:
+                        log.exception("warming wave shape %s failed; the "
+                                      "next wave of that shape raises it",
+                                      key)
+                        self._warm_failures[key] = e
+                        return
+                    self._warm_buckets.add(key)
+
+        t = threading.Thread(
+            target=_run, name=f"warm-lattice-m{m}-c{chunk_lanes}",
+            daemon=True)
+        t.start()
+        return t
 
     def pick(self, reqs: RequestBatch, eps: EndpointBatch) -> PickResult:
         """Schedule a micro-batch; host-side PickResult rows for the
@@ -523,10 +678,12 @@ class Scheduler:
         """Run one scheduling cycle without waiting for its results.
         `snapshot_load=True` also copies the post-cycle assumed load.
 
-        On CUDA nothing here waits for the device: the inputs go up from
-        pinned memory, the cycle and the copies of its results down to
-        pinned memory are queued on the device's current stream, and an
-        event recorded after them is what PendingWave waits on."""
+        On CUDA nothing here waits for the device: the wave's inputs go up
+        in one copy from pinned memory into its key's static inputs, its
+        noise is drawn into the static noise buffer, the captured cycle is
+        replayed, and the copies of its results down to pinned memory and
+        an event after them, which PendingWave waits on, are queued, all
+        on the device's current stream."""
         n = int(reqs.valid.shape[0])
         bucket = bucket_for(n)
         m = int(eps.valid.shape[0])
@@ -537,24 +694,35 @@ class Scheduler:
             raise ValueError(
                 f"subset_mask width {reqs.subset_mask.shape[1]} != "
                 f"endpoint width {m}")
-        reqs = pad_requests(_batch_to_device(reqs, self.device), bucket)
-        eps = _batch_to_device(eps, self.device)
-        on_cuda = self.device.type == "cuda"
+        lanes = int(reqs.chunk_hashes.shape[1])
+        key = (bucket, m, lanes)
+        if self.device.type != "cuda":
+            reqs = pad_requests(_batch_to_device(reqs, self.device), bucket)
+            eps = _batch_to_device(eps, self.device)
+            self._ensure_warm(key, lambda: (reqs, eps))
+            with self._lock:
+                state = self._use_bucket(m)
+                gumbel = (self._noise((bucket, m))
+                          if self.cfg.picker == "sinkhorn" else None)
+                result, _ = scheduling_cycle(
+                    state, reqs, eps, self.weights, gumbel, cfg=self.cfg)
+                snap = state.assumed_load.clone() if snapshot_load else None
+            return PendingWave(result=result, n=n, load_snapshot=snap)
+        self._ensure_warm(key, lambda: (
+            RequestBatch.empty(bucket, m, lanes=lanes), EndpointBatch.empty(m)))
+        graph = self._graphs[key]
+        staged = graph.pack(reqs, eps, self.weights)
         with self._lock:
-            if self.state.m != m:
-                self.state = resize_state(self.state, m)
-            gumbel = (self._noise((bucket, m))
-                      if self.cfg.picker == "sinkhorn" else None)
-            result, self.state = scheduling_cycle(
-                self.state, reqs, eps, self.weights, gumbel, cfg=self.cfg)
-            if not on_cuda:
-                snap = (self.state.assumed_load.clone() if snapshot_load
-                        else None)
-                return PendingWave(result=result, n=n, load_snapshot=snap)
-            # Queued behind this cycle and ahead of the next one's in-place
-            # updates, so the snapshot is this cycle's state; the event
-            # follows this wave's copies and nothing of a later wave.
-            snap = (_to_host_async(self.state.assumed_load) if snapshot_load
+            state = self._use_bucket(m)
+            graph.upload(*staged)
+            if graph.gumbel is not None:
+                self._noise(tuple(graph.gumbel.shape), out=graph.gumbel)
+            result = graph.replay()
+            # Queued behind this replay and ahead of the next one, which
+            # overwrites the static outputs and updates the state again:
+            # the copies are this wave's, and the event follows them and
+            # nothing of a later wave.
+            snap = (_to_host_async(state.assumed_load) if snapshot_load
                     else None)
             host = PickResult(**{
                 f.name: (None if getattr(result, f.name) is None
@@ -571,7 +739,7 @@ class Scheduler:
         costs = _to_device(torch.from_numpy(
             np.asarray(costs, np.float32)), self.device)
         with self._lock:
-            self.state = _complete_update(self.state, slots, costs)
+            _complete_update(self.state, slots, costs)
 
     def evict_endpoint(self, slot: int) -> None:
         """Forget an endpoint slot (pod deleted or slot reassigned): its
@@ -591,9 +759,35 @@ class Scheduler:
                 return
             prefix.clear_endpoint(self.state.prefix, slot)
 
+    def explain(self, reqs: RequestBatch,
+                eps: EndpointBatch) -> dict[str, np.ndarray]:
+        """Debug surface: each scorer column, the blended total, the
+        eligibility mask and the shed flags of a batch, as numpy rows of
+        the original batch, WITHOUT touching scheduler state. Runs the
+        same build_stages as the cycle (eagerly, on a copy of the state
+        taken under the lock and resized when the batch's M bucket is not
+        the live one), so the decomposition cannot diverge from the pick."""
+        n, m = int(reqs.valid.shape[0]), int(eps.valid.shape[0])
+        reqs = pad_requests(_batch_to_device(reqs, self.device), bucket_for(n))
+        eps = _batch_to_device(eps, self.device)
+        with self._lock:
+            state = (_copy_state(self.state) if self.state.m == m
+                     else resize_into(self.state, SchedState.init(
+                         m=m, device=self.device)))
+            weights = self.weights
+        mask, shed, named, stacked, wvec, total = build_stages(
+            state, reqs, eps, weights, cfg=self.cfg)
+        if total is None:        # the fused top-k path blends in its kernel
+            total = blend(wvec, stacked)
+        out = {name: col[:n].cpu().numpy() for name, col in named.items()}
+        out["total"] = total[:n].cpu().numpy()
+        out["mask"] = mask[:n].cpu().numpy()
+        out["shed"] = shed[:n].cpu().numpy()
+        return out
+
     def debug_report(self) -> dict:
         """Scheduler zpage payload: blend weights, picker identity, state
-        width and tick, device."""
+        width and tick, device, and the warm cache."""
         state = self.state
         return {
             "picker": self.cfg.picker,
@@ -605,6 +799,8 @@ class Scheduler:
                 for f in dataclasses.fields(Weights)
             },
             "device": str(self.device),
+            "warm_buckets": sorted(self._warm_buckets),
+            "warm_inline_compiles": self.warm_inline_compiles,
         }
 
     def snapshot_assumed_load(self) -> np.ndarray:
@@ -628,19 +824,26 @@ class Scheduler:
 
     def prepare_install(self, arrays: dict) -> Optional[SchedState]:
         """Validate digest arrays into a SchedState on this scheduler's
-        device without touching live state; None on any malformation."""
+        device without touching live state; None on any malformation,
+        including a prefix table of another row count than this
+        scheduler's (its states are allocated once, at that count)."""
         from gie_tpu_torch.convert import state_from_numpy
 
         try:
             restored = state_from_numpy(arrays, device=self.device)
         except (KeyError, TypeError, ValueError):
             return None
-        return restored if check_state_shapes(restored) else None
+        if not check_state_shapes(restored):
+            return None
+        if restored.prefix.keys.shape != self.state.prefix.keys.shape:
+            return None
+        return restored
 
     def commit_install(self, state: SchedState) -> None:
-        """Swap in a prepare_install-validated state."""
+        """Install a prepare_install-validated state: copied into the
+        tensors of its M bucket, which becomes the live one."""
         with self._lock:
-            self.state = state
+            self.state = resize_into(state, self._bucket_state(state.m))
 
     def install_state(self, arrays: dict) -> bool:
         """Validated inverse of export_state; False keeps the prior state."""

@@ -41,6 +41,20 @@ class EndpointBatch(_Replace):
     lora_waiting: torch.Tensor  # i32[M, LORA_SLOTS]
     role: torch.Tensor          # i32[M], constants.Role
 
+    @staticmethod
+    def empty(m: int = C.M_MAX, *, device="cpu") -> "EndpointBatch":
+        """`m` invalid slots, as the reference's EndpointBatch.empty."""
+        return EndpointBatch(
+            metrics=torch.zeros((m, C.NUM_METRICS), dtype=torch.float32,
+                                device=device),
+            valid=torch.zeros((m,), dtype=torch.bool, device=device),
+            lora_active=torch.full((m, C.LORA_SLOTS), -1, dtype=torch.int32,
+                                   device=device),
+            lora_waiting=torch.full((m, C.LORA_SLOTS), -1, dtype=torch.int32,
+                                    device=device),
+            role=torch.zeros((m,), dtype=torch.int32, device=device),
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class RequestBatch(_Replace):
@@ -55,6 +69,25 @@ class RequestBatch(_Replace):
     chunk_hashes: torch.Tensor  # int64[N, C] u32 rolling prefix-chunk hashes
     n_chunks: torch.Tensor      # i32[N] number of valid chunk hashes
     subset_mask: torch.Tensor   # bool[N, M]
+
+    @staticmethod
+    def empty(n: int, m: int = C.M_MAX, *, lanes: int = C.MAX_CHUNKS,
+              device="cpu") -> "RequestBatch":
+        """`n` invalid rows over `lanes` chunk lanes, as the reference's
+        RequestBatch.empty; the field dtypes are the ones every
+        constructor of a RequestBatch uses."""
+        return RequestBatch(
+            valid=torch.zeros((n,), dtype=torch.bool, device=device),
+            lora_id=torch.full((n,), -1, dtype=torch.int32, device=device),
+            criticality=torch.full((n,), int(C.Criticality.STANDARD),
+                                   dtype=torch.int32, device=device),
+            prompt_len=torch.zeros((n,), dtype=torch.float32, device=device),
+            decode_len=torch.zeros((n,), dtype=torch.float32, device=device),
+            chunk_hashes=torch.zeros((n, lanes), dtype=torch.int64,
+                                     device=device),
+            n_chunks=torch.zeros((n,), dtype=torch.int32, device=device),
+            subset_mask=torch.ones((n, m), dtype=torch.bool, device=device),
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,22 +215,23 @@ def m_bucket_for(count: int) -> int:
         f"{count} endpoint slots exceed max bucket {C.M_BUCKETS[-1]}")
 
 
-def resize_state(state: SchedState, m: int) -> SchedState:
-    """Migrate scheduler state across an M-bucket boundary: new slots get
-    zero load, cold duals (ones) and no presence bits; a shrink drops the
-    slots past the new bucket. Keys and ages carry over untouched."""
-    m_old = state.m
-    if m == m_old:
-        return state
-    w = m // 32
-    px = state.prefix
-    if m > m_old:
-        load = torch.nn.functional.pad(state.assumed_load, (0, m - m_old))
-        ot_v = torch.nn.functional.pad(state.ot_v, (0, m - m_old), value=1.0)
-        present = torch.nn.functional.pad(px.present, (0, w - m_old // 32))
-    else:
-        load = state.assumed_load[:m].clone()
-        ot_v = state.ot_v[:m].clone()
-        present = px.present[:, :w].contiguous()
-    return state.replace(
-        assumed_load=load, ot_v=ot_v, prefix=px.replace(present=present))
+def resize_into(src: SchedState, dst: SchedState) -> SchedState:
+    """Migrate scheduler state across an M-bucket boundary (the reference's
+    resize_state) into `dst`, laid out for its own bucket, in place: slots
+    past `src`'s width get zero load, cold duals (ones) and no presence
+    bits; slots past `dst`'s width are dropped. Keys, ages and the counters
+    carry over. Both tables have the same number of rows. -> dst, whose
+    tensors keep their storage (a captured cycle holds their addresses)."""
+    k = min(src.m, dst.m)
+    w = k // 32
+    dst.assumed_load[:k].copy_(src.assumed_load[:k])
+    dst.assumed_load[k:].zero_()
+    dst.ot_v[:k].copy_(src.ot_v[:k])
+    dst.ot_v[k:].fill_(1.0)
+    dst.prefix.present[:, :w].copy_(src.prefix.present[:, :w])
+    dst.prefix.present[:, w:].zero_()
+    dst.prefix.keys.copy_(src.prefix.keys)
+    dst.prefix.ages.copy_(src.prefix.ages)
+    dst.rr.copy_(src.rr)
+    dst.tick.copy_(src.tick)
+    return dst

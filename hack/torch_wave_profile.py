@@ -9,10 +9,12 @@ use_pallas_sinkhorn, and topk + use_pallas_topk): three warm-up waves, then
 `--waves` waves under torch.profiler. Prints one JSON line per
 configuration: wall time per wave (host clock, ends in a synchronize),
 device busy time per wave (sum of kernel times; one stream, so kernels do
-not overlap), the device's idle share, kernel launches per wave, the
-kernels and host ops that take the most time, and the device time and
-launches of the port's own kernels. On the CPU (--device cpu,
-for a rehearsal) only host times exist.
+not overlap), the device's idle share, kernels run on the device per wave
+(on the card a wave replays the cycle's CUDA graph, so these run from one
+graph launch: chip_smoke.py phase 9 counts the host's launching calls),
+the kernels and host ops that take the most time, and the device time and
+count of the port's own kernels. On the CPU (--device cpu, for a
+rehearsal) only host times exist.
 """
 
 from __future__ import annotations

@@ -11,6 +11,14 @@ in another order than the plain matrix form); blend-top-k indices exact
 and values atol=1e-5 (the kernel's blend is the plain version's rounded
 f32 arithmetic in the same order).
 
+The kernels are also held under CUDA graph capture (a captured launch
+replays bitwise equal to an eager one), and the Scheduler's waves, each a
+replay of the cycle captured for its shape, against the eager
+scheduling_cycle on a copy of the state with the same inputs and noise:
+indices, status and the prefix table exact; scores, affinity and the
+float state within atol=1e-5 (the state update's index_add_ sums with
+atomics, whose order may differ between two runs).
+
 The last tests hold the pick service's handoff to the card: pick_async
 queues a wave without waiting for the device, a wave's materialize()
 waits for that wave only, and the batching picker answers a burst."""
@@ -36,7 +44,7 @@ from gie_tpu_torch.ops.fused_topk import (
 )
 from gie_tpu_torch.sched import ProfileConfig, Scheduler
 from gie_tpu_torch.sched.config import tuned_profile
-from gie_tpu_torch.sched.constants import Metric
+from gie_tpu_torch.sched.constants import N_BUCKETS, Metric
 from gie_tpu_torch.sched.profile import gumbel_noise
 from gie_tpu_torch.utils.testing import make_endpoints, make_requests
 
@@ -154,6 +162,90 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         fused_blend_topk(wide, torch.ones(MAX_S + 1, device=dev), mask)
 
 
+# -- the kernels under CUDA graph capture ---------------------------------
+
+
+def _capture(fn, stream):
+    """fn() captured into a CUDA graph on `stream` in thread-local mode
+    (the scheduler's mode) -> (graph, fn's return value)."""
+    graph = torch.cuda.CUDAGraph()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            out = fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    return graph, out
+
+
+# A word of round 1's tag holding 123.0f: the worst garbage a reused
+# Sinkhorn scratch could hold, were the kernel not to clear it first.
+_ROUND1_WORD = (1 << 32) | 0x42F60000
+
+
+@pytest.mark.parametrize("n, m", [(1024, 256), (1024, 1024), (7, 64)])
+def test_captured_cooperative_sinkhorn_replays_bitwise(dev, n, m):
+    """The Sinkhorn kernel's cooperative launch, captured into a CUDA
+    graph, replays bitwise equal to the eager launch, twice, on one
+    caller-owned scratch filled with round-tagged garbage before each
+    replay: the kernel clears its scratch before round 1."""
+    from gie_tpu_torch.ops import build
+
+    k, cap, warm = _sinkhorn_inputs(n, m, seed=n + m, dev=dev)
+    plan_ref, v_ref = fused_sinkhorn_plan(k, cap, warm)
+    lay = layout(dev, n, m)
+    lib = build.library()
+    plan, v = torch.empty_like(plan_ref), torch.empty_like(v_ref)
+    scratch = torch.empty((lay.scratch_floats,), dtype=torch.float32,
+                          device=dev)
+
+    def launch():
+        build.check(lib.gie_fused_sinkhorn_plan(
+            k.data_ptr(), cap.data_ptr(), warm.data_ptr(), plan.data_ptr(),
+            v.data_ptr(), scratch.data_ptr(), n, m, 8,
+            torch.cuda.current_stream().cuda_stream),
+            "fused_sinkhorn_plan")
+
+    graph, _ = _capture(launch, torch.cuda.Stream(dev))
+    for _ in range(2):
+        scratch.view(torch.int64).fill_(_ROUND1_WORD)
+        plan.fill_(float("nan"))
+        v.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(plan, plan_ref) and torch.equal(v, v_ref)
+
+
+@pytest.mark.parametrize("wrapper", ["fused_sinkhorn_plan",
+                                     "fused_blend_topk"])
+def test_captured_wrapper_replays_and_counts_per_replay(dev, wrapper):
+    """A wrapper called under capture launches nothing and counts into
+    the open tally, not into `launches`; the graph replays bitwise equal
+    to the eager call, twice, on the scratch and outputs it allocated in
+    its pool."""
+    from gie_tpu_torch import ops
+
+    if wrapper == "fused_sinkhorn_plan":
+        fn, args = fused_sinkhorn_plan, _sinkhorn_inputs(1024, 256, 5, dev)
+    else:
+        fn, args = fused_blend_topk, _topk_inputs(6, 1024, 256, 5, dev)
+    ref = fn(*args)
+    torch.cuda.synchronize()
+    before = fn.launches
+    counted = {}
+    with ops.tally(counted):
+        graph, out = _capture(lambda: fn(*args), torch.cuda.Stream(dev))
+    assert counted == {fn: 1} and fn.launches == before
+    for _ in range(2):
+        for t in out:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
 @pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel", "topk-kernel"])
 def test_scheduler_refuses_an_unavailable_kernel_at_construction(
         dev, config, monkeypatch):
@@ -227,7 +319,7 @@ def test_scheduler_on_card_matches_cpu(dev, config):
     kw = dict(queue=rng.integers(0, 50, 50).tolist(),
               kv=rng.uniform(0, 0.95, 50).tolist(), max_lora=8, m_slots=64)
     base = b"SYSTEM: You are a helpful assistant specialised in task %d. "
-    before = counter.launches
+    before, warm_before = counter.launches, counter.warmup_launches
     for w in range(3):
         prompts = [(base % (i % 16)) * 6 + b"q %d" % (i + 64 * w)
                    for i in range(64)]
@@ -240,7 +332,10 @@ def test_scheduler_on_card_matches_cpu(dev, config):
         np.testing.assert_array_equal(res.status, ref.status)
         agree = (res.indices[:, 0] == ref.indices[:, 0]).mean()
         assert agree >= 0.95
+    # Three replays of one graph, which its inline capture's warm-up pass
+    # (one launch on a throwaway state) preceded.
     assert counter.launches == before + 3
+    assert counter.warmup_launches == warm_before + 1
 
 
 # -- the pick service on the card -----------------------------------------
@@ -548,6 +643,11 @@ def test_golden_stream_makes_no_synchronizing_call(dev, config):
     try:
         for i in range(3):                     # build, warm the pinned pool
             runner.streaming.process(_GoldenStream(i))
+        # The first stream kicked the lattice warm; a device-wide
+        # synchronize while it captures would fail both.
+        for t in runner.picker._warm_threads:
+            t.join(120)
+        assert runner.picker._warm_threads
         torch.cuda.synchronize()
         before = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
@@ -560,3 +660,287 @@ def test_golden_stream_makes_no_synchronizing_call(dev, config):
         assert stream.sent[0].WhichOneof("response") == "request_headers"
     finally:
         runner.stop()
+
+
+# -- waves as replays of the captured cycle --------------------------------
+
+
+def _config(config):
+    """(cfg, weights, the path's kernel wrapper) of a card configuration."""
+    if config == "topk-kernel":
+        return (ProfileConfig(picker="topk", use_pallas_topk=True), None,
+                fused_blend_topk)
+    cfg, weights = tuned_profile()
+    return (dataclasses.replace(cfg, use_pallas_sinkhorn=True), weights,
+            fused_sinkhorn_plan)
+
+
+def _recorded_scheduler(config, dev, seed=0):
+    """A Scheduler on the card whose noise is drawn from a seeded generator
+    and kept (`sched.drawn`), so an eager cycle can reuse a wave's."""
+    cfg, weights, _ = _config(config)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    drawn = []
+
+    def noise(shape):
+        drawn.append(gumbel_noise(shape, gen, dev))
+        return drawn[-1]
+
+    sched = Scheduler(cfg, weights, noise_source=noise)
+    sched.drawn = drawn
+    return sched
+
+
+def _replay_matches_eager(sched, reqs, eps):
+    """One wave through pick() (a replay) against scheduling_cycle on a
+    copy of the state it started from, with its noise; -> the result. The
+    eager cycle's kernel launches are a comparison's and go to a tally of
+    their own, not into the wrappers' `launches`."""
+    from gie_tpu_torch import ops
+    from gie_tpu_torch.sched.profile import (
+        _batch_to_device, _copy_state, scheduling_cycle)
+    from gie_tpu_torch.sched.types import bucket_for, pad_requests
+
+    n, m = int(reqs.valid.shape[0]), int(eps.valid.shape[0])
+    with sched._lock:
+        start = _copy_state(sched._use_bucket(m))
+    res = sched.pick(reqs, eps)
+    gumbel = sched.drawn[-1] if sched.cfg.picker == "sinkhorn" else None
+    with ops.tally({}):
+        ref, end = scheduling_cycle(
+            start, pad_requests(_batch_to_device(reqs, sched.device),
+                                bucket_for(n)),
+            _batch_to_device(eps, sched.device), sched.weights, gumbel,
+            cfg=sched.cfg)
+    np.testing.assert_array_equal(res.indices, ref.indices[:n].cpu().numpy())
+    np.testing.assert_array_equal(res.status, ref.status[:n].cpu().numpy())
+    for k in ("scores", "affinity"):
+        np.testing.assert_allclose(getattr(res, k),
+                                   getattr(ref, k)[:n].cpu().numpy(),
+                                   atol=1e-5, rtol=0, err_msg=k)
+    live = sched.state
+    for a, b in ((live.prefix.keys, end.prefix.keys),
+                 (live.prefix.present, end.prefix.present),
+                 (live.prefix.ages, end.prefix.ages),
+                 (live.rr, end.rr), (live.tick, end.tick)):
+        assert torch.equal(a, b)
+    for a, b in ((live.assumed_load, end.assumed_load),
+                 (live.ot_v, end.ot_v)):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    return res
+
+
+@pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel", "topk-kernel"])
+def test_replayed_waves_match_the_eager_cycle(dev, config):
+    """5 carried waves of 1024 requests x 256 endpoints, each a replay of
+    the captured cycle, against the eager cycle on a copy of the state,
+    with completion feedback between them; the path's kernel counts one
+    launch a replay, and one warm-up launch for the one capture."""
+    sched = _recorded_scheduler(config, dev)
+    counter = _config(config)[2]
+    before, warm = counter.launches, counter.warmup_launches
+    for w in range(5):
+        reqs, eps = _wave_inputs(n=1024, m=256, live=200, seed=w)
+        res = _replay_matches_eager(sched, reqs, eps)
+        assert (res.status == 0).mean() > 0.9
+        sched.complete(res.indices[:512, 0], np.full(512, 0.5, np.float32))
+    assert sched.warm_inline_compiles == 1
+    assert list(sched._graphs) == [(1024, 256, 32)]
+    assert counter.launches == before + 5
+    assert counter.warmup_launches == warm + 1
+
+
+@pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel", "topk-kernel"])
+def test_replay_reads_the_state_after_bucket_trips_and_installs(dev, config):
+    """Graphs captured at M=64 and M=256 go on reading the live state after
+    the state moves 64 -> 256 -> 64 and after install_state of another
+    scheduler's digest: each wave equals the eager cycle on a copy of the
+    state it started from, and no state tensor changes its storage."""
+    sched = _recorded_scheduler(config, dev)
+    other = _recorded_scheduler(config, dev, seed=1)
+    for m in (64, 256, 64):
+        _replay_matches_eager(sched, *_wave_inputs(n=64, m=m, live=50,
+                                                   seed=m))
+    ptrs = {(m, k): t.data_ptr() for m, st in sched._states.items()
+            for k, t in vars(st).items() if torch.is_tensor(t)}
+    for m in (256, 64):
+        _replay_matches_eager(other, *_wave_inputs(n=64, m=m, live=50,
+                                                   seed=7 + m))
+        assert sched.install_state(other.export_state())
+        assert sched.state is sched._states[m]
+        _replay_matches_eager(sched, *_wave_inputs(n=64, m=m, live=50,
+                                                   seed=9 + m))
+    assert ptrs == {(m, k): t.data_ptr() for m, st in sched._states.items()
+                    for k, t in vars(st).items() if torch.is_tensor(t)}
+    assert sched.warm_inline_compiles == 2
+
+
+@pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel", "topk-kernel"])
+def test_capture_beside_live_waves_and_completions(dev, config):
+    """A lattice captured on a warm thread while another thread runs live
+    waves and complete() feedback at another shape: neither breaks the
+    other, and the freshly captured shapes then replay without an inline
+    capture and equal the eager cycle."""
+    sched = _recorded_scheduler(config, dev)
+    reqs, eps = _wave_inputs(n=64, m=64, live=50, seed=1)
+    sched.pick(reqs, eps)
+    stop, errors, waves = threading.Event(), [], [0]
+
+    def live():
+        try:
+            while not stop.is_set():
+                res = sched.pick(reqs, eps)
+                assert (res.status == 0).all()
+                sched.complete(res.indices[:32, 0],
+                               np.full(32, 0.25, np.float32))
+                waves[0] += 1
+        except Exception as e:          # reported below
+            errors.append(e)
+
+    t_live = threading.Thread(target=live)
+    t_live.start()
+    try:
+        warm = sched.warm_lattice_async(256, 16)
+        warm.join(timeout=300)
+        assert not warm.is_alive()
+    finally:
+        stop.set()
+        t_live.join(60)
+    assert not errors, errors
+    assert waves[0] >= 1 and not sched._warm_failures
+    assert {(n, 256, 16) for n in N_BUCKETS} <= sched._warm_buckets
+    inline = sched.warm_inline_compiles
+    from gie_tpu_torch.sched.types import chunk_bucket_for
+
+    for n in (1, 8, 200):
+        r, e = _wave_inputs(n=n, m=256, live=200, seed=n)
+        lanes = chunk_bucket_for(int(r.n_chunks.max()))
+        assert lanes <= 16
+        r = r.replace(chunk_hashes=r.chunk_hashes[:, :16].contiguous())
+        _replay_matches_eager(sched, r, e)
+    assert sched.warm_inline_compiles == inline
+
+
+@pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel", "topk-kernel"])
+def test_a_warmed_wave_is_one_graph_launch(dev, config):
+    """torch.profiler over 3 warmed waves: one cudaGraphLaunch a wave, and
+    no kernel of the cycle launched from the host (only the noise draw's
+    elementwise kernels on the sinkhorn path)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sched = _recorded_scheduler(config, dev)
+    sched.noise_source = None            # the generator's own draw
+    reqs, eps = _wave_inputs(n=1024, m=256, live=200)
+    for _ in range(2):
+        sched.pick(reqs, eps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            sched.pick(reqs, eps)
+        torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages()}
+    assert calls.get("cudaGraphLaunch", 0) == 3, calls
+    kernels = calls.get("cudaLaunchKernel", 0) + calls.get(
+        "cudaLaunchKernelExC", 0)
+    assert kernels <= (3 * 6 if config != "topk-kernel" else 0), calls
+
+
+@pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel", "topk-kernel"])
+def test_pick_async_host_time_on_a_warmed_wave(dev, config):
+    """pick_async of a warmed 1024 x 256 wave handed over as CPU tensors
+    (as the batching picker hands it) takes at most 2 ms of host time,
+    the median of 20 waves."""
+    sched = _recorded_scheduler(config, dev)
+    sched.noise_source = None
+    reqs, eps = _wave_inputs(n=1024, m=256, live=200)
+    for _ in range(3):
+        sched.pick(reqs, eps)
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        wave = sched.pick_async(reqs, eps)
+        host.append(time.perf_counter() - t0)
+        wave.materialize()
+    median = sorted(host)[10]
+    assert median <= 0.002, f"median {median * 1e3:.3f} ms"
+
+
+@pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel", "topk-kernel"])
+def test_failed_capture_raises_through_the_picker(dev, config):
+    """A cycle that cannot be captured (here: one that reads a device
+    value on the host, which stream capture refuses) raises
+    GraphCaptureFailed at pick_async; through a picker with a
+    ResilienceState the wave fails instead of degrading, and the ladder
+    stays at FULL."""
+    from gie_tpu_torch.datastore import Datastore
+    from gie_tpu_torch.datastore.objects import EndpointPool, Pod
+    from gie_tpu_torch.extproc.pick import ExtProcError, PickRequest
+    from gie_tpu_torch.metricsio import MetricsStore
+    from gie_tpu_torch.ops import GraphCaptureFailed
+    from gie_tpu_torch.resilience import ResilienceState
+    from gie_tpu_torch.runtime.metrics import DEGRADED_PICKS
+    from gie_tpu_torch.sched.batching import BatchingTPUPicker
+
+    sched = Scheduler(_config(config)[0], _config(config)[1])
+    real = sched._cycle
+
+    def host_read(*args):
+        result = real(*args)
+        int(result.status.sum())          # a sync: refused under capture
+        return result
+
+    sched._cycle = host_read
+    reqs, eps = _wave_inputs()
+    with pytest.raises(GraphCaptureFailed):
+        sched.pick_async(reqs, eps)
+    ms, ds = MetricsStore(), Datastore()
+    ds.pool_set(EndpointPool({"app": "x"}, [8000], "default"))
+    for i in range(8):
+        ds.pod_update_or_add(Pod(name=f"p{i}", labels={"app": "x"},
+                                 ip=f"10.9.0.{i + 1}"))
+    rs = ResilienceState()
+    picker = BatchingTPUPicker(sched, ds, ms, max_wait_s=0.002,
+                               resilience=rs)
+    degraded = sum(DEGRADED_PICKS.value(r)
+                   for r in ("cached", "round_robin", "static"))
+    try:
+        with pytest.raises(ExtProcError, match="could not be captured"):
+            picker.pick(PickRequest(headers={}, body=b"x"),
+                        ds.pick_candidates())
+        assert int(rs.ladder.rung()) == 0 and not rs.ladder.transitions
+        assert sum(DEGRADED_PICKS.value(r) for r in
+                   ("cached", "round_robin", "static")) == degraded
+        sched._cycle = real
+        res = picker.pick(PickRequest(headers={}, body=b"y"),
+                          ds.pick_candidates())
+        assert res.charged_slot >= 0
+    finally:
+        picker.close()
+
+
+@pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel", "topk-kernel"])
+def test_explain_on_card_matches_cpu(dev, config):
+    """explain() on the card (eager build_stages on a copy of the state,
+    at the live M bucket and resized to another) equals a CPU scheduler's
+    on the same state: mask and shed exact, columns within 1e-5; the
+    card's state is untouched."""
+    cfg, weights, _ = _config(config)
+    gpu = _recorded_scheduler(config, dev)
+    cpu = Scheduler(cfg, weights, device="cpu")
+    gpu.pick(*_wave_inputs(n=64, m=64, live=50, seed=4))
+    cpu.install_state(gpu.export_state())
+    before = gpu.export_state()
+    for m in (64, 256):
+        reqs, eps = _wave_inputs(n=40, m=m, live=50, seed=5)
+        got, ref = gpu.explain(reqs, eps), cpu.explain(reqs, eps)
+        assert set(got) == set(ref)
+        for k in ref:
+            if k in ("mask", "shed"):
+                np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+            else:
+                np.testing.assert_allclose(got[k], ref[k], atol=1e-5,
+                                           rtol=0, err_msg=k)
+    after = gpu.export_state()
+    assert all(after[k].tobytes() == before[k].tobytes() for k in before)

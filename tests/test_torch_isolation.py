@@ -183,12 +183,12 @@ def test_pick_service_pulls_in_no_grpc_protobuf_or_prometheus():
 
 
 # (picker keyword, the slice it is refused until, or None where the
-# picker takes it: the resilience state is ported).
+# picker takes it: the resilience state and lattice warming are ported).
 PICKER_ARGS = [
     ({"resilience": "ResilienceState"}, "resilience slice", None),
     ({"federation": object()}, "federation slice", NotImplementedError),
     ({"trainer": object()}, "latency-predictor slice", NotImplementedError),
-    ({"background_warm": True}, "warm-lattice slice", NotImplementedError),
+    ({"background_warm": True}, "warm-lattice slice", None),
 ]
 
 
@@ -202,10 +202,11 @@ def test_out_of_slice_picker_arg_raises(kwargs, slice_name, raises):
     from gie_tpu_torch.sched.batching import BatchingTPUPicker
 
     if raises is None:
-        state = ResilienceState()
+        kwargs = {k: ResilienceState() if v == "ResilienceState" else v
+                  for k, v in kwargs.items()}
         picker = BatchingTPUPicker(Scheduler(device="cpu"), Datastore(),
-                                   MetricsStore(), resilience=state)
-        assert picker.resilience is state
+                                   MetricsStore(), **kwargs)
+        assert all(getattr(picker, k) is v for k, v in kwargs.items())
         picker.close()
         return
     with pytest.raises(raises, match=slice_name):

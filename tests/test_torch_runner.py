@@ -85,10 +85,9 @@ def _runner(pkg: str, config: str, **opts):
     runner = Runner(Options(pool_name="pool", resilience=False, obs=False,
                             secure_serving=False, **opts),
                     _cluster(pkg), scheduler=_scheduler(pkg, config))
-    # The reference's runner warms its jit lattice on a background thread
-    # (runner.py:346), which changes no pick; the port has no jit and
-    # passes False. Off here too, or the thread is still compiling when
-    # the test process exits.
+    # Both runners warm their wave-shape lattice on a background thread
+    # (the reference's runner.py:346), which changes no pick. Off here, or
+    # the thread is still warming when the test process exits.
     runner.picker.background_warm = False
     return runner
 

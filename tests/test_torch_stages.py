@@ -345,8 +345,18 @@ def test_resize_state_matches_reference(m_from, m_to):
         rr=jnp.uint32(7), tick=jnp.uint32(2**32 - 1),
         ot_v=jnp.asarray(arrays["ot_v"]))
     ref = jtypes.resize_state(ref, m_to)
-    got = convert.state_to_numpy(types.resize_state(port, m_to))
+    # The port migrates in place, into a bucket's state that holds another
+    # wave's values: every one of them is overwritten.
+    dst = types.SchedState.init(slots=int(port.prefix.keys.shape[0]),
+                                m=m_to, device=CPU)
+    for t in (dst.prefix.keys, dst.prefix.present, dst.prefix.ages,
+              dst.assumed_load, dst.rr, dst.tick, dst.ot_v):
+        t.fill_(5)
+    got = convert.state_to_numpy(types.resize_into(port, dst))
     _eq(np.asarray(ref.prefix.present), got["prefix_present"])
     _eq(np.asarray(ref.assumed_load), got["assumed_load"])
     _eq(np.asarray(ref.ot_v), got["ot_v"])
     _eq(np.asarray(ref.tick), got["tick"])
+    _eq(np.asarray(ref.rr), got["rr"])
+    _eq(np.asarray(ref.prefix.keys), got["prefix_keys"])
+    _eq(np.asarray(ref.prefix.ages), got["prefix_ages"])
