@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each (any failure raises and exits non-zero). On the
-card every wave of phases 3-6, 8 and 9 is a replay of the scheduling
+card every wave of phases 3-6, 8, 9 and 10 is a replay of the scheduling
 cycle captured as a CUDA graph for its shape (sched/graphs.py): the first
 wave of a shape captures it inline, the runner's picker (phases 6-7)
 captures its lattices on background threads, and each kernel's launch
@@ -87,7 +87,21 @@ count adds the launches a replay makes:
      check the runner's lattice kick: its warm threads join with no
      failure (phase 6), the streams' lattice warms in full (phase 7),
      and debug_report()["warm_buckets"] is printed;
- 10. the `kernels` line: launches on the main path (phases 3-6, 8 and 9,
+ 10. the storm twin (gie_tpu_torch.storm) on the card, its waves replays
+     of the tuned profile's cycle, which runs neither kernel (the
+     reference's storm runs no hand-written kernel either):
+     storm-noisy-neighbor and storm-search-smoke (its chaos rules armed
+     after warm-up, as run_scenario arms them) under virtual time on the
+     card, then on a CPU engine, both taking Gumbel noise from one seeded
+     CPU generator: decision_fingerprint, schedule fingerprint, counts,
+     breaker events, rung trace, per-tenant completions and sheds and the
+     fault counts equal; storm-equivalence in real time on the card (no
+     client 5xx, no shed, breaker order open, half_open, closed); and
+     storm-equivalence at 250 pods (the M=256 bucket) under virtual time
+     on the card and on the CPU, decisions equal. Each run prints its
+     wall seconds, waves, graph captures at warm-up and after it, the
+     kernels' launches (0), ok, shed and the rung trace's length;
+ 11. the `kernels` line: launches on the main path (phases 3-6, 8 and 9,
      replays counted), error, times, bound.
 Then the card's name and power limit (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}.
@@ -1034,6 +1048,141 @@ def phase_warm(dev, name, cfg, weights, kernels, own) -> dict:
     return summary
 
 
+# -- phase 10: the storm twin on the card ------------------------------------
+
+STORM_SEED = 10            # the CPU generator both runs of a pair draw from
+STORM_WIDE_PODS = 250      # the north star's width: M=256, stubs in one /24
+# What a card run and its CPU run must share beside decision_fingerprint.
+STORM_COUNTS = ("schedule_fingerprint", "ok", "shed", "shed_by_band",
+                "client_5xx", "resets", "timeouts", "client_skipped",
+                "breaker_events", "rung_trace")
+
+
+def storm_noise(dev):
+    """Gumbel noise drawn from a CPU generator seeded STORM_SEED, each draw
+    moved to `dev`: a card run and its CPU run take the same draws."""
+    from gie_tpu_torch.sched.profile import gumbel_noise
+
+    gen = torch.Generator()
+    gen.manual_seed(STORM_SEED)
+    cpu = torch.device("cpu")
+    return lambda shape: gumbel_noise(shape, gen, cpu).to(dev)
+
+
+def storm_run(name, dev, kernels, *, virtual=True, pool=None) -> dict:
+    """One shipped scenario through the port's twin on `dev`, as
+    run_scenario runs it (engine_from_drive, warm-up, the scenario's chaos
+    rules armed after it, run, uninstall, close), and what phase 10 prints
+    of it: wall seconds, waves dispatched, inline captures after warm-up,
+    the kernels' launches and the card."""
+    from gie_tpu_torch.resilience import faults, scenarios
+    from gie_tpu_torch.runtime import metrics as own_metrics
+    from gie_tpu_torch.storm.engine import engine_from_drive
+
+    scn = scenarios.load(name)
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    engine = engine_from_drive(
+        scn.drive["storm"], seed=scn.seed, pool=pool, name=name,
+        virtual_time=virtual, device=dev, noise_source=storm_noise(dev))
+    try:
+        schedule = engine.program.compile()
+        engine.warmup(schedule)
+        warm = engine.scheduler.warm_inline_compiles
+        waves0 = own_metrics.PIPELINE_WAVES.value()
+        if scn.rules:
+            scn.arm()
+        try:
+            result = engine.run(schedule=schedule, warmup=False)
+        finally:
+            faults.uninstall()
+    finally:
+        engine.close()
+    score = result.scorecard
+    rec = {
+        "phase": "storm", "scenario": name, "device": str(dev),
+        "virtual_time": score["virtual_time"],
+        "pods": engine.pool.n_pods,
+        "wall_s": time.monotonic() - t0,
+        "waves": int(own_metrics.PIPELINE_WAVES.value() - waves0),
+        "warm_captures": warm,
+        "inline_captures_after_warmup":
+            result.scheduler.warm_inline_compiles - warm,
+        "launches": {k: fn.launches for k, fn in kernels.items()},
+        "ok": score["ok"], "shed": score["shed"],
+        "rung_trace_len": len(score["rung_trace"]),
+        "max_rung": score["max_rung"],
+        # Counted when the storm ended, before run() released the clock.
+        "fault_fired": result.fault_fired_in_storm,
+        "decision_fingerprint": score["decision_fingerprint"],
+    }
+    emit(rec)
+    check(all(n == 0 for n in rec["launches"].values()),
+          f"storm {name}: {rec['launches']} kernel launches from the tuned "
+          "profile, which runs neither kernel")
+    return {"rec": rec, "scorecard": score}
+
+
+def same_storm(card_run, cpu_run) -> None:
+    """A card run and its CPU run reached the same decisions."""
+    a, b = card_run["scorecard"], cpu_run["scorecard"]
+    name = a["name"]
+    fields = ("decision_fingerprint",) + STORM_COUNTS
+    diff = [f for f in fields if a[f] != b[f]]
+    diff += [f"per_tenant.{t}" for t in sorted(set(a["per_tenant"])
+                                               | set(b["per_tenant"]))
+             if {k: a["per_tenant"].get(t, {}).get(k)
+                 for k in ("completed", "shed")}
+             != {k: b["per_tenant"].get(t, {}).get(k)
+                 for k in ("completed", "shed")}]
+    if card_run["rec"]["fault_fired"] != cpu_run["rec"]["fault_fired"]:
+        diff.append("fault_fired")
+    check(diff == [], f"storm {name}: the card and the CPU differ in {diff}: "
+                      f"{[(f, a.get(f), b.get(f)) for f in diff[:3]]}")
+
+
+def phase_storm(dev, kernels) -> dict:
+    """Phase 10: storm-noisy-neighbor and storm-search-smoke under virtual
+    time on the card and then on the CPU with the same noise, decisions
+    equal; storm-equivalence in real time on the card (no client 5xx, no
+    shed, breaker order open, half_open, closed); storm-equivalence at
+    STORM_WIDE_PODS pods under virtual time on the card and on the CPU,
+    decisions equal."""
+    from gie_tpu_torch.storm import scorecard
+    from gie_tpu_torch.storm.engine import PoolSpec
+
+    cpu = torch.device("cpu")
+    runs = {}
+    for name in ("storm-noisy-neighbor", "storm-search-smoke"):
+        on_card = storm_run(name, dev, kernels)
+        same_storm(on_card, storm_run(name, cpu, kernels))
+        runs[name] = on_card["rec"]
+    real = storm_run("storm-equivalence", dev, kernels, virtual=False)
+    score = real["scorecard"]
+    scorecard.validate(score)
+    check(score["client_5xx"] == 0 and score["shed"] == 0,
+          f"storm real time: {score['client_5xx']} client 5xx, "
+          f"{score['shed']} sheds; {score['client_5xx_detail']}")
+    check([e[1] for e in score["breaker_events"]]
+          == ["open", "half_open", "closed"],
+          f"storm real time: breaker events {score['breaker_events']}")
+    runs["storm-equivalence-real"] = real["rec"]
+    wide = PoolSpec(n_pods=STORM_WIDE_PODS)
+    on_card = storm_run("storm-equivalence", dev, kernels, pool=wide)
+    same_storm(on_card, storm_run("storm-equivalence", cpu, kernels,
+                                  pool=wide))
+    runs[f"storm-equivalence-{STORM_WIDE_PODS}"] = on_card["rec"]
+    summary = {"phase": "storm", "equal_to_cpu": [
+        "storm-noisy-neighbor", "storm-search-smoke",
+        f"storm-equivalence-{STORM_WIDE_PODS}"],
+        "inline_captures_after_warmup": {
+            k: r["inline_captures_after_warmup"] for k, r in runs.items()},
+        "wall_s": {k: r["wall_s"] for k, r in runs.items()}}
+    emit(summary)
+    return summary
+
+
 # -- phases 6-7: the ext-proc server -----------------------------------------
 
 STREAM_ROUNDS, STREAMS_PER_ROUND, CHANNELS = 4, 1024, 16
@@ -1140,7 +1289,14 @@ def stub_fleet_process(n: int, seed: int, ready, stop) -> None:
         def log_message(self, *a):
             pass
 
-    httpd = http.server.ThreadingHTTPServer(("0.0.0.0", 0), Handler)
+    class Listener(http.server.ThreadingHTTPServer):
+        # One listener stands in for n pods' own: its accept queue must
+        # hold what theirs would (socketserver's default of 5 drops SYNs
+        # under a burst of reconnects, and each drop costs a scrape the
+        # 1 s SYN retransmit).
+        request_queue_size = 4 * n
+
+    httpd = Listener(("0.0.0.0", 0), Handler)
     httpd.daemon_threads = True
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     ready.put(httpd.server_address[1])
@@ -1925,6 +2081,8 @@ def main() -> int:
     warm_topk = phase_warm(dev, "topk+use_pallas_topk",
                            ProfileConfig(picker="topk", use_pallas_topk=True),
                            None, kernels, "fused_blend_topk")
+
+    phase_storm(dev, kernels)
 
     line = []
     for rec, phases, source, replaces in (

@@ -758,9 +758,10 @@ class BatchingTPUPicker:
                         own_metrics.QUEUE_DEPTH.set(0)
                 for item in batch:
                     # A fresh exception per waiter (handler threads raise
-                    # them concurrently).
+                    # them concurrently), caused by the wave's failure.
                     item.error = ExtProcError(
                         INTERNAL, f"scheduler failure: {e}")
+                    item.error.__cause__ = e
                     self._clock.set_event(item.event)
                 continue
             if held:
@@ -1040,6 +1041,7 @@ class BatchingTPUPicker:
                     if item.result is None and item.error is None:
                         item.error = ExtProcError(
                             INTERNAL, f"scheduler failure: {e}")
+                        item.error.__cause__ = e
                     self._clock.set_event(item.event)
             finally:
                 own_metrics.PIPELINE_DEPTH.dec()

@@ -531,6 +531,11 @@ class Scheduler:
         # captures run on.
         self._graphs: dict[tuple[int, int, int], CycleGraph] = {}
         self._capture_stream: Optional[torch.cuda.Stream] = None
+        # CUDA: complete() calls not yet applied to the state, in order,
+        # as host arrays (see complete()); _completions_lock guards only
+        # the list.
+        self._completions: list[tuple[np.ndarray, np.ndarray]] = []
+        self._completions_lock = threading.Lock()
         if self.device.type == "cuda":
             self._prepare_kernels()
             self._capture_stream = torch.cuda.Stream(self.device)
@@ -713,6 +718,7 @@ class Scheduler:
         graph = self._graphs[key]
         staged = graph.pack(reqs, eps, self.weights)
         with self._lock:
+            self._apply_completions()
             state = self._use_bucket(m)
             graph.upload(*staged)
             if graph.gumbel is not None:
@@ -733,18 +739,72 @@ class Scheduler:
         return PendingWave(result=host, n=n, load_snapshot=snap, event=event)
 
     def complete(self, endpoint_slots, costs) -> None:
-        """Terminated-request feedback: release each request's charge."""
-        slots = _to_device(torch.from_numpy(
-            np.asarray(endpoint_slots, np.int64)), self.device)
-        costs = _to_device(torch.from_numpy(
-            np.asarray(costs, np.float32)), self.device)
+        """Terminated-request feedback: release each request's charge.
+
+        On CUDA the call only queues host arrays; the next section that
+        reads or writes the state under the lock (the next wave first of
+        all) applies every queued call in order, as this call would have,
+        before anything else. The callers are the server's stream handler
+        threads, one call a stream: applied here, each would make its own
+        pinned staging copies, uploads and kernel launches and free them
+        again, hundreds of threads at once against the dispatcher's
+        waves."""
+        slots = np.array(endpoint_slots, np.int64)
+        costs = np.array(costs, np.float32)
+        if self.device.type == "cuda":
+            with self._completions_lock:
+                self._completions.append((slots, costs))
+            return
         with self._lock:
-            _complete_update(self.state, slots, costs)
+            _complete_update(self.state, torch.from_numpy(slots),
+                             torch.from_numpy(costs))
+
+    def _apply_completions(self) -> None:
+        """Apply the queued complete() calls to the state in order, with a
+        fixed number of launches. Each call's charges are summed per slot
+        (as _complete_update's index_add sums them); a slot's n-th release
+        in the queue goes into layer n, so a layer names each slot once
+        and its releases apply elementwise, max(load - sum, 0) per slot in
+        queue order, as the calls one by one would. Caller holds _lock."""
+        with self._completions_lock:
+            queued, self._completions = self._completions, []
+        if not queued:
+            return
+        m = self.state.m
+        layers: list[tuple[list, list]] = []
+        depth: dict[int, int] = {}
+        for slots, costs in queued:
+            ok = (slots >= 0) & (slots < m)   # beyond the bucket: dropped
+            idx, inv = np.unique(slots[ok], return_inverse=True)
+            sums = np.zeros(len(idx), np.float32)
+            np.add.at(sums, inv, costs[ok])
+            for slot, amount in zip(idx.tolist(), sums):
+                d = depth.get(slot, 0)
+                depth[slot] = d + 1
+                if d == len(layers):
+                    layers.append(([], []))
+                layers[d][0].append(slot)
+                layers[d][1].append(amount)
+        if not layers:
+            return
+        slots = _to_device(torch.from_numpy(np.array(
+            [s for layer in layers for s in layer[0]], np.int64)), self.device)
+        sums = _to_device(torch.from_numpy(np.array(
+            [v for layer in layers for v in layer[1]], np.float32)),
+            self.device)
+        load = self.state.assumed_load
+        at = 0
+        for layer in layers:
+            k = len(layer[0])
+            sl = slots[at:at + k]
+            load[sl] = (load[sl] - sums[at:at + k]).clamp_(min=0.0)
+            at += k
 
     def evict_endpoint(self, slot: int) -> None:
         """Forget an endpoint slot (pod deleted or slot reassigned): its
         prefix bits, assumed load and Sinkhorn dual."""
         with self._lock:
+            self._apply_completions()
             if slot >= self.state.m:
                 return  # beyond the live bucket: nothing was ever recorded
             prefix.clear_endpoint(self.state.prefix, slot)
@@ -755,6 +815,7 @@ class Scheduler:
         """Forget an endpoint's cached chunks, keeping its assumed load
         (live-pod cache reset)."""
         with self._lock:
+            self._apply_completions()
             if slot >= self.state.m:
                 return
             prefix.clear_endpoint(self.state.prefix, slot)
@@ -771,6 +832,7 @@ class Scheduler:
         reqs = pad_requests(_batch_to_device(reqs, self.device), bucket_for(n))
         eps = _batch_to_device(eps, self.device)
         with self._lock:
+            self._apply_completions()
             state = (_copy_state(self.state) if self.state.m == m
                      else resize_into(self.state, SchedState.init(
                          m=m, device=self.device)))
@@ -807,6 +869,7 @@ class Scheduler:
         """Host copy of the assumed-load vector (the lock covers only a
         device copy; the transfer runs outside it)."""
         with self._lock:
+            self._apply_completions()
             load = self.state.assumed_load.clone()
         return load.cpu().numpy()
 
@@ -819,6 +882,7 @@ class Scheduler:
         from gie_tpu_torch.convert import state_to_numpy
 
         with self._lock:
+            self._apply_completions()
             snap = _copy_state(self.state)
         return state_to_numpy(snap)
 
@@ -843,6 +907,7 @@ class Scheduler:
         """Install a prepare_install-validated state: copied into the
         tensors of its M bucket, which becomes the live one."""
         with self._lock:
+            self._apply_completions()      # then overwritten, as before
             self.state = resize_into(state, self._bucket_state(state.m))
 
     def install_state(self, arrays: dict) -> bool:

@@ -21,7 +21,10 @@ atomics, whose order may differ between two runs).
 
 The last tests hold the pick service's handoff to the card: pick_async
 queues a wave without waiting for the device, a wave's materialize()
-waits for that wave only, and the batching picker answers a burst."""
+waits for that wave only, and the batching picker answers a burst. The
+storm twin, run under virtual time with its Scheduler on the card,
+reaches the decisions of the same storm on the CPU (decision
+fingerprints equal)."""
 
 import dataclasses
 import threading
@@ -703,6 +706,9 @@ def _replay_matches_eager(sched, reqs, eps):
 
     n, m = int(reqs.valid.shape[0]), int(eps.valid.shape[0])
     with sched._lock:
+        # The wave applies the queued complete() calls first; so does
+        # the copy it is checked against.
+        sched._apply_completions()
         start = _copy_state(sched._use_bucket(m))
     res = sched.pick(reqs, eps)
     gumbel = sched.drawn[-1] if sched.cfg.picker == "sinkhorn" else None
@@ -944,3 +950,32 @@ def test_explain_on_card_matches_cpu(dev, config):
                                            rtol=0, err_msg=k)
     after = gpu.export_state()
     assert all(after[k].tobytes() == before[k].tobytes() for k in before)
+
+
+def test_storm_twin_on_card_reaches_the_cpu_decisions(dev):
+    """storm-equivalence under virtual time through the storm twin with its
+    Scheduler on the card and then on the CPU, both drawing Gumbel noise
+    from a CPU generator seeded alike (each draw moved to the engine's
+    device): the same decision_fingerprint, so the same picks at the same
+    virtual times, sheds, breaker events and rung trace."""
+    from gie_tpu_torch.resilience import faults
+    from gie_tpu_torch.storm.engine import run_scenario
+
+    def noise(device):
+        gen = torch.Generator()
+        gen.manual_seed(7)
+        return lambda shape: gumbel_noise(
+            shape, gen, torch.device("cpu")).to(device)
+
+    cards = []
+    for device in (dev, torch.device("cpu")):
+        try:
+            cards.append(run_scenario(
+                "storm-equivalence", virtual_time=True, device=device,
+                noise_source=noise(device)).scorecard)
+        finally:
+            faults.uninstall()
+            faults.set_clock(None)
+    on_card, on_cpu = cards
+    assert on_card["ok"] > 0 and on_card["client_5xx"] == 0
+    assert on_card["decision_fingerprint"] == on_cpu["decision_fingerprint"]

@@ -48,7 +48,9 @@ def test_import_pulls_in_no_jax_and_no_gie_tpu():
                  "gie_tpu_torch.resilience.scenarios",
                  "gie_tpu_torch.obs.recorder", "gie_tpu_torch.obs.otlp",
                  "gie_tpu_torch.obs.metricscheck",
-                 "gie_tpu_torch.obs.__main__"):
+                 "gie_tpu_torch.obs.__main__",
+                 "gie_tpu_torch.storm.engine", "gie_tpu_torch.storm.search",
+                 "gie_tpu_torch.storm.__main__"):
         assert name in loaded
     forbidden = [
         name for name in loaded

@@ -200,6 +200,29 @@ def test_evict_and_clear_prefix_match_reference():
     assert report["tick"] == 1 and report["device"] == "cpu"
 
 
+def test_queued_completions_apply_as_the_calls_one_by_one():
+    """On CUDA complete() queues its arrays and the next locked section
+    applies the queue (Scheduler._apply_completions). Driven here on the
+    CPU: the same calls, queued, then applied, leave the assumed load
+    bit-equal to the calls applied one by one, and equal to the
+    reference's complete() within its state tolerance."""
+    jsched, tsched, _, _ = _run_waves("tuned-sinkhorn-kernel", waves=1)
+    queued = Scheduler(*tuned_profile(), seed=SEED, device="cpu")
+    assert queued.install_state(tsched.export_state())
+    rng = np.random.default_rng(5)
+    for _ in range(40):
+        k = int(rng.integers(1, 4))
+        slots = rng.integers(-2, M + 3, k)       # a few beyond the bucket
+        costs = rng.uniform(0, 0.5, k).astype(np.float32)
+        jsched.complete(slots, costs)
+        tsched.complete(slots, costs)
+        queued._completions.append((slots.astype(np.int64), costs))
+    np.testing.assert_array_equal(queued.snapshot_assumed_load(),
+                                  tsched.snapshot_assumed_load())
+    assert queued._completions == []
+    _assert_states(jsched.export_state(), queued.export_state())
+
+
 def test_pick_async_snapshot_and_padding():
     sched = Scheduler(*tuned_profile(), seed=3, device="cpu")
     teps = convert.endpoints_from_numpy(_endpoints(), device="cpu")
