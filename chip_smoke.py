@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each (any failure raises and exits non-zero). On the
-card every wave of phases 3-6, 8, 9 and 10 is a replay of the scheduling
+card every wave of phases 3-6, 8-10, 12 and 13 is a replay of the scheduling
 cycle captured as a CUDA graph for its shape (sched/graphs.py): the first
 wave of a shape captures it inline, the runner's picker (phases 6-7)
 captures its lattices on background threads, and each kernel's launch
@@ -101,8 +101,34 @@ count adds the launches a replay makes:
      on the card and on the CPU, decisions equal. Each run prints its
      wall seconds, waves, graph captures at warm-up and after it, the
      kernels' launches (0), ok, shed and the rung trace's length;
- 11. the `kernels` line: launches on the main path (phases 3-6, 8 and 9,
-     replays counted), error, times, bound.
+ 12. the pd dual pick on the card, once per configuration of phases 3-4
+     with pd_disaggregation on: 5 carried waves of the north-star mix over
+     256 endpoints whose roles come from a seed (3/8 prefill, 3/8 decode,
+     1/4 both) through the captured cycle, each replayed on a CPU
+     Scheduler from the same state with the same [2, N, M] noise
+     (prefill, indices and status exact, scores within 1e-4 plus the
+     lane tiebreak's slack), 2 Sinkhorn launches or 1 blend-top-k launch
+     a wave; pick_async host time and wall time per wave beside the
+     classic cycle's; then BatchingTPUPicker over 256 role-labelled pods:
+     a burst of 1024 picks (x-gateway-prefill-endpoint on a
+     prefill-capable pod, destination decode-capable, the load back to 0
+     after served feedback) and 32 picks with deadlines inside the budget
+     floor (no header, gie_pd_budget_singlehop_total counts each);
+ 13. KV-cache events on the card: the runner main() builds (topk +
+     use_pallas_topk) with --kv-events-port over 256 stub pods whose
+     event sinks POST JSON lines to its listener, one burst of 1024
+     streams (all answered, no event dropped, events ingested); the
+     listener's event rate; the fold's device time at 64, 512 and 4096
+     hashes; the longest scheduler-lock hold that applied the queue; then
+     a seeded event program (the 16 system prompts' chains, a
+     10,000-hash batch, removals, an AllBlocksCleared, slot 300 growing
+     the state to M=512) over HTTP to the card and into a CPU Scheduler's
+     aggregator from the same state: exports bit-equal; then 5
+     north-star waves on both, primaries equal (or within phase 3's
+     gap), each event-only system prompt landing on an endpoint that
+     reported it. Phases 12-13 print their wall seconds;
+ 11. the `kernels` line: launches on the main path (phases 3-6, 8, 9, 12
+     and 13, replays counted), error, times, bound.
 Then the card's name and power limit (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -133,6 +159,7 @@ ROUNDS, PARITY_PICKS = 4, 32
 RECORDER_ROUNDS = 2        # phase 5's extra bursts with a flight recorder
 ADAPTERS = ["adapter-%d" % k for k in range(12)]
 SPIN = 10_000_000          # torch.cuda._sleep cycles: ~5 ms on an H100
+ROLE_NAMES = ("both", "prefill", "decode")   # by constants.Role value
 
 
 def emit(obj: dict) -> None:
@@ -438,12 +465,15 @@ def phase_slice(dev, name, cfg, weights, kernels, own) -> dict:
     return summary
 
 
-def pick_stack(dev, cfg, weights, noise_source=None, resilience=None):
+def pick_stack(dev, cfg, weights, noise_source=None, resilience=None,
+               roles=None, pd_budget_floor_s=0.0):
     """A Datastore of M ready pods in one pool, a MetricsStore of the
     north-star rows (queue 0-49, KV 0-0.95, three resident adapters of
     twelve, on a fixed clock) and a BatchingTPUPicker over a Scheduler on
-    `dev`, with `resilience` (a ResilienceState) when given.
+    `dev`, with `resilience` (a ResilienceState) when given; `roles` (a
+    Role per pod) labels pod i with ROLE_LABEL.
     -> (scheduler, datastore, picker)."""
+    from gie_tpu_torch.api.types import ROLE_LABEL
     from gie_tpu_torch.datastore import Datastore
     from gie_tpu_torch.datastore.objects import EndpointPool, Pod
     from gie_tpu_torch.metricsio import MetricsStore
@@ -458,7 +488,10 @@ def pick_stack(dev, cfg, weights, noise_source=None, resilience=None):
                                                 ms.remove(s)))
     ds.pool_set(EndpointPool({"app": "vllm"}, [8000], "default"))
     for i in range(M):
-        ds.pod_update_or_add(Pod(name=f"vllm-{i}", labels={"app": "vllm"},
+        labels = {"app": "vllm"}
+        if roles is not None:
+            labels[ROLE_LABEL] = ROLE_NAMES[int(roles[i])]
+        ds.pod_update_or_add(Pod(name=f"vllm-{i}", labels=labels,
                                  ip=f"10.0.{i // 200}.{i % 200 + 1}"))
     registry = LoraRegistry()
     ids = [registry.id_for(a) for a in ADAPTERS]
@@ -470,7 +503,8 @@ def pick_stack(dev, cfg, weights, noise_source=None, resilience=None):
          [ids[j] for j in rng.choice(12, 3, replace=False)], ())
         for ep in ds.endpoints()], now=0.0)
     picker = BatchingTPUPicker(sched, ds, ms, lora_registry=registry,
-                               max_wait_s=0.002, resilience=resilience)
+                               max_wait_s=0.002, resilience=resilience,
+                               pd_budget_floor_s=pd_budget_floor_s)
     return sched, ds, picker
 
 
@@ -1243,14 +1277,22 @@ def fleet_ips(n: int) -> list:
     return [f"127.1.{i // 200}.{i % 200 + 1}" for i in range(n)]
 
 
-def stub_fleet_process(n: int, seed: int, ready, stop) -> None:
+def stub_fleet_process(n: int, seed: int, ready, stop, events=None) -> None:
     """The model-server fleet, in a process of its own: `n` VLLMStubs, pod
     i on fleet_ips(n)[i], all behind one port. One HTTP listener on the
     wildcard answers each pod's /metrics by the local address the scrape
     connected to. A ticker steps every stub's clock and submits a few
     arrivals each tick, so the queue and KV rows move. Puts the port on
-    `ready`, serves until `stop` is set."""
+    `ready`, serves until `stop` is set.
+
+    `events` = (port queue, posting event, posted counter, publishers):
+    once a KV-event listener's port arrives on the queue, the first
+    `publishers` stubs get an event_sink (reporting as ip:fleet port), and
+    while `posting` is set each tick POSTs the events they published as
+    JSON lines to 127.0.0.1:<port>/events, adding their count to the
+    counter; while it is clear they are discarded."""
     import http.server
+    import urllib.request
 
     from gie_tpu_torch.simulator import StubConfig, VLLMStub
 
@@ -1299,15 +1341,35 @@ def stub_fleet_process(n: int, seed: int, ready, stop) -> None:
     httpd = Listener(("0.0.0.0", 0), Handler)
     httpd.daemon_threads = True
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
-    ready.put(httpd.server_address[1])
+    port = httpd.server_address[1]
+    ready.put(port)
+    published, events_url = [], None
     tick = 0
     while not stop.wait(0.05):
         tick += 1
+        if events is not None and events_url is None:
+            try:
+                events_url = (f"http://127.0.0.1:{events[0].get_nowait()}"
+                              "/events")
+            except Exception:       # queue.Empty: no listener yet
+                pass
+            else:
+                for ip, stub in list(stubs.items())[:events[3]]:
+                    stub.hostport = f"{ip}:{port}"
+                    stub.event_sink = published.append
         with lock:
             for i, stub in enumerate(stubs.values()):
                 if rng.uniform() < 0.05:
                     arrive(stub, tick + i)
                 stub.step(0.05)
+        if published:
+            batch, published[:] = list(published), []
+            if events[1].is_set():
+                body = "\n".join(json.dumps(e) for e in batch).encode()
+                urllib.request.urlopen(urllib.request.Request(
+                    events_url, data=body, method="POST"), timeout=30).read()
+                with events[2].get_lock():
+                    events[2].value += len(batch)
     httpd.shutdown()
     httpd.server_close()
 
@@ -2013,6 +2075,553 @@ def phase_main(cfg, weights, tmp) -> dict:
     return summary
 
 
+# -- phase 12: the pd dual pick on the card ----------------------------------
+
+PD_TIMED_WAVES = 10
+PD_SINGLEHOP = 32          # picks whose deadline is inside the budget floor
+PD_FLOOR_S = 2.0           # the single-hop floor of phase 12's picker
+
+
+def pd_roles(n: int, seed: int = 12) -> np.ndarray:
+    """`n` endpoint roles from a seed: 3/8 prefill, 3/8 decode, 1/4 both."""
+    from gie_tpu_torch.sched.constants import Role
+
+    rng = np.random.default_rng(seed)
+    return rng.choice([int(Role.PREFILL)] * 3 + [int(Role.DECODE)] * 3
+                      + [int(Role.BOTH)] * 2, n).astype(np.int32)
+
+
+def timed_waves(dev, cfg, weights, eps, waves) -> dict:
+    """pick_async's host time and the wall time per wave of `cfg` over
+    `waves`, chained, on a fresh Scheduler whose key is captured first."""
+    from gie_tpu_torch import ops
+    from gie_tpu_torch.sched import Scheduler
+
+    sched = Scheduler(cfg, weights, device=dev, seed=12)
+    with ops.tally({}):            # timing launches are not the main path's
+        sched.pick(waves[0], eps)
+
+        def dispatch(reqs):
+            pending = sched.pick_async(reqs, eps)
+            return pending, pending.event
+
+        host, wall, _ = run_waves(dispatch, waves)
+    return {"pick_async_host_ms_median": statistics.median(host),
+            "wall_ms_per_wave": wall}
+
+
+def score_tolerance(sinkhorn: bool):
+    """(atol, rtol) for card-vs-CPU scores: phase 3's pick-gap bound as the
+    absolute part and, on the sinkhorn path, the lane tiebreak's slack of
+    2 * 2**ceil(log2 M) ulps."""
+    return 1e-4, (2 * 2 ** int(np.ceil(np.log2(M))) * 2.0**-23
+                  if sinkhorn else 0.0)
+
+
+def phase_pd(dev, name, cfg, weights, kernels, own) -> dict:
+    """Phase 12 for one configuration with pd_disaggregation on: WAVES
+    carried dual-pick waves of the north-star mix over endpoints of mixed
+    roles through the captured cycle, each replayed on a CPU Scheduler from
+    the same state with the same [2, N, M] noise (prefill, indices and
+    status exact); pick_async host and wall time per wave beside the
+    classic cycle's; then the pick service over M pods labelled with
+    their roles: a burst of N concurrent picks (prefill header on a
+    prefill-capable pod, destination decode-capable, both charges released
+    by served feedback) and PD_SINGLEHOP picks with deadlines inside the
+    budget floor (no header, counted single hops)."""
+    from gie_tpu_torch import convert
+    from gie_tpu_torch.extproc import metadata as mdkeys
+    from gie_tpu_torch.runtime import metrics as own_metrics
+    from gie_tpu_torch.sched import Scheduler
+    from gie_tpu_torch.sched.constants import Role
+    from gie_tpu_torch.sched.profile import gumbel_noise, pd_costs_host
+    from gie_tpu_torch.sched.types import RequestBatch
+
+    t_phase = time.perf_counter()
+    pd_cfg = dataclasses.replace(cfg, pd_disaggregation=True)
+    sinkhorn = cfg.picker == "sinkhorn"
+    per_wave = 2 if sinkhorn else 1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    drawn = []
+
+    def noise(shape):
+        drawn.append(gumbel_noise(shape, gen, dev))
+        return drawn[-1]
+
+    gpu = Scheduler(pd_cfg, weights, device=dev, noise_source=noise)
+    cpu = Scheduler(pd_cfg, weights, device="cpu",
+                    noise_source=lambda shape: drawn[-1].cpu())
+    roles = pd_roles(M)
+    eps, wave = workload(dev)
+    eps = eps.replace(role=torch.from_numpy(roles).to(dev))
+    eps_cpu = convert.endpoints_from_numpy(convert.endpoints_to_numpy(eps),
+                                           device="cpu")
+    waves = [wave(w) for w in range(WAVES)]
+    cpu_waves = [RequestBatch(**{f.name: getattr(r, f.name).cpu()
+                                 for f in dataclasses.fields(RequestBatch)})
+                 for r in waves]
+    atol, rtol = score_tolerance(sinkhorn)
+
+    torch.cuda.synchronize()
+    counter = kernels[own]
+    for fn in kernels.values():
+        fn.launches = 0
+    wave_ms = []
+    for w, reqs in enumerate(waves):
+        cpu.install_state(gpu.export_state())
+        t0 = time.perf_counter()
+        res = gpu.pick(reqs, eps)
+        wave_ms.append((time.perf_counter() - t0) * 1e3)
+        check(counter.launches == per_wave * (w + 1),
+              f"pd {name}: {counter.launches} kernel launches after "
+              f"{w + 1} waves")
+        check(len(drawn) == (w + 1 if sinkhorn else 0) and (
+            not sinkhorn or tuple(drawn[-1].shape) == (2, N, M)),
+              f"pd {name}: {len(drawn)} noise draws after {w + 1} waves")
+        ref = cpu.pick(cpu_waves[w], eps_cpu)
+        for k in ("prefill", "indices", "status"):
+            check(np.array_equal(getattr(res, k), getattr(ref, k)),
+                  f"pd {name} wave {w}: {k} differ from the CPU replay in "
+                  f"{int((getattr(res, k) != getattr(ref, k)).sum())} places")
+        ok = res.status == 0
+        check(bool(np.allclose(res.scores[ok], ref.scores[ok], atol=atol,
+                               rtol=rtol)),
+              f"pd {name} wave {w}: scores differ beyond ({atol}, {rtol})")
+        check(ok.mean() > 0.9, f"pd {name} wave {w}: {ok.mean()} OK")
+        check(bool((roles[res.prefill[ok]] != Role.DECODE).all()
+                   and (roles[res.indices[ok, 0]] != Role.PREFILL).all()),
+              f"pd {name} wave {w}: a pick on a pod of the wrong role")
+        half = np.flatnonzero(ok)[: N // 2]
+        plen = reqs.prompt_len.cpu().numpy()
+        dlen = reqs.decode_len.cpu().numpy()
+        costs = [pd_costs_host(float(plen[i]), float(dlen[i])) for i in half]
+        gpu.complete(np.concatenate([res.prefill[half], res.indices[half, 0]]),
+                     np.asarray([c[0] for c in costs] + [c[1] for c in costs],
+                                np.float32))
+        emit({"phase": "pd", "config": name, "wave": w, "ms": wave_ms[-1],
+              "ok_rows": int(ok.sum()),
+              "colocated": int((res.prefill[ok] == res.indices[ok, 0]).sum())})
+    launches = {k: fn.launches for k, fn in kernels.items()}
+
+    # pick_async's host time and the wall per wave, pd beside classic.
+    timed = [wave(WAVES + w) for w in range(PD_TIMED_WAVES)]
+    timing = {"pd": timed_waves(dev, pd_cfg, weights, eps, timed),
+              "classic": timed_waves(dev, cfg, weights, eps, timed)}
+
+    # The pick service over role-labelled pods.
+    sched, ds, picker = pick_stack(dev, pd_cfg, weights, roles=roles,
+                                   pd_budget_floor_s=PD_FLOOR_S)
+    try:
+        cands = ds.pick_candidates()
+        role_of = {ep.hostport: int(roles[ep.slot]) for ep in ds.endpoints()}
+        for n in (N, PD_SINGLEHOP):          # warm-up, both wave sizes
+            for r in burst(picker, cands, pick_requests(-1, n))[0]:
+                picker.observe_served(r.endpoint, SimpleNamespace(
+                    pick_result=r, resp_status=200,
+                    picked_at=time.monotonic(), headers={}))
+        torch.cuda.synchronize()
+        own_metrics.reset()
+        for fn in kernels.values():
+            fn.launches = 0
+        res, lat, wall = burst(picker, cands, pick_requests(ROUNDS + 8, N))
+        singles = pick_requests(ROUNDS + 9, PD_SINGLEHOP)
+        for r in singles:
+            r.deadline_at = time.monotonic() + PD_FLOOR_S / 2
+        single_res, _, _ = burst(picker, cands, singles)
+        waves_run = int(own_metrics.PIPELINE_WAVES.value())
+        for k, fn in kernels.items():
+            launches[k] += fn.launches
+        check(kernels[own].launches == per_wave * waves_run,
+              f"pd {name}: {kernels[own].launches} picker launches for "
+              f"{waves_run} waves")
+        for r in res:
+            pf = r.extra_headers.get(mdkeys.PREFILL_ENDPOINT_KEY)
+            check(pf is not None and role_of[pf] != Role.DECODE,
+                  f"pd {name}: prefill header {pf!r}")
+            check(role_of[r.endpoint] != Role.PREFILL,
+                  f"pd {name}: destination {r.endpoint} is prefill-only")
+            check(len(r.charged) == 2, f"pd {name}: charged {r.charged}")
+        singlehop = int(own_metrics.PD_BUDGET_SINGLEHOP.value())
+        for r in single_res:
+            check(mdkeys.PREFILL_ENDPOINT_KEY not in r.extra_headers
+                  and role_of[r.endpoint] != Role.PREFILL
+                  and len(r.charged) == 1,
+                  f"pd {name}: a single-hop pick {r.endpoint} "
+                  f"{r.extra_headers} {r.charged}")
+        check(singlehop == PD_SINGLEHOP,
+              f"pd {name}: {singlehop} single hops counted of "
+              f"{PD_SINGLEHOP}")
+        for r in res + single_res:
+            picker.observe_served(r.endpoint, SimpleNamespace(
+                pick_result=r, resp_status=200, picked_at=time.monotonic(),
+                headers={}))
+        load = sched.snapshot_assumed_load()
+        check(float(np.abs(load).max()) <= 1e-3,
+              f"pd {name}: assumed load {float(np.abs(load).max())} after "
+              "every charge was released")
+    finally:
+        picker.close()
+    summary = {
+        "phase": "pd", "config": name, "waves": WAVES,
+        "roles": {ROLE_NAMES[r]: int((roles == r).sum()) for r in range(3)},
+        "launches": launches,
+        "kernel_launches_per_wave": per_wave,
+        "replay_equal_cpu": WAVES,
+        "wave_ms_median": statistics.median(wave_ms[1:]),
+        "timing": timing,
+        "picks": len(res), "picks_per_s": len(res) / wall,
+        "pick_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+        "pick_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+        "picker_waves": waves_run, "singlehop": singlehop,
+        "load_max_after_release": float(np.abs(load).max()),
+        "wall_s": time.perf_counter() - t_phase,
+    }
+    emit(summary)
+    return summary
+
+
+# -- phase 13: KV-cache events on the card ----------------------------------
+
+KV_EXTRA_PODS = 45         # pods 256..300: the program's slot 300 grows M
+KV_BULK_POSTS, KV_BULK_EVENTS = 16, 500   # the listener's throughput run
+KV_FOLD_BUCKETS = (64, 512, 4096)
+
+
+def chunk_chain(prompt: bytes) -> list:
+    from gie_tpu_torch.sched.hashing import chunk_hashes
+
+    h, n = chunk_hashes(prompt)
+    return [int(x) for x in h[:n]]
+
+
+def json_lines(events: list, per_body: int = 16) -> list:
+    return ["\n".join(json.dumps(e) for e in events[i:i + per_body]).encode()
+            for i in range(0, len(events), per_body)]
+
+
+def kv_event_program(hostports: list, seed: int = 13) -> list:
+    """The seeded event program as JSON-lines bodies: a 10,000-hash batch
+    (parts of 4096), the 16 system prompts' chunk chains each stored on 4
+    endpoints, removals, an AllBlocksCleared, and an event for the endpoint
+    at slot 300."""
+    from gie_tpu_torch.sched.kvevents import (
+        ALL_CLEARED, BLOCK_REMOVED, BLOCK_STORED)
+
+    rng = np.random.default_rng(seed)
+    live = len(hostports) - KV_EXTRA_PODS
+    bulk = rng.integers(1, 2**32, 10_000, dtype=np.uint32)
+    events = [{"type": BLOCK_STORED, "endpoint": hostports[7],
+               "hashes": bulk.tolist()}]
+    for k in range(16):
+        for slot in rng.choice(live, 4, replace=False):
+            events.append({"type": BLOCK_STORED,
+                           "endpoint": hostports[slot],
+                           "hashes": chunk_chain((BASE % k) * 6)})
+    events.append({"type": BLOCK_REMOVED, "endpoint": hostports[7],
+                   "hashes": rng.choice(bulk, 2000).tolist()})
+    events.append({"type": BLOCK_REMOVED, "endpoint": events[1]["endpoint"],
+                   "hashes": events[1]["hashes"][:3]})
+    events.append({"type": ALL_CLEARED, "endpoint": hostports[11]})
+    events.append({"type": BLOCK_STORED, "endpoint": hostports[300],
+                   "hashes": chunk_chain((BASE % 3) * 6)})
+    return json_lines(events)
+
+
+def event_only_prompt(w: int, hostports: list, seed: int = 13):
+    """Wave w's event-only system prompt (7 chunks, never picked before
+    its wave) and 4 reporters of it. -> (prompt, reporter slots, JSON-lines
+    bodies storing its chain on each reporter)."""
+    from gie_tpu_torch.sched.kvevents import BLOCK_STORED
+
+    rng = np.random.default_rng(seed + 100 + w)
+    prompt = b"EVENT-ONLY SYSTEM PROMPT %d. " % w * 16
+    reporters = sorted(int(s) for s in rng.choice(
+        len(hostports) - KV_EXTRA_PODS, 4, replace=False))
+    return prompt, reporters, json_lines([
+        {"type": BLOCK_STORED, "endpoint": hostports[s],
+         "hashes": chunk_chain(prompt)} for s in reporters])
+
+
+def post_events(port: int, body: bytes) -> int:
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/events",
+                                 data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return json.loads(resp.read())["accepted"]
+
+
+def phase_kvevents(dev, kernels, tmp) -> dict:
+    """Phase 13: the runner main() builds (as phase 6, topk +
+    use_pallas_topk, whose default weights let a full prefix match
+    outweigh every other column) with --kv-events-port over M stub pods
+    whose event sinks post to its listener, under a burst of N streams;
+    the listener's event rate; the fold's device time per bucket; then the
+    seeded event program over HTTP to the card and straight into a CPU
+    Scheduler's aggregator from the same state: exports bit-equal, and
+    WAVES north-star waves picked alike on both, each event-only prompt on
+    an endpoint that reported it."""
+    need_transport()
+    import multiprocessing
+
+    from gie_tpu_torch.datastore.objects import Pod
+    from gie_tpu_torch.runtime import metrics as own_metrics
+    from gie_tpu_torch.runtime.runner import ExtProcServerRunner
+    from gie_tpu_torch.sched import ProfileConfig, Scheduler
+    from gie_tpu_torch.sched.graphs import FoldGraph
+    from gie_tpu_torch.sched.kvevents import KVEventAggregator
+    from gie_tpu_torch.sched.types import RequestBatch, SchedState
+    from gie_tpu_torch.utils.testing import make_requests
+
+    t_phase = time.perf_counter()
+    cfg, own = ProfileConfig(picker="topk", use_pallas_topk=True), \
+        "fused_blend_topk"
+    ctx = multiprocessing.get_context("spawn")
+    stop, ready, port_q = ctx.Event(), ctx.Queue(), ctx.Queue()
+    posting, posted = ctx.Event(), ctx.Value("l", 0)
+    posting.set()
+    ips = fleet_ips(M + KV_EXTRA_PODS)
+    procs = [ctx.Process(target=stub_fleet_process,
+                         args=(len(ips), 0, ready, stop,
+                               (port_q, posting, posted, M)), daemon=True)]
+    procs[0].start()
+    runner = None
+    try:
+        fleet_port = ready.get(timeout=120)
+        kv_port = free_port()
+        argv = ["--insecure-serving",
+                "--scheduler-config", write_scheduler_config(cfg, None, tmp),
+                "--pool-name", "smoke", "--grpc-port", str(free_port()),
+                "--grpc-health-port", str(free_port()),
+                "--metrics-port", str(free_port()),
+                "--extproc-workers", str(EXTPROC_WORKERS),
+                "--scrape-interval-ms", str(SCRAPE_INTERVAL_MS),
+                "--kv-events-port", str(kv_port)]
+        cluster = fleet_cluster("smoke", ips[:M], fleet_port)
+        runner = ExtProcServerRunner(server_options(argv), cluster)
+        sched = runner.scheduler
+        check(sched.device.type == "cuda",
+              f"kv-events: the runner's scheduler is on {sched.device}")
+        holds = []
+        apply = sched._apply_queued
+
+        def timed_apply():
+            t0 = time.perf_counter()
+            apply()
+            holds.append(time.perf_counter() - t0)
+
+        sched._apply_queued = timed_apply
+        runner.setup()
+        runner.start()
+        agg = runner.kv_events
+        check(agg is not None and runner.kv_events_server.port == kv_port,
+              "kv-events: the runner built no listener")
+        port_q.put(kv_port)
+        slots = [ep.slot for ep in runner.datastore.endpoints()]
+        check(len(slots) == M, f"kv-events: {len(slots)} of {M} pods ready")
+        deadline = time.monotonic() + 60
+        while True:
+            _, ages = runner.metrics_store.pool_rows(slots)
+            if bool(np.isfinite(ages).all()) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+
+        # One burst of N streams while the stubs publish.
+        barrier, results = ctx.Barrier(CLIENTS + 1), ctx.Queue()
+        for k in range(CLIENTS):
+            procs.append(ctx.Process(
+                target=client_process,
+                args=(runner.grpc_server.port, CHANNELS // CLIENTS, [0], k,
+                      STREAMS_PER_ROUND, barrier, results), daemon=True))
+            procs[-1].start()
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        waves0 = own_metrics.PIPELINE_WAVES.value()
+        barrier.wait(600)
+        got = [results.get(timeout=900) for _ in range(CLIENTS)]
+        outcomes = [o for g in got for o in g[1]]
+        errs = [o[4] for o in outcomes if o[4]]
+        check(not errs, f"kv-events: {len(errs)} streams failed, first: "
+                        f"{errs[:1]}")
+        live = {ep.hostport for ep in runner.datastore.endpoints()}
+        check(all(o[1] is not None and o[1].split(",")[0] in live
+                  for o in outcomes) and len(outcomes) == STREAMS_PER_ROUND,
+              "kv-events: a stream got no ready destination")
+        burst_waves = int(own_metrics.PIPELINE_WAVES.value() - waves0)
+        time.sleep(1.0)                 # a few more ticks of publishing
+        posting.clear()
+        time.sleep(0.3)                 # the last tick's POST lands
+        agg.flush()
+        check(agg.dropped == 0 and agg.ingested > 0,
+              f"kv-events: {agg.dropped} dropped, {agg.ingested} ingested")
+        stub_events = int(posted.value)
+        for t in runner.picker._warm_threads:
+            t.join(300)
+
+        # The listener's rate: KV_BULK_POSTS bodies of KV_BULK_EVENTS
+        # stored events (32 hashes each) to live pods, 4 posting threads;
+        # timed to the last answer, then to the queue applied.
+        hostports = [ep.hostport for ep in sorted(
+            runner.datastore.endpoints(), key=lambda e: e.slot)]
+        rng = np.random.default_rng(14)
+        bodies = ["\n".join(json.dumps({
+            "type": "BlockStored", "endpoint": hostports[int(s)],
+            "hashes": rng.integers(1, 2**32, 32).tolist()})
+            for s in rng.integers(0, M, KV_BULK_EVENTS)).encode()
+            for _ in range(KV_BULK_POSTS)]
+        accepted = []
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=lambda part: accepted.extend(
+            post_events(kv_port, b) for b in part), args=(bodies[i::4],))
+            for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        post_s = time.perf_counter() - t0
+        agg.flush()
+        sched.snapshot_assumed_load()          # applies the queue
+        applied_s = time.perf_counter() - t0
+        check(sum(accepted) == KV_BULK_POSTS * KV_BULK_EVENTS,
+              f"kv-events: {sum(accepted)} events accepted")
+        rate = {"events": sum(accepted), "posts": KV_BULK_POSTS,
+                "events_per_s_posted": sum(accepted) / post_s,
+                "events_per_s_applied": sum(accepted) / applied_s}
+
+        # One fold's time per lane bucket, as the queue applies it (a
+        # FoldGraph replay) on a state of its own: device time, and CUDA
+        # event time with the host's path.
+        fold_ms = {}
+        state = SchedState.init(m=M, device=dev)
+        fold_stream = torch.cuda.Stream(dev)
+        for b in KV_FOLD_BUCKETS:
+            graph = FoldGraph(state, b, dev)
+            graph.capture(fold_stream)
+            fold_ms[str(b)] = {}
+            for kind, remove in (("stored", 0), ("removed", 1)):
+                lanes = torch.from_numpy(np.stack([
+                    rng.integers(1, 2**32, b), np.full(b, 5),
+                    np.full(b, remove)]).astype(np.int64)).to(dev)
+                fold_ms[str(b)][f"{kind}_device_ms"] = device_ms(
+                    lambda: graph.replay(lanes))
+                fold_ms[str(b)][f"{kind}_event_ms"] = cuda_ms(
+                    lambda: graph.replay(lanes))
+
+        # The deterministic program: grow the pool to slot 300, copy the
+        # card's state to a CPU Scheduler, then the same events to both.
+        for i in range(M, len(ips)):
+            cluster.apply_pod(Pod(name=f"vllm-{i}", labels={"app": "vllm"},
+                                  ip=ips[i]))
+        deadline = time.monotonic() + 60
+        while (len(runner.datastore.endpoints()) < len(ips)
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        by_slot = {ep.slot: ep.hostport for ep in runner.datastore.endpoints()}
+        check(sorted(by_slot) == list(range(len(ips))),
+              f"kv-events: slots {sorted(by_slot)[-3:]} after the pool grew")
+        hostports = [by_slot[s] for s in range(len(ips))]
+        cpu = Scheduler(cfg, device="cpu")
+        check(cpu.install_state(sched.export_state()),
+              "kv-events: the card's state does not install on the CPU")
+
+        def resolve(hostport):
+            ep = runner.datastore.endpoint_by_hostport(hostport)
+            return None if ep is None else ep.slot
+
+        cpu_agg = KVEventAggregator(cpu, resolve)
+
+        def both(bodies, what):
+            """`bodies` over HTTP to the card's listener and into the CPU's
+            aggregator, both flushed; their exports must be bit-equal."""
+            for body in bodies:
+                check(post_events(kv_port, body)
+                      == cpu_agg.publish_lines(body),
+                      f"kv-events: {what}: the listener accepted another "
+                      "count")
+            agg.flush()
+            cpu_agg.flush()
+            card, ref = sched.export_state(), cpu.export_state()
+            differ = [k for k in ref if card[k].tobytes() != ref[k].tobytes()]
+            check(not differ, f"kv-events: {what}: the card's export differs "
+                              f"from the CPU's in {differ}")
+
+        program = kv_event_program(hostports)
+        both(program, "the program")
+        check(sched.state.m == 512 and cpu.state.m == 512,
+              f"kv-events: state width {sched.state.m} after slot 300")
+
+        # WAVES north-star waves on both. Before each, the card's state
+        # goes to the CPU (whose journal is emptied first: a replay would
+        # restamp older events' ages) and a system prompt that no pick has
+        # seen is reported by 4 endpoints to both; its requests must land
+        # on one of them.
+        eps, wave = workload(torch.device("cpu"))
+        agree = rows = allowed = 0
+        for w in range(WAVES):
+            reqs = wave(w)
+            prompt, reporters, bodies = event_only_prompt(w, hostports)
+            extra = make_requests(8, prompts=[prompt] * 8, m_slots=M)
+            lanes = int(reqs.chunk_hashes.shape[1])
+            check(int(extra.n_chunks.max()) <= lanes,
+                  "kv-events: the event-only prompt outgrows the wave's lanes")
+            reqs = RequestBatch(**{
+                f.name: torch.cat([getattr(reqs, f.name)[:N - 8],
+                                   getattr(extra, f.name)[:, :lanes]
+                                   if f.name == "chunk_hashes"
+                                   else getattr(extra, f.name)])
+                for f in dataclasses.fields(RequestBatch)})
+            cpu._kv_journal.clear()
+            cpu.install_state(sched.export_state())
+            both(bodies, f"wave {w}'s event-only prompt")
+            cpu._kv_journal.clear()
+            res = sched.pick(reqs, eps)
+            ref_res = cpu.pick(reqs, eps)
+            check(bool(np.isin(res.indices[N - 8:, 0], reporters).all()),
+                  f"kv-events wave {w}: event-only picks "
+                  f"{res.indices[N - 8:, 0]} not among reporters {reporters}")
+            check(np.array_equal(res.status, ref_res.status),
+                  f"kv-events wave {w}: statuses differ from the CPU")
+            d = res.indices[:, 0] != ref_res.indices[:, 0]
+            gap = ref_res.scores[:, 0] - ref_res.scores[:, 1]
+            check(bool((gap[d] < 1e-4).all()),
+                  f"kv-events wave {w}: a pick differs where the CPU "
+                  "top-two gap >= 1e-4")
+            agree += int((~d).sum())
+            allowed += int(d.sum())
+            rows += len(d)
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        check(launches[own] == burst_waves + WAVES,
+              f"kv-events: {launches[own]} launches for {burst_waves} burst "
+              f"waves and {WAVES} waves")
+        summary = {
+            "phase": "kv-events", "config": "topk+use_pallas_topk",
+            "endpoints": M, "streams": len(outcomes),
+            "burst_waves": burst_waves, "stub_events_posted": stub_events,
+            "ingested": agg.ingested, "dropped": agg.dropped,
+            "listener": rate, "fold": fold_ms,
+            "lock_hold_ms_max": max(holds) * 1e3 if holds else 0.0,
+            "queue_applies": len(holds),
+            "program_events": sum(b.count(b"\n") + 1 for b in program),
+            "export_equal_cpu": True, "state_m": sched.state.m,
+            "waves": WAVES, "primary_agree": agree, "rows": rows,
+            "differ_within_gap": allowed, "launches": launches,
+            "wall_s": time.perf_counter() - t_phase,
+        }
+    finally:
+        stop.set()
+        if runner is not None:
+            runner.stop()
+        for proc in procs:
+            proc.join(30)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    emit(summary)
+    return summary
+
+
 def tail(path: str, n: int = 4000) -> str:
     with open(path, errors="replace") as f:
         return f.read()[-n:]
@@ -2084,14 +2693,22 @@ def main() -> int:
 
     phase_storm(dev, kernels)
 
+    pd_sink = phase_pd(dev, "tuned+use_pallas_sinkhorn", cfg, weights,
+                       kernels, "fused_sinkhorn_plan")
+    pd_topk = phase_pd(dev, "topk+use_pallas_topk",
+                       ProfileConfig(picker="topk", use_pallas_topk=True),
+                       None, kernels, "fused_blend_topk")
+    with tempfile.TemporaryDirectory() as tmp:
+        kv = phase_kvevents(dev, kernels, tmp)
+
     line = []
     for rec, phases, source, replaces in (
         (records["fused_sinkhorn_plan"],
-         (sink, pick_sink, serve_sink, chaos_sink, warm_sink),
+         (sink, pick_sink, serve_sink, chaos_sink, warm_sink, pd_sink),
          "gie_tpu_torch/ops/csrc/fused_sinkhorn.cu",
          "gie_tpu/ops/fused_sinkhorn.py:66"),
         (records["fused_blend_topk"],
-         (topk, pick_topk, serve_topk, chaos_topk, warm_topk),
+         (topk, pick_topk, serve_topk, chaos_topk, warm_topk, pd_topk, kv),
          "gie_tpu_torch/ops/csrc/fused_topk.cu",
          "gie_tpu/ops/fused_topk.py:80"),
     ):

@@ -497,6 +497,11 @@ SLOT_OVERFLOW = Gauge(
     "gie_endpoint_slot_overflow_total",
     "Endpoint admissions refused because every scheduler slot (M_MAX) was "
     "taken — the pool outgrew the compiled capacity")
+PD_BUDGET_SINGLEHOP = Counter(
+    "gie_pd_budget_singlehop_total",
+    "Disaggregated picks collapsed to the decode worker only because "
+    "the request's remaining deadline budget could not afford the "
+    "cross-worker prefill hop")
 # Unified resilience layer (resilience/): the degradation ladder's current
 # rung (0 = full device pick, 1 = cached-snapshot pick, 2 = weighted
 # round-robin, 3 = static subset), breaker quarantine, and degraded-pick

@@ -63,6 +63,7 @@ from gie_tpu_torch.runtime.tls import server_credentials
 from gie_tpu_torch.sched import constants as C
 from gie_tpu_torch.sched.batching import BatchingTPUPicker
 from gie_tpu_torch.sched.config import load_scheduler_config_file, tuned_profile
+from gie_tpu_torch.sched.kvevents import KVEventAggregator, KVEventHTTPServer
 from gie_tpu_torch.sched.profile import Scheduler, _not_ported
 from gie_tpu_torch.utils.kubemeta import GKNN
 from gie_tpu_torch.utils.lora import LoraRegistry
@@ -81,7 +82,6 @@ def refuse_out_of_slice(opts: Options) -> None:
         (opts.autoscale_mode != "off", "--autoscale-mode", "autoscale"),
         (bool(federation), "--fed-* (federation: "
                            + ", ".join(federation) + ")", "federation"),
-        (opts.kv_events_port > 0, "--kv-events-port", "kv_events"),
         (opts.fleet_topk > 0, "--fleet-topk", "fleet"),
         (opts.mesh_devices > 1, "--mesh-devices", "mesh"),
         (opts.scorer == "learned", "--scorer learned", "scorer"),
@@ -210,6 +210,7 @@ class ExtProcServerRunner:
             lora_registry=self.lora_registry,
             queue_bound=opts.queue_bound,
             queue_max_age_s=opts.queue_max_age_s,
+            pd_budget_floor_s=opts.pd_budget_floor_ms / 1000.0,
             # As the reference (runner.py:346): a new wave-shape lattice
             # captures its cycles on a background thread.
             background_warm=True,
@@ -242,6 +243,9 @@ class ExtProcServerRunner:
         self.grpc_server: Optional[ExtProcWorkerPool] = None
         self.health_server: Optional[grpc.Server] = None
         self.debugz_server = None
+        # --kv-events-port: built by start(), after the ext-proc pool.
+        self.kv_events: Optional[KVEventAggregator] = None
+        self.kv_events_server: Optional[KVEventHTTPServer] = None
         self._cert_reloader = None
         self._stopped = threading.Event()
 
@@ -501,6 +505,8 @@ class ExtProcServerRunner:
         port = pool.bind(addr, creds)
         pool.start()
         self.grpc_server = pool
+        if self.opts.kv_events_port > 0:
+            self._start_kv_events()
         if self.opts.obs_dump_interval_s > 0 and self._obs_installed:
             # Periodic flight-recorder harvesting (--obs-dump-interval-s):
             # the rotator bounds the file count itself; the thread holds
@@ -533,6 +539,23 @@ class ExtProcServerRunner:
         )
         return port
 
+    def _start_kv_events(self) -> None:
+        """The KV-cache event listener (--kv-events-port): model servers
+        push stored/removed chunk hashes, resolved to scheduler slots
+        through the datastore's hostport index."""
+        def _resolve(hostport: str):
+            ep = self.datastore.endpoint_by_hostport(hostport)
+            return None if ep is None else ep.slot
+
+        self.kv_events = KVEventAggregator(self.scheduler, _resolve)
+        self.kv_events_server = KVEventHTTPServer(
+            self.kv_events, self.opts.kv_events_port,
+            bind=self.opts.kv_events_bind, token=self.opts.kv_events_token)
+        self.log.info("kv-events ingest listening",
+                      port=self.kv_events_server.port,
+                      bind=self.opts.kv_events_bind,
+                      auth=self.opts.kv_events_token is not None)
+
     def wait(self) -> None:
         if self.grpc_server is not None:
             self.grpc_server.wait_for_termination()
@@ -550,6 +573,9 @@ class ExtProcServerRunner:
             self.grpc_server.stop(grace).wait()
         if self.health_server is not None:
             self.health_server.stop(0)
+        if self.kv_events_server is not None:
+            self.kv_events.flush()
+            self.kv_events_server.close()
         self.picker.close()
         self.scraper.close()
         if self.debugz_server is not None:

@@ -76,6 +76,7 @@ from gie_tpu_torch.sched.hashing import batch_chunk_hashes
 from gie_tpu_torch.sched.profile import (
     Scheduler,
     _not_ported,
+    pd_costs_host,
     request_cost_host,
 )
 from gie_tpu_torch.sched.types import (
@@ -298,6 +299,7 @@ class BatchingTPUPicker:
         hold_queue_limit: float = 128.0,
         hold_retry_s: float = 0.01,
         pick_timeout_s: float = 60.0,
+        pd_budget_floor_s: float = 0.0,
         queue_bound: int = 0,
         queue_max_age_s: float = 0.0,
         pipeline_depth=2,
@@ -335,6 +337,11 @@ class BatchingTPUPicker:
         self.hold_queue_limit = hold_queue_limit
         self.hold_retry_s = hold_retry_s
         self.pick_timeout_s = pick_timeout_s
+        # Budget-aware pd split: a disaggregated pick whose remaining
+        # deadline budget is below this floor collapses to the decode
+        # worker only (the cross-worker prefill hop would eat the budget).
+        # 0 disables; the runner wires --pd-budget-floor-ms.
+        self.pd_budget_floor_s = pd_budget_floor_s
         # Flow-control queue BOUNDS (proposal 0683): queue_bound > 0 caps
         # pending depth (an arrival into a full queue evicts a strictly-
         # lower-criticality waiter or is itself shed with 429);
@@ -565,11 +572,26 @@ class BatchingTPUPicker:
                 tenant=_ctx_tenant(ctx))
 
     def _release_charge(self, pick_result, served_hostport: str = "") -> None:
-        """Release the assumed load the cycle CHARGED to the primary pick,
-        not to whichever endpoint served (on failover the primary's charge
-        would leak). Slot-reuse guard: if the charged endpoint was evicted,
-        its eviction already cleared the slot's load."""
+        """Release the assumed load the cycle CHARGED (the primary pick,
+        or both pd workers), not that of whichever endpoint served (on
+        failover the primary's charge would leak). Slot-reuse guard: if a
+        charged endpoint was evicted, its eviction already cleared the
+        slot's load."""
         cost = getattr(pick_result, "assumed_cost", 1.0)
+        charged = getattr(pick_result, "charged", None)
+        if charged:
+            # Disaggregated: release every charged worker whose slot still
+            # belongs to the charged hostport.
+            slots, costs = [], []
+            for slot, slot_cost, hostport in charged:
+                ep = self.datastore.endpoint_by_hostport(hostport)
+                if ep is not None and ep.slot == slot:
+                    slots.append(slot)
+                    costs.append(slot_cost)
+            if slots:
+                self.scheduler.complete(np.asarray(slots, np.int32),
+                                        np.asarray(costs, np.float32))
+            return
         release_slot = None
         charged_slot = getattr(pick_result, "charged_slot", None)
         primary = getattr(pick_result, "endpoint", None)
@@ -1079,6 +1101,7 @@ class BatchingTPUPicker:
         by_slot = {ep.slot: ep for ep in wave.endpoints}
         indices = result.indices
         status = result.status
+        prefill = result.prefill   # the dual pick's prefill slots, or None
         # Ranked-fallback-tail hygiene flags, read once per wave: the
         # subset mask constrained the PRIMARY at dispatch, but the ranked
         # tail spans the whole pool, so quarantined or DRAINING endpoints
@@ -1167,6 +1190,9 @@ class BatchingTPUPicker:
             # routable, picked[0] differs and observe_served's guard skips
             # the release.
             res.charged_slot = int(indices[i][0])
+            if prefill is not None:
+                self._charge_pd(res, item, int(prefill[i]), by_slot,
+                                float(plen[i]), float(dlen[i]), now_mono)
             if recorder is not None:
                 rec = _rec_base(item)
                 rec["outcome"] = "picked"
@@ -1199,12 +1225,42 @@ class BatchingTPUPicker:
                 rec["scorers"] = breakdown
                 rec["queue_depth"] = q
                 rec["kv_util"] = kvu
+                if prefill is not None:
+                    rec["prefill_slot"] = int(prefill[i])
                 res.record = recorder.append(rec)
             item.result = res
         for item in batch:
             if item.result is not None:
                 own_metrics.PICKS.labels(outcome="ok").inc()
             self._clock.set_event(item.event)
+
+    def _charge_pd(self, res: PickResult, item: _Pending, p_slot: int,
+                   by_slot: dict, plen: float, dlen: float,
+                   now_mono: float) -> None:
+        """A dual pick's bookkeeping: the decode charge always, then the
+        prefill worker's header and charge, unless the request's remaining
+        deadline budget is below pd_budget_floor_s, where the pick collapses
+        to the decode worker (which prefills locally) and the prefill
+        charge is released at once: the skipped hop must not phantom-load
+        a worker that never sees the request."""
+        p_ep = by_slot.get(p_slot)
+        p_cost, d_cost = pd_costs_host(plen, dlen)
+        # Always a charged list: the single-slot release would free the
+        # whole request cost from a slot the cycle charged d_cost.
+        res.charged = [(res.charged_slot, d_cost, res.endpoint)]
+        d = item.req.deadline_at
+        if (p_ep is not None and self.pd_budget_floor_s > 0 and d
+                and d - now_mono < self.pd_budget_floor_s):
+            self.scheduler.complete(np.asarray([p_slot], np.int32),
+                                    np.asarray([p_cost], np.float32))
+            own_metrics.PD_BUDGET_SINGLEHOP.inc()
+            p_ep = None
+        if p_ep is not None:
+            res.extra_headers = {**res.extra_headers,
+                                 mdkeys.PREFILL_ENDPOINT_KEY: p_ep.hostport}
+            res.charged.append((p_slot, p_cost, p_ep.hostport))
+        # else: the prefill pod vanished between the cycle and this wave;
+        # its eviction already cleared the slot's load.
 
     def _observe_pick_latency(self, item: _Pending) -> None:
         """The "picked" trace stage and the pick-latency observation, with

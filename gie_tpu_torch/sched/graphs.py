@@ -9,9 +9,11 @@ launch instead of some 300-430 kernel launches from Python.
 
 A CycleGraph owns static tensors at its key's shape: every RequestBatch
 and EndpointBatch field and the blend weights, all views of one device
-buffer, and the Gumbel noise. It is bound to the live SchedState of its
-M bucket, which the Scheduler allocates once and never reallocates (the
-graph holds the addresses of its tensors). A wave
+buffer, and the Gumbel noise ([N, M], or [2, N, M] under
+pd_disaggregation, whose two solves draw a plane each). It is bound to
+the live SchedState of its M bucket, which the Scheduler allocates once
+and never reallocates (the graph holds the addresses of its tensors). A
+wave
 
   1. packs its rows into one pinned host buffer, padding rows zeroed as
      pad_requests pads them, and copies it up in H2D_COPIES copy;
@@ -84,7 +86,7 @@ class CycleGraph:
     static inputs and the live state of bucket m."""
 
     def __init__(self, key: tuple, state: SchedState,
-                 schema: tuple[str, ...], sinkhorn: bool,
+                 schema: tuple[str, ...], noise_shape: Optional[tuple],
                  device: torch.device):
         n, m, lanes = key
         if state.m != m:
@@ -117,8 +119,9 @@ class CycleGraph:
             f.name: views["eps", f.name]
             for f in dataclasses.fields(EndpointBatch)})
         self.wvec = self._buf[off:off + 4 * len(schema)].view(torch.float32)
-        self.gumbel = (torch.zeros((n, m), dtype=torch.float32, device=device)
-                       if sinkhorn else None)
+        # The wave's Gumbel noise: [n, m], or [2, n, m] for a dual pick.
+        self.gumbel = (None if noise_shape is None else torch.zeros(
+            noise_shape, dtype=torch.float32, device=device))
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.result: Optional[PickResult] = None
         # {kernel wrapper: launches one replay makes}, from the capture.
@@ -218,6 +221,64 @@ class CycleGraph:
         for wrapper, count in self.launches.items():
             wrapper.launches += count
         return self.result
+
+
+class FoldGraph:
+    """prefix.ingest_lanes captured over a static lane buffer of `size`
+    lanes (rows: hash, endpoint, removed) and the prefix table and tick of
+    one M bucket's live state, which the Scheduler never reallocates. A
+    KV-event fold then costs one copy into the buffer and one graph
+    launch instead of some 30 kernel launches from Python. Folds run under
+    the scheduler's lock on the stream of its waves; capture runs on a
+    stream of its own, ordered after the work already queued."""
+
+    def __init__(self, state: SchedState, size: int, device: torch.device):
+        self.state = state
+        self.size = size
+        self.device = device
+        self.lanes = torch.zeros((3, size), dtype=torch.int64, device=device)
+        self._scratch = torch.full((2, int(state.prefix.keys.shape[0])), -1,
+                                   dtype=torch.int64, device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+
+    def _fold(self) -> None:
+        from gie_tpu_torch.sched.prefix import ingest_lanes
+
+        ingest_lanes(self.state.prefix, self.lanes[0], self.lanes[1],
+                     self.lanes[2] != 0, self.state.tick, self._scratch)
+
+    def capture(self, stream: torch.cuda.Stream) -> None:
+        """Capture the fold on `stream` after what the current stream has
+        queued: one eager pass over all-padding lanes first (it writes
+        every target its own value) loads the kernels there. Raises
+        ops.GraphCaptureFailed."""
+        current = torch.cuda.current_stream(self.device)
+        try:
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                self._fold()
+                graph = torch.cuda.CUDAGraph()
+                pool = torch.cuda.graph_pool_handle()
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    self._fold()
+                except BaseException:
+                    _end_broken(graph, self.device, pool)
+                    raise
+                graph.capture_end()
+            current.wait_stream(stream)
+        except Exception as e:
+            raise ops.GraphCaptureFailed(
+                f"the KV-event fold of {self.size} lanes at m="
+                f"{self.state.m} could not be captured: {e}") from e
+        self.graph = graph
+
+    def replay(self, lanes: torch.Tensor) -> None:
+        """Queue one fold of `lanes` (int64[3, size] on the device) on the
+        current stream."""
+        self.lanes.copy_(lanes)
+        self.graph.replay()
 
 
 def _end_broken(graph: torch.cuda.CUDAGraph, device: torch.device,

@@ -1,4 +1,5 @@
-"""Prefix-cache index: batched match + insert (port of gie_tpu/sched/prefix.py).
+"""Prefix-cache index: batched match, insert and KV-event ingest (port of
+gie_tpu/sched/prefix.py).
 
 The table is a direct-mapped array of PREFIX_SLOTS rows, each a u32 key, a
 BITPACKED per-endpoint presence row (bit m of word m//32) and a u32 age
@@ -147,6 +148,98 @@ def insert(
     lane = torch.clamp(row_winner, min=0)
     table.keys.copy_(torch.where(touched, flat_hash[lane], table.keys))
     table.ages.copy_(torch.where(touched, tick, table.ages))
+    return table
+
+
+def ingest_keys(
+    table: PrefixTable,
+    hashes: torch.Tensor,  # int64[B] u32 chunk hashes, 0 = padding
+    ep_slot: int,          # the reporting endpoint's slot
+    tick: torch.Tensor,    # int64 scalar (u32)
+    *,
+    remove: bool,
+) -> PrefixTable:
+    """Fold one endpoint's KV-cache event batch into the table, IN PLACE,
+    and return it (the reference's ingest_keys).
+
+    Stored: the same evict-then-OR as `insert`, for one endpoint: rows
+    whose key differs from a lane's hash are cleared, every touched row
+    takes the last lane's key and `tick`, and the endpoint's bit is ORed
+    in. Removed: only this endpoint's bit is cleared, and only on rows
+    whose key matches (other endpoints may still hold the chunk; a row
+    holding another key was recycled)."""
+    ep = torch.full_like(hashes, ep_slot)
+    kind = torch.full(hashes.shape, remove, dtype=torch.bool,
+                      device=hashes.device)
+    return ingest_lanes(table, hashes, ep, kind, tick)
+
+
+def ingest_lanes(
+    table: PrefixTable,
+    hashes: torch.Tensor,  # int64[L] u32 chunk hashes, 0 = padding
+    ep: torch.Tensor,      # int64[L] the reporting endpoint of each lane
+    remove: torch.Tensor,  # bool[L] removed (True) or stored (False)
+    tick: torch.Tensor,    # int64 scalar (u32)
+    scratch: "torch.Tensor | None" = None,
+) -> PrefixTable:
+    """ingest_keys for several event batches at once, IN PLACE: lane l
+    carries one hash of endpoint ep[l]'s stored or removed batch. Lanes of
+    two different batches must not share a table row; then every batch
+    reads and writes only its own rows, and the fold equals the batches
+    folded one after another.
+
+    Every write is a scatter over the lanes' own rows, so a fold costs
+    O(lanes), not O(table): each lane that writes a presence cell writes
+    the same value (one endpoint and one kind per row), and the keys and
+    ages take the row's last storing lane, found through `scratch`
+    (int64[2, table rows], all -1; per-row winners are reduced into it and
+    it is left all -1 again; allocated here when None). Words, keys and
+    ages lie in [0, 2**32), so an amax with 0 and an amin with U32_MASK
+    leave a target that no lane of that step names as it was."""
+    nslots = table.keys.shape[0]
+    w = table.present.shape[1]
+    dev = hashes.device
+    if scratch is None:
+        scratch = torch.full((2, nslots), -1, dtype=torch.int64, device=dev)
+    valid = hashes != 0
+    slot = _slots(hashes, nslots)
+    word, bit = _cell(ep)
+    match = table.keys[slot] == hashes
+    store = valid & ~remove
+    drop = valid & remove & match
+    # Per row, over its storing lanes: the last lane, and whether any lane
+    # evicts (holds another hash than the row's key).
+    lane = torch.arange(hashes.shape[0], dtype=torch.int64, device=dev)
+    neg = torch.full_like(lane, -1)
+    last, evicting = scratch[0], scratch[1]
+    last.scatter_reduce_(0, slot, torch.where(store, lane, neg), "amax")
+    evicting.scatter_reduce_(0, slot, torch.where(store & ~match, lane, neg),
+                             "amax")
+    winner, evicted = last[slot], evicting[slot] >= 0
+    last.index_fill_(0, slot, -1)
+    evicting.index_fill_(0, slot, -1)
+
+    zero = torch.zeros_like(hashes)
+    full = torch.full_like(hashes, C.U32_MASK)
+    flat = table.present.view(-1)
+    # 1) Evictions clear the row's every word.
+    row_cells = (slot[:, None] * w
+                 + torch.arange(w, dtype=torch.int64, device=dev)).reshape(-1)
+    flat.scatter_reduce_(0, row_cells, torch.where(
+        store & evicted, zero, full)[:, None].expand(-1, w).reshape(-1),
+        "amin")
+    # 2) Stored lanes OR their bit into the cell as the evictions left it;
+    #    removed lanes that match clear theirs.
+    cell = slot * w + word
+    old = flat[cell]
+    flat.scatter_reduce_(0, cell, torch.where(store, old | bit, zero), "amax")
+    flat.scatter_reduce_(0, cell, torch.where(
+        drop, old & (~bit & C.U32_MASK), full), "amin")
+    # 3) Keys and ages of every stored row, from its last storing lane.
+    won = hashes[torch.clamp(winner, min=0)]
+    for col, value in ((table.keys, won), (table.ages, tick.expand_as(won))):
+        col.scatter_reduce_(0, slot, torch.where(store, zero, full), "amin")
+        col.scatter_reduce_(0, slot, torch.where(store, value, zero), "amax")
     return table
 
 

@@ -18,10 +18,13 @@ state.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
+import itertools
 import logging
 import threading
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -29,7 +32,7 @@ import torch
 
 from gie_tpu_torch.sched import constants as C
 from gie_tpu_torch.sched import filters, pickers, prefix, scorers
-from gie_tpu_torch.sched.graphs import CycleGraph
+from gie_tpu_torch.sched.graphs import CycleGraph, FoldGraph
 from gie_tpu_torch.sched.types import (
     EndpointBatch,
     PickResult,
@@ -37,6 +40,7 @@ from gie_tpu_torch.sched.types import (
     SchedState,
     Weights,
     bucket_for,
+    m_bucket_for,
     pad_requests,
     resize_into,
 )
@@ -46,7 +50,6 @@ log = logging.getLogger(__name__)
 # Later slices of the port (ROADMAP.md, Queue 1) that bring what this one
 # rejects at construction.
 _LATER = {
-    "pd_disaggregation": "the pd dual-pick slice",
     "scorer": "the learned-scorer slice",
     "picker": "the random-picker slice",
     "predictor_fn": "the latency-predictor slice",
@@ -55,7 +58,6 @@ _LATER = {
     "kube": "the kube slice",
     "replication": "the replication slice",
     "autoscale": "the autoscale slice",
-    "kv_events": "the KV-events slice",
     "fleet": "the fleet slice",
 }
 
@@ -126,8 +128,6 @@ class ProfileConfig:
                 f"unknown picker {self.picker!r}; known: topk, random, "
                 "sinkhorn")
         # What this slice of the port does not carry yet.
-        if self.pd_disaggregation:
-            raise _not_ported("pd_disaggregation=True", "pd_disaggregation")
         if self.scorer == "learned":
             raise _not_ported("scorer='learned'", "scorer")
         if self.picker == "random":
@@ -165,6 +165,23 @@ def request_cost_host(prompt_len: float, decode_len: float = 0.0) -> float:
     return float(np.clip((prompt_len + decode_len) / 2048.0, 0.25, 8.0))
 
 
+def pd_costs(reqs: RequestBatch) -> tuple[torch.Tensor, torch.Tensor]:
+    """Split assumed costs for the dual pick: the prefill worker carries
+    the prompt, the decode worker the generation."""
+    prefill = torch.clamp(reqs.prompt_len / 2048.0, 0.125, 8.0)
+    decode = torch.clamp(reqs.decode_len / 2048.0, 0.125, 8.0)
+    return prefill, decode
+
+
+def pd_costs_host(prompt_len: float, decode_len: float) -> tuple[float, float]:
+    """Host-side twin of pd_costs (the same release-what-you-charged
+    contract as request_cost_host)."""
+    return (
+        float(np.clip(prompt_len / 2048.0, 0.125, 8.0)),
+        float(np.clip(decode_len / 2048.0, 0.125, 8.0)),
+    )
+
+
 def feature_schema(cfg: ProfileConfig) -> tuple[str, ...]:
     """Ordered names of the scorer columns build_stages stacks."""
     cols = ["queue", "kv_cache", "assumed_load"]
@@ -199,7 +216,8 @@ def build_stages(
     """Filter + score stages -> (mask, shed, named column dict,
     stacked [S,N,M], wvec [S], blended total [N,M]). `total` is None on
     the fused top-k path, whose kernel blends the columns itself (the
-    reference computes it there too, and XLA drops it as dead code).
+    reference computes it there too, and XLA drops it as dead code),
+    unless the profile is disaggregated: the decode pick de-blends it.
     `wvec`, when given, is the blend weights of feature_schema(cfg) as a
     tensor the caller fills (a captured cycle's static buffer); otherwise
     they come from `weights`.
@@ -251,7 +269,8 @@ def build_stages(
     if wvec is None:
         wvec = _weight_vector(weights, tuple(named), mask.device)
     total = None
-    if not (cfg.picker == "topk" and cfg.use_pallas_topk):
+    if cfg.pd_disaggregation or not (cfg.picker == "topk"
+                                     and cfg.use_pallas_topk):
         total = blend(wvec, stacked)
     return mask, shed, named, stacked, wvec, total
 
@@ -314,12 +333,18 @@ def scheduling_cycle(
 
     `gumbel` is the standard Gumbel noise f32[N, M] the sinkhorn picker's
     rounding uses (the reference draws it from its PRNG key inside the
-    cycle); other pickers ignore it and take None. `wvec`: see
+    cycle), f32[2, N, M] under pd_disaggregation (plane 0 for the prefill
+    solve, plane 1 for the decode solve: the reference's split of the
+    wave's key); other pickers ignore it and take None. `wvec`: see
     build_stages. The cycle makes no call that waits for the device, so
     it can be captured into a CUDA graph (sched/graphs.py).
     """
     mask, shed, named, stacked, wvec, total = build_stages(
         state, reqs, eps, weights, cfg=cfg, wvec=wvec)
+
+    if cfg.pd_disaggregation:
+        return _pd_cycle(state, reqs, eps, gumbel, cfg, mask=mask, shed=shed,
+                         named=named, stacked=stacked, wvec=wvec, total=total)
 
     result, pick_aux = _pick_stage(
         total, stacked, wvec, mask, shed, reqs, eps, state, gumbel, cfg)
@@ -343,6 +368,114 @@ def scheduling_cycle(
     state.tick.add_(1).bitwise_and_(C.U32_MASK)
     if "ot_v" in pick_aux:
         state.ot_v.copy_(pick_aux["ot_v"])
+    return result, state
+
+
+# Locality columns that only describe the PREFILL side (the prefix cache
+# and session affinity live where prefill runs); the decode blend drops
+# them and uses load/queue/kv signals plus the co-location bonus.
+_PREFILL_ONLY_COLUMNS = ("prefix", "session")
+
+
+def _pd_cycle(
+    state: SchedState,
+    reqs: RequestBatch,
+    eps: EndpointBatch,
+    gumbel: Optional[torch.Tensor],
+    cfg: ProfileConfig,
+    *,
+    mask: torch.Tensor,
+    shed: torch.Tensor,
+    named: dict,
+    stacked: torch.Tensor,
+    wvec: torch.Tensor,
+    total: torch.Tensor,
+) -> tuple[PickResult, SchedState]:
+    """Dual pick for disaggregated serving (the reference's _pd_cycle):
+    the prefill endpoint (full blend over PREFILL/BOTH roles), then the
+    decode endpoint (locality columns dropped, co-location bonus, over
+    DECODE/BOTH roles). `indices` is the decode pick and `prefill` names
+    the prefill worker. Updates `state` in place; neither solve writes the
+    carried Sinkhorn duals (one vector under two capacity patterns would
+    poison both warm starts)."""
+    prefill_ok = mask & (eps.role != int(C.Role.DECODE))[None, :]
+    decode_ok = mask & (eps.role != int(C.Role.PREFILL))[None, :]
+    g_p, g_d = (None, None) if gumbel is None else (gumbel[0], gumbel[1])
+
+    p_res, _ = _pick_stage(total, stacked, wvec, prefill_ok, shed, reqs, eps,
+                           state, g_p, cfg)
+    p_primary = p_res.indices[:, 0]
+
+    keep = torch.ones_like(wvec)
+    for i, k in enumerate(named):
+        if k in _PREFILL_ONLY_COLUMNS:
+            keep[i].fill_(0.0)            # a device fill: capturable
+    d_wvec = wvec * keep
+    # Incremental de-blend: (total * sum(w) - the prefill-only columns) /
+    # sum(kept w), two column reads instead of re-reducing the stack.
+    # Degeneracy guard: when the kept weights are negligible against the
+    # total mass (a locality-only tuning) the subtraction leaves float32
+    # cancellation residue that a tiny denominator would blow up past the
+    # co-location bonus; the decode side then has no signal, so 0.
+    wsum = torch.clamp(wvec.sum(), min=1e-6)
+    d_wsum = d_wvec.sum()
+    dropped = torch.zeros((), dtype=torch.float32, device=wvec.device)
+    for i, k in enumerate(named):
+        if k in _PREFILL_ONLY_COLUMNS:
+            dropped = dropped + wvec[i] * named[k]
+    d_total = torch.where(
+        d_wsum > 1e-4 * wsum,
+        (total * wsum - dropped) / torch.clamp(d_wsum, min=1e-6),
+        torch.zeros((), dtype=torch.float32, device=total.device))
+    # The same endpoint as the prefill pick needs no KV transfer: a bonus
+    # on that lane (only BOTH-role endpoints can win both picks).
+    m = d_total.shape[1]
+    colocated = (torch.arange(m, dtype=torch.int32, device=total.device)[None, :]
+                 == p_primary[:, None])
+    d_total = d_total + float(np.float32(cfg.pd_colocation_bonus)) * colocated
+
+    # The fused top-k recomputes the blend from (stacked, wvec) and would
+    # drop the co-location bonus: the decode pick never takes it.
+    d_cfg = (dataclasses.replace(cfg, use_pallas_topk=False)
+             if cfg.use_pallas_topk else cfg)
+    d_res, _ = _pick_stage(d_total, stacked, d_wvec, decode_ok, shed, reqs,
+                           eps, state, g_d, d_cfg)
+    d_primary = d_res.indices[:, 0]
+
+    ok = (p_primary >= 0) & (d_primary >= 0)
+    # SHED (from either pick) wins over NO_CAPACITY; OK requires both.
+    status = torch.maximum(p_res.status, d_res.status)
+    is_ok = status == int(C.Status.OK)
+    status = torch.where(~ok & is_ok,
+                         torch.full_like(status, int(C.Status.NO_CAPACITY)),
+                         status)
+
+    # State update: each side's cost to its own worker, prefill first.
+    m_state = state.m
+    p_cost_all, d_cost_all = pd_costs(reqs)
+    zero = torch.zeros_like(p_cost_all)
+    p_cost = torch.where(ok, p_cost_all, zero)
+    d_cost = torch.where(ok, d_cost_all, zero)
+    p_slot = torch.where(ok, p_primary, m_state - 1).long()
+    d_slot = torch.where(ok, d_primary, m_state - 1).long()
+    added = torch.zeros((m_state,), dtype=torch.float32, device=zero.device)
+    added.index_add_(0, p_slot, p_cost).index_add_(0, d_slot, d_cost)
+    state.assumed_load.mul_(cfg.load_decay).add_(added)
+
+    prefill = torch.where(ok, p_primary, torch.full_like(p_primary, -1))
+    if cfg.enable_prefix:
+        # Only OK requests run: a rejected request must not record its
+        # chunks as cached on the prefill worker.
+        prefix.insert(state.prefix, reqs, prefill, state.tick)
+    state.rr.add_(1).bitwise_and_(C.U32_MASK)
+    state.tick.add_(1).bitwise_and_(C.U32_MASK)
+    result = PickResult(
+        indices=d_res.indices, status=status, scores=d_res.scores,
+        prefill=prefill,
+        # Affinity is a PREFILL-side property: gathered at the prefill
+        # pick, not the decode destination.
+        affinity=(_affinity_columns(named, p_primary, ok)
+                  if cfg.record_affinity else None))
     return result, state
 
 
@@ -531,14 +664,30 @@ class Scheduler:
         # captures run on.
         self._graphs: dict[tuple[int, int, int], CycleGraph] = {}
         self._capture_stream: Optional[torch.cuda.Stream] = None
-        # CUDA: complete() calls not yet applied to the state, in order,
-        # as host arrays (see complete()); _completions_lock guards only
-        # the list.
-        self._completions: list[tuple[np.ndarray, np.ndarray]] = []
-        self._completions_lock = threading.Lock()
+        # CUDA: the KV-event fold captured per (M bucket, lane bucket), and
+        # the stream those captures run on (the cycle's warm threads
+        # capture on theirs meanwhile).
+        self._fold_graphs: dict[tuple[int, int], FoldGraph] = {}
+        self._fold_stream: Optional[torch.cuda.Stream] = None
+        # CUDA: complete(), apply_prefix_events() and
+        # clear_prefix_endpoint() calls not yet applied to the state, in
+        # call order, as host arrays (see complete()), their lanes, and the
+        # thread that applies them past _QUEUE_MAX_LANES. _queue_lock
+        # guards only these and the KV-event journal.
+        self._queued: list[tuple] = []
+        self._queued_lanes = 0
+        self._drainer: Optional[threading.Thread] = None
+        self._drain_failure: Optional[Exception] = None
+        self._queue_lock = threading.Lock()
+        # KV-event batches, journaled at call time and replayed over a
+        # digest install (commit_install): (monotonic time, slot, stored,
+        # removed).
+        self._kv_journal: collections.deque = collections.deque(
+            maxlen=self._KV_JOURNAL_MAX)
         if self.device.type == "cuda":
             self._prepare_kernels()
             self._capture_stream = torch.cuda.Stream(self.device)
+            self._fold_stream = torch.cuda.Stream(self.device)
 
     def _prepare_kernels(self) -> None:
         """Build and load the kernels this profile launches and check the
@@ -574,6 +723,13 @@ class Scheduler:
             self.state = resize_into(self.state, self._bucket_state(m))
         return self.state
 
+    def _noise_shape(self, n: int, m: int) -> Optional[tuple]:
+        """The Gumbel noise a wave of (n, m) draws: [n, m] for the sinkhorn
+        picker, [2, n, m] for its dual pick, none for the others."""
+        if self.cfg.picker != "sinkhorn":
+            return None
+        return (2, n, m) if self.cfg.pd_disaggregation else (n, m)
+
     def _noise(self, shape: tuple,
                out: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.noise_source is None:
@@ -599,10 +755,10 @@ class Scheduler:
         as the reference compiles on one."""
         n, m = int(reqs.valid.shape[0]), int(eps.valid.shape[0])
         key = (n, m, int(reqs.chunk_hashes.shape[1]))
-        sinkhorn = self.cfg.picker == "sinkhorn"
+        shape = self._noise_shape(n, m)
         if self.device.type != "cuda":
-            gumbel = (torch.zeros((n, m), dtype=torch.float32,
-                                  device=self.device) if sinkhorn else None)
+            gumbel = (None if shape is None else torch.zeros(
+                shape, dtype=torch.float32, device=self.device))
             scheduling_cycle(
                 SchedState.init(m=m, device=self.device),
                 _batch_to_device(reqs, self.device),
@@ -611,7 +767,7 @@ class Scheduler:
             return
         with self._lock:
             state = self._bucket_state(m)
-        graph = CycleGraph(key, state, feature_schema(self.cfg), sinkhorn,
+        graph = CycleGraph(key, state, feature_schema(self.cfg), shape,
                            self.device)
         graph.capture(self._cycle, self._capture_stream, self.weights)
         self._graphs[key] = graph
@@ -707,8 +863,8 @@ class Scheduler:
             self._ensure_warm(key, lambda: (reqs, eps))
             with self._lock:
                 state = self._use_bucket(m)
-                gumbel = (self._noise((bucket, m))
-                          if self.cfg.picker == "sinkhorn" else None)
+                shape = self._noise_shape(bucket, m)
+                gumbel = None if shape is None else self._noise(shape)
                 result, _ = scheduling_cycle(
                     state, reqs, eps, self.weights, gumbel, cfg=self.cfg)
                 snap = state.assumed_load.clone() if snapshot_load else None
@@ -718,7 +874,7 @@ class Scheduler:
         graph = self._graphs[key]
         staged = graph.pack(reqs, eps, self.weights)
         with self._lock:
-            self._apply_completions()
+            self._apply_queued()
             state = self._use_bucket(m)
             graph.upload(*staged)
             if graph.gumbel is not None:
@@ -752,24 +908,88 @@ class Scheduler:
         slots = np.array(endpoint_slots, np.int64)
         costs = np.array(costs, np.float32)
         if self.device.type == "cuda":
-            with self._completions_lock:
-                self._completions.append((slots, costs))
+            self._enqueue(("complete", slots, costs))
             return
         with self._lock:
             _complete_update(self.state, torch.from_numpy(slots),
                              torch.from_numpy(costs))
 
-    def _apply_completions(self) -> None:
-        """Apply the queued complete() calls to the state in order, with a
-        fixed number of launches. Each call's charges are summed per slot
-        (as _complete_update's index_add sums them); a slot's n-th release
-        in the queue goes into layer n, so a layer names each slot once
-        and its releases apply elementwise, max(load - sum, 0) per slot in
-        queue order, as the calls one by one would. Caller holds _lock."""
-        with self._completions_lock:
-            queued, self._completions = self._completions, []
-        if not queued:
-            return
+    # The queue's bound in lanes (a call counts one, plus its hashes or
+    # released slots). Past it a thread of its own applies the queue under
+    # _lock: with no wave to apply it, a stream of KV events would grow it
+    # without end and the next locked access would fold all of it at once.
+    _QUEUE_MAX_LANES = 16384
+
+    def _enqueue(self, call: tuple, journal: Optional[tuple] = None) -> None:
+        """Queue one state call for the next locked section (_apply_queued):
+        ("complete", slots, costs), ("events", slot, stored, removed) or
+        ("clear", slot); `journal`, a KV-event journal entry, is written
+        with it. The call that takes the queue past _QUEUE_MAX_LANES starts
+        the drainer; the caller's thread makes no CUDA call."""
+        lanes = 1 + (len(call[1]) if call[0] == "complete" else
+                     len(call[2]) + len(call[3]) if call[0] == "events"
+                     else 0)
+        drainer = None
+        with self._queue_lock:
+            self._queued.append(call)
+            self._queued_lanes += lanes
+            if journal is not None:
+                self._kv_journal.append(journal)
+            if (self._queued_lanes > self._QUEUE_MAX_LANES
+                    and self._drainer is None):
+                drainer = self._drainer = threading.Thread(
+                    target=self._drain, name="sched-queue-drain",
+                    daemon=True)
+        if drainer is not None:
+            drainer.start()
+
+    def _drain(self) -> None:
+        """The drainer: apply the queue under _lock until it is back within
+        its bound. Its failure is raised by the next locked access."""
+        try:
+            while True:
+                with self._lock:
+                    self._apply_queued()
+                with self._queue_lock:
+                    if self._queued_lanes <= self._QUEUE_MAX_LANES:
+                        self._drainer = None
+                        return
+        except Exception as e:
+            log.exception("applying the scheduler's queued calls failed")
+            with self._queue_lock:
+                self._drain_failure, self._drainer = e, None
+
+    def _apply_queued(self) -> None:
+        """Apply the queued calls to the state in call order. Caller holds
+        _lock. Consecutive complete() calls apply together with a few
+        launches a layer (_apply_releases), consecutive KV-event calls
+        fold together (_fold_events); prefix clears apply where they were
+        called."""
+        with self._queue_lock:
+            failed, self._drain_failure = self._drain_failure, None
+            if failed is None:
+                queued, self._queued = self._queued, []
+                self._queued_lanes = 0
+        if failed is not None:
+            raise failed
+        for kind, run in itertools.groupby(queued, key=lambda c: c[0]):
+            calls = [call[1:] for call in run]
+            if kind == "complete":
+                self._apply_releases(calls)
+            elif kind == "events":
+                self._fold_events(calls)
+            else:
+                for (slot,) in calls:
+                    self._clear_prefix(slot)
+
+    def _apply_releases(self, queued: list) -> None:
+        """Apply complete() calls [(slots, costs)] to the assumed load in
+        order, with a few launches a layer. Each call's charges are
+        summed per slot (as _complete_update's index_add sums them); a
+        slot's n-th release in the run goes into layer n, so a layer names
+        each slot once and its releases apply elementwise, max(load - sum,
+        0) per slot in call order, bit-equal to the calls one by one.
+        Caller holds _lock."""
         m = self.state.m
         layers: list[tuple[list, list]] = []
         depth: dict[int, int] = {}
@@ -800,11 +1020,147 @@ class Scheduler:
             load[sl] = (load[sl] - sums[at:at + k]).clamp_(min=0.0)
             at += k
 
+    # -- KV-cache events (sched/kvevents.py) -------------------------------
+
+    # An event batch folds in parts of at most the largest of these sizes,
+    # each padded to one of them: a later part's evictions are decided
+    # against the table the earlier part left, as in the reference.
+    _EVENT_BUCKETS = (64, 512, 4096)
+    # Locally observed KV events are journaled and REPLAYED over a digest
+    # install (commit_install), so an event that arrived after the leader
+    # exported the digest is not overwritten by it. Entries older than the
+    # TTL are presumed reflected in the digest stream; replay is
+    # idempotent (the same evict-then-OR fold).
+    _KV_JOURNAL_MAX = 256
+    _KV_REPLAY_TTL_S = 10.0
+
+    def _fold_events(self, calls: list) -> None:
+        """Fold apply_prefix_events calls [(slot, stored, removed)] (uint32
+        host arrays) into the live state's prefix table in call order, as
+        the reference folds them one by one: each call's stored, then its
+        removed hashes, in parts of at most _EVENT_BUCKETS[-1], ages at the
+        state's tick; a slot beyond the live bucket grows the state first.
+        Consecutive parts whose table rows are disjoint fold together
+        (prefix.ingest_lanes): the same result with one fold for many
+        small batches, every lane in one upload. Caller holds _lock."""
+        top = self._EVENT_BUCKETS[-1]
+        mask = int(self.state.prefix.keys.shape[0]) - 1
+        hashes, slots, kinds = [], [], []     # one entry per part
+        grows: list = []                      # (before part k, width)
+        width = self.state.m
+        for slot, stored, removed in calls:
+            if slot >= width:
+                width = m_bucket_for(slot + 1)
+                grows.append((len(hashes), width))
+            for batch, remove in ((stored, False), (removed, True)):
+                for start in range(0, len(batch), top):
+                    part = batch[start:start + top].astype(np.int64)
+                    part = part[part != 0]
+                    if len(part):
+                        hashes.append(part)
+                        slots.append(slot)
+                        kinds.append(remove)
+        # Groups: runs of parts whose rows no earlier part of the run
+        # touched, of at most `top` lanes, split where the state grows.
+        starts, last_touch = [], np.full(mask + 1, -1, np.int64)
+        cut = {k for k, _ in grows}
+        first = count = 0
+        for k, part in enumerate(hashes):
+            rows = part & mask
+            if (not starts or k in cut or count + len(part) > top
+                    or last_touch[rows].max() >= first):
+                starts.append(k)
+                first, count = k, 0
+            last_touch[rows] = k
+            count += len(part)
+        bounds = starts + [len(hashes)]
+        lens = np.array([len(h) for h in hashes], np.int64)
+        sizes = [next(b for b in self._EVENT_BUCKETS
+                      if int(lens[a:z].sum()) <= b)
+                 for a, z in zip(bounds[:-1], bounds[1:])]
+        lanes = None
+        if hashes:
+            # One upload: rows (hash, endpoint, removed), each group's
+            # lanes padded with zeros to its bucket.
+            host = np.zeros((3, sum(sizes)), np.int64)
+            offsets = np.concatenate([[0], np.cumsum(sizes)])
+            at = np.concatenate([
+                offsets[g] + np.arange(int(lens[a:z].sum()))
+                for g, (a, z) in enumerate(zip(bounds[:-1], bounds[1:]))])
+            host[0, at] = np.concatenate(hashes)
+            host[1, at] = np.repeat(slots, lens)
+            host[2, at] = np.repeat(kinds, lens)
+            lanes = _to_device(torch.from_numpy(host), self.device)
+        pending = list(grows)
+        for g, (a, size) in enumerate(zip(bounds[:-1], sizes)):
+            while pending and pending[0][0] <= a:
+                self._use_bucket(pending.pop(0)[1])
+            group = lanes[:, offsets[g]:offsets[g] + size]
+            if self.device.type == "cuda":
+                self._fold_graph(size).replay(group)
+            else:
+                prefix.ingest_lanes(self.state.prefix, group[0], group[1],
+                                    group[2] != 0, self.state.tick)
+        for _, m in pending:
+            self._use_bucket(m)
+
+    def _fold_graph(self, size: int) -> FoldGraph:
+        """The live bucket's fold graph of `size` lanes, captured on first
+        use. Caller holds _lock."""
+        key = (self.state.m, size)
+        graph = self._fold_graphs.get(key)
+        if graph is None:
+            graph = FoldGraph(self.state, size, self.device)
+            graph.capture(self._fold_stream)
+            self._fold_graphs[key] = graph
+        return graph
+
+    def _clear_prefix(self, slot: int) -> None:
+        """Clear one endpoint's presence bits. Caller holds _lock."""
+        if slot < self.state.m:  # beyond the live bucket: nothing recorded
+            prefix.clear_endpoint(self.state.prefix, slot)
+
+    def apply_prefix_events(self, slot: int, stored: np.ndarray,
+                            removed: np.ndarray) -> None:
+        """KV-cache event ingestion: fold a model server's reported stored
+        and evicted chunk-chain hashes into the prefix index, and journal
+        the batch so a later digest install replays it. On CUDA the fold
+        is queued as complete() queues its releases (the callers are the
+        event listener's handler threads)."""
+        stored = np.array(stored, np.uint32, copy=True)
+        removed = np.array(removed, np.uint32, copy=True)
+        entry = (time.monotonic(), slot, stored, removed)
+        if self.device.type == "cuda":
+            self._enqueue(("events", slot, stored, removed), journal=entry)
+            return
+        with self._lock:
+            self._fold_events([(slot, stored, removed)])
+            with self._queue_lock:
+                self._kv_journal.append(entry)
+
+    def prefix_hot_keys(self, max_keys: int = 2048) -> np.ndarray:
+        """The first `max_keys` live prefix-table keys in table order, as
+        uint32 (the federation digest's export). The lock covers only a
+        device copy."""
+        with self._lock:
+            self._apply_queued()
+            keys = self.state.prefix.keys.clone()
+        host = keys.cpu().numpy().reshape(-1)
+        host = host[host != 0]
+        return host[: max(int(max_keys), 0)].astype(np.uint32)
+
     def evict_endpoint(self, slot: int) -> None:
         """Forget an endpoint slot (pod deleted or slot reassigned): its
-        prefix bits, assumed load and Sinkhorn dual."""
+        prefix bits, assumed load and Sinkhorn dual, and its journaled KV
+        events (a replay would resurrect the dead pod's bits on whatever
+        reuses the slot)."""
         with self._lock:
-            self._apply_completions()
+            self._apply_queued()
+            with self._queue_lock:
+                if any(e[1] == slot for e in self._kv_journal):
+                    self._kv_journal = collections.deque(
+                        (e for e in self._kv_journal if e[1] != slot),
+                        maxlen=self._KV_JOURNAL_MAX)
             if slot >= self.state.m:
                 return  # beyond the live bucket: nothing was ever recorded
             prefix.clear_endpoint(self.state.prefix, slot)
@@ -813,12 +1169,12 @@ class Scheduler:
 
     def clear_prefix_endpoint(self, slot: int) -> None:
         """Forget an endpoint's cached chunks, keeping its assumed load
-        (live-pod cache reset)."""
+        (live-pod cache reset). Queued on CUDA, as apply_prefix_events."""
+        if self.device.type == "cuda":
+            self._enqueue(("clear", slot))
+            return
         with self._lock:
-            self._apply_completions()
-            if slot >= self.state.m:
-                return
-            prefix.clear_endpoint(self.state.prefix, slot)
+            self._clear_prefix(slot)
 
     def explain(self, reqs: RequestBatch,
                 eps: EndpointBatch) -> dict[str, np.ndarray]:
@@ -832,7 +1188,7 @@ class Scheduler:
         reqs = pad_requests(_batch_to_device(reqs, self.device), bucket_for(n))
         eps = _batch_to_device(eps, self.device)
         with self._lock:
-            self._apply_completions()
+            self._apply_queued()
             state = (_copy_state(self.state) if self.state.m == m
                      else resize_into(self.state, SchedState.init(
                          m=m, device=self.device)))
@@ -869,7 +1225,7 @@ class Scheduler:
         """Host copy of the assumed-load vector (the lock covers only a
         device copy; the transfer runs outside it)."""
         with self._lock:
-            self._apply_completions()
+            self._apply_queued()
             load = self.state.assumed_load.clone()
         return load.cpu().numpy()
 
@@ -882,7 +1238,7 @@ class Scheduler:
         from gie_tpu_torch.convert import state_to_numpy
 
         with self._lock:
-            self._apply_completions()
+            self._apply_queued()
             snap = _copy_state(self.state)
         return state_to_numpy(snap)
 
@@ -907,8 +1263,18 @@ class Scheduler:
         """Install a prepare_install-validated state: copied into the
         tensors of its M bucket, which becomes the live one."""
         with self._lock:
-            self._apply_completions()      # then overwritten, as before
+            self._apply_queued()           # then overwritten, as before
             self.state = resize_into(state, self._bucket_state(state.m))
+            # Journaled KV events newer than the TTL fold into the
+            # installed state: a follower's locally observed prefix truth
+            # survives a digest exported before it.
+            now = time.monotonic()
+            with self._queue_lock:
+                fresh = [e for e in self._kv_journal
+                         if now - e[0] <= self._KV_REPLAY_TTL_S]
+                self._kv_journal = collections.deque(
+                    fresh, maxlen=self._KV_JOURNAL_MAX)
+            self._fold_events([e[1:] for e in fresh])
 
     def install_state(self, arrays: dict) -> bool:
         """Validated inverse of export_state; False keeps the prior state."""

@@ -146,11 +146,15 @@ class PickResult(_Replace):
     """Per-request outcome: `indices[n]` is primary + fallbacks (-1
     padded), `status` a constants.Status, `scores` the chosen lanes'
     scores, `affinity` the (prefix, session) columns at the primary pick
-    when ProfileConfig.record_affinity is on."""
+    when ProfileConfig.record_affinity is on. Under
+    ProfileConfig.pd_disaggregation `indices` is the DECODE pick (the
+    destination that owns the response stream) and `prefill` the prefill
+    worker's slot (-1 on non-OK rows); `prefill` is None otherwise."""
 
     indices: torch.Tensor   # i32[N, FALLBACKS]
     status: torch.Tensor    # i32[N]
     scores: torch.Tensor    # f32[N, FALLBACKS]
+    prefill: Optional[torch.Tensor] = None   # i32[N] | None
     affinity: Optional[torch.Tensor] = None  # f32[N, 2] | None
 
 

@@ -21,7 +21,9 @@ import dataclasses
 from collections import OrderedDict, deque
 from typing import Optional
 
+from gie_tpu_torch.sched import constants as C
 from gie_tpu_torch.sched.hashing import chunk_hashes
+from gie_tpu_torch.sched.kvevents import BLOCK_REMOVED, BLOCK_STORED
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,14 +180,20 @@ class VLLMStub:
             if h in self._prefix:
                 self._prefix.move_to_end(h)
             self._prefix[h] = self.clock
+        evicted = []
         while len(self._prefix) > self.cfg.prefix_cache_chunks:
-            self._prefix.popitem(last=False)
-        # KV-cache event publication (stored/evicted chunk hashes to an
-        # event_sink) is the KV-events slice's.
-        if getattr(self, "event_sink", None) is not None:
-            from gie_tpu_torch.sched.profile import _not_ported
-
-            raise _not_ported("the stub's KV-event sink", "kv_events")
+            evicted.append(self._prefix.popitem(last=False)[0])
+        # KV-cache event publication: the stub's LRU uses the same chunk-
+        # hash chain the scheduler keys its index by, so stored and evicted
+        # hashes translate directly. Only the first MAX_CHUNKS matter to
+        # the index (requests carry at most that many).
+        sink = getattr(self, "event_sink", None)
+        if sink is not None:
+            sink({"type": BLOCK_STORED, "endpoint": self.hostport,
+                  "hashes": req.chunks[: C.MAX_CHUNKS]})
+            if evicted:
+                sink({"type": BLOCK_REMOVED, "endpoint": self.hostport,
+                      "hashes": evicted})
 
     def _lora_ready(self, req: _Req) -> bool:
         """Adapter residency: resident -> ready; room -> cold load penalty

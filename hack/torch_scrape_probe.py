@@ -15,9 +15,13 @@ ways:
                  watchdog thread ticks every 0.1 s, and when one of those
                  locks has been held for over STALL_S it writes the
                  owner's Python stack and those of the threads that are no
-                 gRPC handler to PREFIX.locks.txt; every scrape that fails
-                 or takes over 0.5 s is kept, with the staleness the
-                 ladder's blackout floor reads (sampled every 50 ms);
+                 gRPC handler to PREFIX.locks.txt; when no Python thread
+                 has run for STALL_S (a thread holds the GIL), faulthandler
+                 writes every thread's stack to PREFIX.stacks.txt, the
+                 holder's ending where it entered native code; every
+                 scrape that fails or takes over 0.5 s is kept, with the
+                 staleness the ladder's blackout floor reads (sampled
+                 every 50 ms);
   in the parent  /proc of the child, every 0.5 s: each thread's state,
                  CPU ticks and the syscall it sits in. When the watchdog's
                  heartbeat is older than STALL_S (no Python thread of the
@@ -37,6 +41,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import faulthandler
 import gc
 import json
 import os
@@ -101,11 +106,17 @@ def _stack(frame) -> str:
     return "".join(traceback.format_stack(frame)) if frame else "  (gone)\n"
 
 
-def _watchdog(beat_path, names_path, locks_out, stop):
+def _watchdog(beat_path, names_path, locks_out, stop, stacks_out):
     dumped = set()
     last_names = 0.0
     while not stop.is_set():
         now = time.monotonic()
+        # Dead man's switch: faulthandler's own C thread, which needs no
+        # GIL, writes every thread's Python stack to stacks_out when this
+        # loop fails to re-arm it for STALL_S, that is when some thread
+        # holds the GIL that long; the holder's stack ends where it
+        # entered native code.
+        faulthandler.dump_traceback_later(STALL_S, file=stacks_out)
         with open(beat_path, "w") as f:
             f.write(repr(now))
         if now - last_names > 1.0:
@@ -208,8 +219,10 @@ def child(args) -> int:
 
     stop = threading.Event()
     locks_out = open(args.out + ".locks.txt", "w")
+    stacks_out = open(args.out + ".stacks.txt", "w")
     threading.Thread(target=_watchdog, name="probe-watchdog", daemon=True,
-                     args=(args.beat, args.names, locks_out, stop)).start()
+                     args=(args.beat, args.names, locks_out, stop,
+                           stacks_out)).start()
 
     if args.selftest:
         # The harness itself, on the CPU: a store lock held 3 s, then the

@@ -669,12 +669,15 @@ def test_golden_stream_makes_no_synchronizing_call(dev, config):
 
 
 def _config(config):
-    """(cfg, weights, the path's kernel wrapper) of a card configuration."""
-    if config == "topk-kernel":
-        return (ProfileConfig(picker="topk", use_pallas_topk=True), None,
-                fused_blend_topk)
+    """(cfg, weights, the path's kernel wrapper) of a card configuration;
+    a "+pd" suffix turns on pd_disaggregation."""
+    pd = config.endswith("+pd")
+    if config.startswith("topk-kernel"):
+        return (ProfileConfig(picker="topk", use_pallas_topk=True,
+                              pd_disaggregation=pd), None, fused_blend_topk)
     cfg, weights = tuned_profile()
-    return (dataclasses.replace(cfg, use_pallas_sinkhorn=True), weights,
+    return (dataclasses.replace(cfg, use_pallas_sinkhorn=True,
+                                pd_disaggregation=pd), weights,
             fused_sinkhorn_plan)
 
 
@@ -708,7 +711,7 @@ def _replay_matches_eager(sched, reqs, eps):
     with sched._lock:
         # The wave applies the queued complete() calls first; so does
         # the copy it is checked against.
-        sched._apply_completions()
+        sched._apply_queued()
         start = _copy_state(sched._use_bucket(m))
     res = sched.pick(reqs, eps)
     gumbel = sched.drawn[-1] if sched.cfg.picker == "sinkhorn" else None
@@ -720,6 +723,10 @@ def _replay_matches_eager(sched, reqs, eps):
             cfg=sched.cfg)
     np.testing.assert_array_equal(res.indices, ref.indices[:n].cpu().numpy())
     np.testing.assert_array_equal(res.status, ref.status[:n].cpu().numpy())
+    assert (res.prefill is None) == (ref.prefill is None)
+    if ref.prefill is not None:
+        np.testing.assert_array_equal(res.prefill,
+                                      ref.prefill[:n].cpu().numpy())
     for k in ("scores", "affinity"):
         np.testing.assert_allclose(getattr(res, k),
                                    getattr(ref, k)[:n].cpu().numpy(),
@@ -979,3 +986,169 @@ def test_storm_twin_on_card_reaches_the_cpu_decisions(dev):
     on_card, on_cpu = cards
     assert on_card["ok"] > 0 and on_card["client_5xx"] == 0
     assert on_card["decision_fingerprint"] == on_cpu["decision_fingerprint"]
+
+
+# -- the pd dual pick and KV-cache events on the card ----------------------
+
+def _role_wave(n, m, live, seed):
+    """_wave_inputs with endpoint roles drawn from the seed: 3/8 prefill,
+    3/8 decode, 1/4 both."""
+    from gie_tpu_torch.sched.constants import Role
+
+    reqs, eps = _wave_inputs(n=n, m=m, live=live, seed=seed)
+    rng = np.random.default_rng(seed + 1000)
+    roles = rng.choice([int(Role.PREFILL)] * 3 + [int(Role.DECODE)] * 3
+                       + [int(Role.BOTH)] * 2, m)
+    return reqs, eps.replace(role=torch.from_numpy(roles.astype(np.int32)))
+
+
+@pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel+pd",
+                                    "topk-kernel+pd"])
+def test_pd_replays_match_the_eager_pd_cycle(dev, config):
+    """3 carried pd waves of 1024 x 256, each a replay of the captured dual
+    pick ([2, N, M] static noise, a static `prefill` output), against the
+    eager cycle on a copy of the state; the Sinkhorn path launches its
+    kernel twice a wave, the top-k path once (the prefill pick)."""
+    sched = _recorded_scheduler(config, dev)
+    counter = _config(config)[2]
+    per_wave = 2 if counter is fused_sinkhorn_plan else 1
+    before = counter.launches
+    for w in range(3):
+        reqs, eps = _role_wave(1024, 256, 200, seed=w)
+        res = _replay_matches_eager(sched, reqs, eps)
+        ok = res.status == 0
+        assert ok.mean() > 0.9
+        roles = eps.role.numpy()
+        assert (roles[res.prefill[ok]] != 2).all()      # never DECODE-only
+        assert (roles[res.indices[ok, 0]] != 1).all()   # never PREFILL-only
+    assert counter.launches == before + 3 * per_wave
+    graph = sched._graphs[(1024, 256, 32)]
+    if counter is fused_sinkhorn_plan:
+        assert tuple(graph.gumbel.shape) == (2, 1024, 256)
+
+
+def test_cuda_fold_equals_cpu_fold_bit_for_bit(dev):
+    """The same event program, grown to M=512 by slot 300 and with a
+    10,000-hash batch (parts of 4096), through a Scheduler on the card and
+    one on the CPU: equal exports."""
+    cards = [Scheduler(ProfileConfig(), device=d)
+             for d in (dev, torch.device("cpu"))]
+    rng = np.random.default_rng(4)
+    pool = rng.integers(1, 2**32, 20_000, dtype=np.uint32)
+    program = [(2, pool[:10_000], pool[:0]), (7, pool[5000:5600], pool[:300]),
+               (300, pool[100:164], pool[:0]), (2, pool[:0], pool[9000:9500])]
+    for sched in cards:
+        for slot, stored, removed in program:
+            sched.apply_prefix_events(slot, stored, removed)
+        sched.clear_prefix_endpoint(7)
+    card, cpu = (sched.export_state() for sched in cards)
+    assert cards[0].state.m == 512
+    assert {m for m, _ in cards[0]._fold_graphs} == {64, 512}
+    for k in cpu:
+        np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
+
+
+@pytest.mark.parametrize("bound", [None, 512])
+def test_events_from_32_threads_during_waves_equal_a_serial_replay(dev,
+                                                                   bound):
+    """32 threads push apply_prefix_events (and a cache reset each) while
+    waves run. The calls only queue, and no fold runs on a pushing thread:
+    each wave applies the queue first, in call order, and past the queue's
+    bound (512 lanes forces it) the drainer thread applies it between
+    waves. The order of folds and waves is recorded as the card applies
+    them and replayed serially on the CPU: the prefix table, ages and tick
+    equal bit for bit."""
+    cfg = ProfileConfig(enable_prefix=False)   # waves move the tick only
+    gpu = Scheduler(cfg)
+    if bound is not None:
+        gpu._QUEUE_MAX_LANES = bound
+    waver = threading.current_thread().name
+    log, threads_seen = [], set()
+    fold, clear, apply = (gpu._fold_events, gpu._clear_prefix,
+                          gpu._apply_queued)
+
+    def logged_fold(calls):
+        threads_seen.add(threading.current_thread().name)
+        log.extend(("events",) + tuple(call) for call in calls)
+        fold(calls)
+
+    def logged_clear(slot):
+        threads_seen.add(threading.current_thread().name)
+        log.append(("clear", slot))
+        clear(slot)
+
+    def logged_apply():
+        apply()
+        if threading.current_thread().name == waver:
+            log.append(("mark",))              # a wave follows
+
+    gpu._fold_events, gpu._clear_prefix = logged_fold, logged_clear
+    gpu._apply_queued = logged_apply
+    reqs, eps = _wave_inputs(n=64, m=64, live=50, seed=9)
+    gpu.pick(reqs, eps)                           # capture first
+    log.clear()
+
+    def pusher(t):
+        rng = np.random.default_rng(t)
+        for i in range(20):
+            gpu.apply_prefix_events(
+                t % 50, rng.integers(1, 2**32, 64, dtype=np.uint32),
+                rng.integers(1, 2**32, 8, dtype=np.uint32))
+            if i == 10:
+                gpu.clear_prefix_endpoint(t % 50)
+
+    threads = [threading.Thread(target=pusher, args=(t,)) for t in range(32)]
+    for t in threads:
+        t.start()
+    waves = 0
+    while any(t.is_alive() for t in threads) or waves < 10:
+        gpu.pick(reqs, eps)
+        waves += 1
+    for t in threads:
+        t.join()
+    card = gpu.export_state()
+    assert threads_seen <= {waver, "sched-queue-drain"}
+    assert bound is None or "sched-queue-drain" in threads_seen
+    cpu = Scheduler(cfg, device="cpu")
+    cpu.pick(reqs, eps)
+    marks = 0
+    for entry in log:
+        if entry[0] == "events":
+            cpu.apply_prefix_events(*entry[1:])
+        elif entry[0] == "clear":
+            cpu.clear_prefix_endpoint(entry[1])
+        else:
+            marks += 1
+            if marks <= waves:
+                cpu.pick(reqs, eps)
+    assert sum(e[0] == "events" for e in log) == 32 * 20
+    assert sum(e[0] == "clear" for e in log) == 32
+    ref = cpu.export_state()
+    for k in ("prefix_keys", "prefix_present", "prefix_ages", "tick"):
+        np.testing.assert_array_equal(card[k], ref[k], err_msg=k)
+
+
+@pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel+pd",
+                                    "topk-kernel+pd"])
+def test_pd_lattice_warms_and_explain_matches_cpu(dev, config):
+    """A pd profile's lattice warms on a background thread like a classic
+    one (no inline capture after the join), its waves replay the captured
+    dual pick, and explain() on the card equals the CPU's."""
+    cfg, weights, _ = _config(config)
+    sched = Scheduler(cfg, weights)
+    reqs, eps = _role_wave(64, 256, 200, seed=4)
+    thread = sched.warm_lattice_async(256, int(reqs.chunk_hashes.shape[1]))
+    thread.join(300)
+    assert not thread.is_alive() and not sched._warm_failures
+    res = sched.pick(reqs, eps)
+    assert sched.warm_inline_compiles == 0
+    assert res.prefill is not None and (res.status == 0).mean() > 0.9
+    cpu = Scheduler(cfg, weights, device="cpu")
+    assert cpu.install_state(sched.export_state())
+    got, ref = sched.explain(reqs, eps), cpu.explain(reqs, eps)
+    for k in ref:
+        if k in ("mask", "shed"):
+            np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+        else:
+            np.testing.assert_allclose(got[k], ref[k], atol=1e-5, rtol=0,
+                                       err_msg=k)

@@ -12,6 +12,9 @@ of the port bring.
 import argparse
 import dataclasses
 import importlib
+import json
+import socket
+import urllib.request
 
 import pytest
 
@@ -54,6 +57,12 @@ ARGVS = [
     ["--fed-cluster", "east", "--fed-peer", "west=http://w:9010"],
     ["--fault", "scrape.fetch=error:0.2", "--fault-seed", "7"],
 ]
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 def _parse(pkg: str, argv):
@@ -245,7 +254,7 @@ def test_descriptors_byte_identical():
 LIVE = ["--no-resilience", "--no-obs"]
 # (argv, the _LATER key of the slice it is refused until, or None where
 # the runner builds: the resilience and observability layers, both on by
-# default, and --fault arming are ported).
+# default, --fault arming and the KV-event listener are ported).
 REFUSED = [
     ([], None),                                 # resilience + obs on
     (["--no-resilience"], None),                # obs on
@@ -255,7 +264,7 @@ REFUSED = [
     (LIVE + ["--fed-cluster", "east", "--fed-peer", "w=http://w:1"],
      "federation"),
     (LIVE + ["--fed-drain", "--fed-cluster", "east"], "federation"),
-    (LIVE + ["--kv-events-port", "19300"], "kv_events"),
+    (LIVE + ["--kv-events-port", "19300"], None),
     (LIVE + ["--fleet-topk", "2"], "fleet"),
     (LIVE + ["--mesh-devices", "2"], "mesh"),
     (LIVE + ["--scorer", "learned", "--policy-artifact", "x.json"], "scorer"),
@@ -273,12 +282,25 @@ def test_runner_refuses_out_of_slice(argv, key):
 
     opts = _parse("gie_tpu_torch", argv + ["--pool-name", "p"])
     if key is None:
+        if opts.kv_events_port:
+            opts.kv_events_port = _free_port()   # the listener binds it
         runner = ExtProcServerRunner(opts, FakeCluster(),
                                      scheduler=Scheduler(device="cpu"))
         try:
             assert (runner.resilience is not None) == opts.resilience
             assert runner.picker.resilience is runner.resilience
             assert runner._obs_installed == opts.obs
+            if opts.kv_events_port:
+                # start() builds the listener after the ext-proc pool.
+                runner._start_kv_events()
+                assert runner.kv_events_server.port == opts.kv_events_port
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{opts.kv_events_port}/events",
+                    data=b'{"type": "BlockStored", "endpoint": "x:1", '
+                         b'"hashes": [5]}', method="POST")
+                with urllib.request.urlopen(req, timeout=10) as resp:
+                    assert json.loads(resp.read()) == {"accepted": 1}
+                assert runner.kv_events.dropped == 1   # no such endpoint
         finally:
             runner.stop()
         return
@@ -321,12 +343,26 @@ def test_pod_manifest_event_refused():
         rec.reconcile("default", "p0", obj={"metadata": {"name": "p0"}})
 
 
-def test_stub_kv_event_sink_refused():
-    from gie_tpu_torch.simulator import StubConfig, VLLMStub
+def test_pd_scheduler_config_builds_a_pd_runner(tmp_path, monkeypatch):
+    """A --scheduler-config with pd_disaggregation: true builds the runner
+    over a pd Scheduler, its picker holding --pd-budget-floor-ms."""
+    import functools
 
-    stub = VLLMStub(StubConfig(), name="s")
-    stub.event_sink = lambda event: None
-    stub.submit(b"x" * 256, 4.0)
-    with pytest.raises(NotImplementedError, match="the KV-events slice"):
-        for _ in range(40):
-            stub.step(0.05)
+    from gie_tpu_torch.controller import FakeCluster
+    from gie_tpu_torch.runtime import runner as runner_mod
+    from gie_tpu_torch.sched import Scheduler
+
+    monkeypatch.setattr(runner_mod, "Scheduler",
+                        functools.partial(Scheduler, device="cpu"))
+    path = tmp_path / "pd.yaml"
+    path.write_text("picker: sinkhorn\npd_disaggregation: true\n")
+    opts = _parse("gie_tpu_torch", LIVE + [
+        "--pool-name", "p", "--scheduler-config", str(path),
+        "--pd-budget-floor-ms", "120"])
+    runner = runner_mod.ExtProcServerRunner(opts, FakeCluster())
+    try:
+        assert runner.scheduler.cfg.pd_disaggregation
+        assert runner.scheduler.cfg.picker == "sinkhorn"
+        assert runner.picker.pd_budget_floor_s == pytest.approx(0.12)
+    finally:
+        runner.stop()

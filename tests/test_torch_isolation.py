@@ -113,7 +113,6 @@ def test_scheduler_without_device_raises_when_cuda_is_absent(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs, slice_name", [
-    ({"pd_disaggregation": True}, "pd dual-pick"),
     ({"scorer": "learned"}, "learned-scorer"),
     ({"picker": "random"}, "random-picker"),
 ])

@@ -234,7 +234,15 @@ def test_grpc_drive_health_and_metrics():
     import prometheus_client
 
     import gie_tpu.runtime.metrics as ref_metrics
+    import gie_tpu_torch.runtime.metrics as port_metrics
 
+    # The port's labelled series start empty, so its exposition holds what
+    # this drive made, not what an earlier test of this process left (a
+    # storm's degraded picks; the reference's registry is not emptied, so
+    # it can only hold more).
+    for metric in port_metrics.REGISTRY:
+        if metric.labelnames:
+            metric.reset()
     pb = _mod("gie_tpu_torch", "extproc.pb")
     ports = {k: _free_port() for k in
              ("grpc_port", "grpc_health_port", "metrics_port")}

@@ -202,7 +202,7 @@ def test_evict_and_clear_prefix_match_reference():
 
 def test_queued_completions_apply_as_the_calls_one_by_one():
     """On CUDA complete() queues its arrays and the next locked section
-    applies the queue (Scheduler._apply_completions). Driven here on the
+    applies the queue (Scheduler._apply_queued). Driven here on the
     CPU: the same calls, queued, then applied, leave the assumed load
     bit-equal to the calls applied one by one, and equal to the
     reference's complete() within its state tolerance."""
@@ -216,10 +216,10 @@ def test_queued_completions_apply_as_the_calls_one_by_one():
         costs = rng.uniform(0, 0.5, k).astype(np.float32)
         jsched.complete(slots, costs)
         tsched.complete(slots, costs)
-        queued._completions.append((slots.astype(np.int64), costs))
+        queued._enqueue(("complete", slots.astype(np.int64), costs))
     np.testing.assert_array_equal(queued.snapshot_assumed_load(),
                                   tsched.snapshot_assumed_load())
-    assert queued._completions == []
+    assert queued._queued == []
     _assert_states(jsched.export_state(), queued.export_state())
 
 
