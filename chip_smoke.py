@@ -127,8 +127,27 @@ count adds the launches a replay makes:
      north-star waves on both, primaries equal (or within phase 3's
      gap), each event-only system prompt landing on an endpoint that
      reported it. Phases 12-13 print their wall seconds;
- 11. the `kernels` line: launches on the main path (phases 3-6, 8, 9, 12
-     and 13, replays counted), error, times, bound.
+ 14. the learned scorer, the random picker and checkpoints on the card:
+     (a) Scheduler(tuned + use_pallas_sinkhorn, scorer="learned") with the
+     committed policy artifact's exponents (config/policy/) and (b) the
+     tuned profile with picker="random", each over phase 3's 5 carried
+     waves with every wave replayed on a CPU Scheduler from the same state
+     with the same noise (one Sinkhorn launch a learned wave, no kernel for
+     the random picker), then a learned wave's pick_async host time and
+     wall time beside the classic Sinkhorn wave's; (c) the runner main()
+     builds from argv with --scorer learned --policy-artifact over 256
+     stub pods, one burst of 1024 streams after a warm-up round, all
+     answered, one Sinkhorn launch a wave, /debugz/policy naming the
+     artifact's checksum and gie_policy_info carrying its weights; (d) the
+     port's judge on storm-noisy-neighbor and the recorded trace fixture,
+     on the card and on a CPU engine from one seeded CPU generator:
+     verdict and both sides' decision fingerprints equal; (e) save_state
+     on the card at M=256, restored into a fresh card Scheduler and a CPU
+     one, both exports bit-equal to the state saved, and a checkpoint
+     without the Sinkhorn duals restoring them at ones. Prints its wall
+     seconds and its kernel launches;
+ 11. the `kernels` line: launches on the main path (phases 3-6, 8, 9, 12,
+     13 and 14, replays counted), error, times, bound.
 Then the card's name and power limit (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -390,7 +409,8 @@ def phase_slice(dev, name, cfg, weights, kernels, own) -> dict:
     """Drive `cfg` on the card over carried waves; replay every wave on a
     CPU Scheduler from the same state with the same noise. Every kernel
     wrapper's launch count is set to 0 just before the drive and read just
-    after; the path's own kernel (`own`) must launch once per wave."""
+    after; the path's own kernel (`own`) must launch once per wave, and
+    with `own` None (phase 14's random picker) no kernel at all."""
     from gie_tpu_torch import convert
     from gie_tpu_torch.sched import Scheduler
     from gie_tpu_torch.sched.profile import gumbel_noise, request_cost_host
@@ -417,7 +437,6 @@ def phase_slice(dev, name, cfg, weights, kernels, own) -> dict:
                  for r in waves]
 
     torch.cuda.synchronize()
-    counter = kernels[own]
     for fn in kernels.values():
         fn.launches = 0
     wave_ms, agree, rows, allowed = [], 0, 0, 0
@@ -426,8 +445,13 @@ def phase_slice(dev, name, cfg, weights, kernels, own) -> dict:
         t0 = time.perf_counter()
         res = gpu.pick(reqs, eps)                  # materialize = synchronize
         wave_ms.append((time.perf_counter() - t0) * 1e3)
-        check(counter.launches == w + 1,
-              f"{name}: {counter.launches} kernel launches after {w + 1} waves")
+        if own is None:                # a path that runs neither kernel
+            check(all(fn.launches == 0 for fn in kernels.values()),
+                  f"{name}: a kernel launched on a path that has none")
+        else:
+            check(kernels[own].launches == w + 1,
+                  f"{name}: {kernels[own].launches} kernel launches after "
+                  f"{w + 1} waves")
         ref = cpu.pick(cpu_waves[w], eps_cpu)
         check((res.status == ref.status).all(), f"{name}: statuses differ")
         ok = res.status == 0
@@ -2622,6 +2646,288 @@ def phase_kvevents(dev, kernels, tmp) -> dict:
     return summary
 
 
+# -- phase 14: the learned scorer, the random picker, checkpoints ------------
+
+LEARN_ARTIFACT = "config/policy/storm-lora-v1.json"
+LEARN_TRACE = "tests/fixtures/learn/storm-fixture-flightrec.json"
+LEARN_TIMED_WAVES = 10
+
+
+def learned_profile():
+    """The committed artifact and phase 3's profile with its exponents:
+    (artifact, cfg, weights)."""
+    from gie_tpu_torch.learn import artifact
+    from gie_tpu_torch.sched.config import tuned_profile
+
+    art = artifact.load_artifact(LEARN_ARTIFACT)
+    cfg, _ = tuned_profile()
+    return art, dataclasses.replace(cfg, use_pallas_sinkhorn=True,
+                                    scorer="learned"), \
+        artifact.to_sched_weights(art)
+
+
+def learn_runner(dev, kernels, art, tmp) -> dict:
+    """(c): the runner main() builds from argv with --scorer learned
+    --policy-artifact over M stub pods (phase 6's transport and profile
+    file, tuned + use_pallas_sinkhorn), one burst of N streams after a
+    warm-up round: every stream answered with a ready primary, one
+    Sinkhorn launch a wave; /debugz/policy names the artifact's checksum
+    and gie_policy_info carries its weights."""
+    need_transport()
+    import multiprocessing
+
+    from gie_tpu_torch.runtime import metrics as own_metrics
+    from gie_tpu_torch.runtime.runner import ExtProcServerRunner
+    from gie_tpu_torch.sched.config import tuned_profile
+
+    cfg, weights = tuned_profile()
+    cfg = dataclasses.replace(cfg, use_pallas_sinkhorn=True)
+    ctx = multiprocessing.get_context("spawn")
+    stop, ready = ctx.Event(), ctx.Queue()
+    procs = [ctx.Process(target=stub_fleet_process, args=(M, 0, ready, stop),
+                         daemon=True)]
+    procs[0].start()
+    runner = None
+    try:
+        fleet_port = ready.get(timeout=120)
+        mport = free_port()
+        argv = ["--insecure-serving",
+                "--scheduler-config", write_scheduler_config(cfg, weights, tmp),
+                "--scorer", "learned", "--policy-artifact", LEARN_ARTIFACT,
+                "--pool-name", "smoke", "--grpc-port", str(free_port()),
+                "--grpc-health-port", str(free_port()),
+                "--metrics-port", str(mport),
+                "--extproc-workers", str(EXTPROC_WORKERS),
+                "--scrape-interval-ms", str(SCRAPE_INTERVAL_MS)]
+        runner = ExtProcServerRunner(
+            server_options(argv), fleet_cluster("smoke", fleet_ips(M),
+                                                fleet_port))
+        sched = runner.scheduler
+        check(sched.device.type == "cuda" and sched.cfg.scorer == "learned"
+              and sched.cfg.use_pallas_sinkhorn,
+              f"learned runner: {sched.device}, {sched.cfg}")
+        runner.setup()
+        runner.start()
+        slots = [ep.slot for ep in runner.datastore.endpoints()]
+        check(len(slots) == M, f"learned runner: {len(slots)} of {M} ready")
+        deadline = time.monotonic() + 60
+        while True:
+            _, ages = runner.metrics_store.pool_rows(slots)
+            if bool(np.isfinite(ages).all()) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        rounds = [-1, 0]                                 # -1: warm-up
+        barrier, results = ctx.Barrier(CLIENTS + 1), ctx.Queue()
+        for k in range(CLIENTS):
+            procs.append(ctx.Process(
+                target=client_process,
+                args=(runner.grpc_server.port, CHANNELS // CLIENTS, rounds, k,
+                      STREAMS_PER_ROUND, barrier, results), daemon=True))
+            procs[-1].start()
+        live = {ep.hostport for ep in runner.datastore.endpoints()}
+        for w in rounds:
+            if w == 0:
+                for t in runner.picker._warm_threads:
+                    t.join(300)
+                torch.cuda.synchronize()
+                for fn in kernels.values():
+                    fn.launches = 0
+                waves0 = own_metrics.PIPELINE_WAVES.value()
+                t0 = time.monotonic()
+            barrier.wait(600)
+            got = [results.get(timeout=900) for _ in range(CLIENTS)]
+            outcomes = [o for g in got for o in g[1]]
+            errs = [o[4] for o in outcomes if o[4]]
+            check(not errs, f"learned runner: {len(errs)} streams failed, "
+                            f"first: {errs[:1]}")
+        burst_s = time.monotonic() - t0
+        waves = int(own_metrics.PIPELINE_WAVES.value() - waves0)
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        answered = sum(o[1] is not None and o[1].split(",")[0] in live
+                       for o in outcomes)
+        check(answered == STREAMS_PER_ROUND,
+              f"learned runner: {answered} of {STREAMS_PER_ROUND} answered")
+        check(launches["fused_sinkhorn_plan"] == waves >= 1,
+              f"learned runner: {launches} launches for {waves} waves")
+        policy = json.loads(http_get(mport, "/debugz/policy"))
+        check(policy.get("scorer") == "learned"
+              and policy.get("artifact", {}).get("checksum")
+              == art["checksum"],
+              f"learned runner: /debugz/policy {str(policy)[:300]}")
+        metrics = http_get(mport, "/metrics").decode()
+        info = [ln for ln in metrics.splitlines()
+                if ln.startswith("gie_policy_info{")]
+        want = ",".join(f"{k}={float(getattr(sched.weights, k)):g}"
+                        for k in sorted(dataclasses.asdict(sched.weights)))
+        # The registry is the process's: earlier phases' runners left
+        # their own (blend) series beside this one.
+        info = [ln for ln in info if 'scorer="learned"' in ln]
+        check(len(info) == 1 and art["checksum"] in info[0]
+              and f'weights="{want}"' in info[0],
+              f"learned runner: gie_policy_info {info}")
+        for t in runner.picker._warm_threads:
+            t.join(300)
+    finally:
+        stop.set()
+        if runner is not None:
+            runner.stop()
+        for proc in procs:
+            proc.join(30)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    rec = {"phase": "learn-runner", "streams": STREAMS_PER_ROUND,
+           "answered": answered, "waves": waves, "launches": launches,
+           "burst_s": burst_s, "streams_per_s": answered / burst_s,
+           "policy_checksum": policy["artifact"]["checksum"],
+           "gie_policy_info": info[0]}
+    emit(rec)
+    return rec
+
+
+def learn_judge(dev, kernels, art) -> dict:
+    """(d): the port's judge on storm-noisy-neighbor and the trace fixture,
+    on the card and on a CPU engine, each engine run taking Gumbel noise
+    from a CPU generator seeded STORM_SEED: the verdict and both sides'
+    decision and schedule fingerprints equal."""
+    from gie_tpu_torch.learn import judge
+    from gie_tpu_torch.resilience import faults
+
+    out, wall = [], []
+    for where in (dev, torch.device("cpu")):
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.monotonic()
+        out.append(judge.judge(
+            art, scenarios=("storm-noisy-neighbor",),
+            trace_dumps=(LEARN_TRACE,), device=where,
+            noise_sources=lambda where=where: storm_noise(where)))
+        faults.set_clock(None)
+        wall.append(time.monotonic() - t0)
+        check(all(fn.launches == 0 for fn in kernels.values()),
+              "learn judge: the storm's tuned profile launched a kernel")
+    card, host = out
+    sides = ("heuristic", "learned")
+    fps = [(r["name"], [r[s]["decision_fingerprint"] for s in sides],
+            r["schedule_fingerprint"]) for r in card["scenarios"]]
+    check(card["promote"] == host["promote"]
+          and [r["passed"] for r in card["scenarios"]]
+          == [r["passed"] for r in host["scenarios"]]
+          and fps == [(r["name"], [r[s]["decision_fingerprint"]
+                                   for s in sides], r["schedule_fingerprint"])
+                      for r in host["scenarios"]],
+          f"learn judge: the card and the CPU differ: {fps} vs "
+          f"{[r[s]['decision_fingerprint'] for r in host['scenarios'] for s in sides]}")
+    rec = {"phase": "learn-judge", "promote": card["promote"],
+           "scenarios": {r["name"]: {"passed": r["passed"],
+                                     "decision_fingerprints": f}
+                         for (name, f, _), r in zip(fps, card["scenarios"])},
+           "judgment_equal_in_full": card == host,
+           "wall_s": {"card": wall[0], "cpu": wall[1]}}
+    emit(rec)
+    return rec
+
+
+def learn_checkpoint(dev, kernels, tmp) -> dict:
+    """(e): save_state on the card at M=256 after WAVES waves of phase 3's
+    profile, restore into a fresh card Scheduler and into a CPU one (both
+    exports bit-equal to the state saved), then a checkpoint without the
+    Sinkhorn duals restores with them at ones."""
+    from gie_tpu_torch.sched import Scheduler
+    from gie_tpu_torch.sched.config import tuned_profile
+
+    cfg, weights = tuned_profile()
+    cfg = dataclasses.replace(cfg, use_pallas_sinkhorn=True)
+    eps, wave = workload(dev)
+    gpu = Scheduler(cfg, weights, device=dev, seed=14)
+    for fn in kernels.values():
+        fn.launches = 0
+    for w in range(WAVES):
+        res = gpu.pick(wave(w), eps)
+        gpu.complete(res.indices[: N // 4, 0],
+                     np.full((N // 4,), 0.25, np.float32))
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    check(gpu.state.m == M, f"checkpoint: live bucket {gpu.state.m}")
+    path = f"{tmp}/checkpoint"
+    t0 = time.perf_counter()
+    gpu.save_state(path)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    saved = gpu.export_state()
+
+    def same(got, what):
+        diff = [k for k in saved if got[k].dtype != saved[k].dtype
+                or not np.array_equal(got[k], saved[k])]
+        check(set(got) == set(saved) and not diff,
+              f"checkpoint: {what} differs from the saved state in {diff}")
+
+    restored = {}
+    for where in (dev, torch.device("cpu")):
+        fresh = Scheduler(cfg, weights, device=where)
+        t0 = time.perf_counter()
+        check(fresh.restore_state(path), f"checkpoint: restore on {where}")
+        restored[where.type] = (time.perf_counter() - t0) * 1e3
+        check(fresh.state.m == M, f"checkpoint: {where} bucket "
+                                  f"{fresh.state.m}")
+        same(fresh.export_state(), f"the restore on {where}")
+    with np.load(f"{path}/{Scheduler._CHECKPOINT}") as z:
+        legacy = {k: z[k] for k in z.files if k != "ot_v"}
+    with open(f"{path}/{Scheduler._CHECKPOINT}", "wb") as f:
+        np.savez(f, **legacy)
+    fresh = Scheduler(cfg, weights, device=dev)
+    check(fresh.restore_state(path), "checkpoint: the legacy restore")
+    got = fresh.export_state()
+    check(np.array_equal(got["ot_v"], np.ones((M,), np.float32)),
+          "checkpoint: the legacy restore's duals are not ones")
+    same({**got, "ot_v": saved["ot_v"]}, "the legacy restore")
+    rec = {"phase": "learn-checkpoint", "m": M, "waves": WAVES,
+           "launches": launches, "save_ms": save_ms,
+           "restore_ms": restored, "bit_equal": ["cuda", "cpu"],
+           "legacy_restore": True}
+    emit(rec)
+    return rec
+
+
+def phase_learn(dev, kernels, tmp) -> dict:
+    """Phase 14: (a) the learned scorer with the Sinkhorn kernel and (b)
+    the random picker over phase 3's carried waves, each replayed on the
+    CPU (phase_slice), with a learned wave's wall time beside the classic
+    Sinkhorn wave's; (c) the runner under --scorer learned; (d) the judge,
+    card against CPU; (e) checkpoints."""
+    from gie_tpu_torch.sched.config import tuned_profile
+
+    t_phase = time.perf_counter()
+    art, cfg, weights = learned_profile()
+    tuned, tuned_w = tuned_profile()
+    classic = dataclasses.replace(tuned, use_pallas_sinkhorn=True)
+    learned = phase_slice(dev, "learned+use_pallas_sinkhorn", cfg, weights,
+                          kernels, "fused_sinkhorn_plan")
+    random_ = phase_slice(dev, "tuned+random",
+                          dataclasses.replace(tuned, picker="random"),
+                          tuned_w, kernels, None)
+    eps, wave = workload(dev)
+    timed = [wave(WAVES + w) for w in range(LEARN_TIMED_WAVES)]
+    timing = {"learned": timed_waves(dev, cfg, weights, eps, timed),
+              "classic": timed_waves(dev, classic, tuned_w, eps, timed)}
+    emit({"phase": "learn-timing", **timing})
+    served = learn_runner(dev, kernels, art, tmp)
+    judged = learn_judge(dev, kernels, art)
+    ckpt = learn_checkpoint(dev, kernels, tmp)
+    parts = (learned, random_, served, ckpt)
+    launches = {k: sum(p["launches"][k] for p in parts) for k in kernels}
+    summary = {"phase": "learn", "wall_s": time.perf_counter() - t_phase,
+               "launches": launches,
+               "learned_primary_agree": [learned["primary_agree"],
+                                         learned["rows"]],
+               "random_primary_agree": [random_["primary_agree"],
+                                        random_["rows"]],
+               "learned_wave_wall_ms": timing["learned"]["wall_ms_per_wave"],
+               "classic_wave_wall_ms": timing["classic"]["wall_ms_per_wave"],
+               "runner_answered": served["answered"],
+               "judge_promote": judged["promote"]}
+    emit(summary)
+    return summary
+
+
 def tail(path: str, n: int = 4000) -> str:
     with open(path, errors="replace") as f:
         return f.read()[-n:]
@@ -2700,11 +3006,14 @@ def main() -> int:
                        None, kernels, "fused_blend_topk")
     with tempfile.TemporaryDirectory() as tmp:
         kv = phase_kvevents(dev, kernels, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        learn = phase_learn(dev, kernels, tmp)
 
     line = []
     for rec, phases, source, replaces in (
         (records["fused_sinkhorn_plan"],
-         (sink, pick_sink, serve_sink, chaos_sink, warm_sink, pd_sink),
+         (sink, pick_sink, serve_sink, chaos_sink, warm_sink, pd_sink,
+          learn),
          "gie_tpu_torch/ops/csrc/fused_sinkhorn.cu",
          "gie_tpu/ops/fused_sinkhorn.py:66"),
         (records["fused_blend_topk"],

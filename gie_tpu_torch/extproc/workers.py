@@ -46,6 +46,17 @@ import grpc
 from gie_tpu_torch.extproc.service import add_extproc_service
 from gie_tpu_torch.runtime import metrics as own_metrics
 
+# How long gRPC core may keep an arrived call that the acceptor has not
+# taken up yet. grpc Python takes up one new call per turn of the
+# acceptor's poller thread, which needs the GIL for that and for every
+# completion event of the acceptor's open streams, so under a burst a
+# call can wait seconds for its turn. grpcio 1.80 cancels a call that
+# waits 30 s (CANCELLED, "CANCELLED"), where the grpcio the reference
+# runs on (1.76) cancels none; an hour restores the reference's "every
+# stream is answered" (hack/torch_scrape_probe.py --grpc-unrequested;
+# PERF.md). Envoy's own stream timeouts end a stream long before.
+UNREQUESTED_MAX_S = 3600
+
 
 class _AllStopped:
     """Aggregate of the per-worker stop events: ``wait`` returns True
@@ -100,7 +111,9 @@ class ExtProcWorkerPool:
                 max_workers=self._threads,
                 thread_name_prefix=f"extproc-w{index}",
             ),
-            options=(("grpc.so_reuseport", 1),),
+            options=(("grpc.so_reuseport", 1),
+                     ("grpc.server_max_unrequested_time_in_server",
+                      UNREQUESTED_MAX_S)),
         )
         accepts = own_metrics.WORKER_ACCEPTS.labels(worker=str(index))
         add_extproc_service(srv, self._streaming, wire=self._wire,

@@ -40,6 +40,8 @@ from gie_tpu_torch.datastore import Datastore
 from gie_tpu_torch.extproc.server import StreamingServer
 from gie_tpu_torch.extproc.workers import ExtProcWorkerPool
 from gie_tpu_torch.fairness import FairnessConfig, FairnessState, parse_weights
+from gie_tpu_torch.learn import artifact as artifact_mod
+from gie_tpu_torch.learn.policy import weights_from_mapping
 from gie_tpu_torch.metricsio import MetricsStore
 from gie_tpu_torch.metricsio.engine import ScrapeEngine
 from gie_tpu_torch.metricsio.mappings import BY_NAME
@@ -64,7 +66,7 @@ from gie_tpu_torch.sched import constants as C
 from gie_tpu_torch.sched.batching import BatchingTPUPicker
 from gie_tpu_torch.sched.config import load_scheduler_config_file, tuned_profile
 from gie_tpu_torch.sched.kvevents import KVEventAggregator, KVEventHTTPServer
-from gie_tpu_torch.sched.profile import Scheduler, _not_ported
+from gie_tpu_torch.sched.profile import Scheduler, _not_ported, feature_schema
 from gie_tpu_torch.utils.kubemeta import GKNN
 from gie_tpu_torch.utils.lora import LoraRegistry
 
@@ -84,7 +86,6 @@ def refuse_out_of_slice(opts: Options) -> None:
                            + ", ".join(federation) + ")", "federation"),
         (opts.fleet_topk > 0, "--fleet-topk", "fleet"),
         (opts.mesh_devices > 1, "--mesh-devices", "mesh"),
-        (opts.scorer == "learned", "--scorer learned", "scorer"),
         (opts.enable_predictor, "--enable-predictor", "predictor_fn"),
     )
     for refused, what, key in refusals:
@@ -104,6 +105,9 @@ class ExtProcServerRunner:
         self.log = get_logger("runner")
         self.cluster = cluster
         self.lora_registry = LoraRegistry()
+        # gie-learn: the loaded policy artifact (--scorer learned), for
+        # /debugz/policy and gie_policy_info.
+        self.policy_artifact = None
         if scheduler is not None:
             self.scheduler = scheduler
         else:
@@ -113,6 +117,24 @@ class ExtProcServerRunner:
             cfg, weights = tuned_profile()
             if opts.scheduler_config:
                 cfg, weights = load_scheduler_config_file(opts.scheduler_config)
+            if opts.scorer == "learned":
+                # The trained multiplicative policy: checksum-verified and
+                # its feature schema validated against THIS profile's live
+                # columns, so a stale artifact fails startup. Its
+                # exponents replace the weights wholesale (absent columns
+                # at 0.0, the multiplicative no-op).
+                art = artifact_mod.load_artifact(opts.policy_artifact)
+                artifact_mod.validate_feature_schema(art, feature_schema(cfg))
+                cfg = dataclasses.replace(cfg, scorer="learned")
+                weights = weights_from_mapping(
+                    artifact_mod.artifact_weight_values(art))
+                self.policy_artifact = art
+                self.log.info(
+                    "learned policy loaded", path=opts.policy_artifact,
+                    checksum=art["checksum"],
+                    columns=list(art["feature_schema"]),
+                    promoted=bool(
+                        (art.get("judgment") or {}).get("promote")))
             self.scheduler = Scheduler(cfg, weights=weights)
         self.metrics_store = MetricsStore()
         self.mapping = BY_NAME[opts.model_server_type]
@@ -374,12 +396,29 @@ class ExtProcServerRunner:
                 for f in dataclasses.fields(type(w))}
 
     def _policy_report(self) -> dict:
-        """/debugz/policy: which scorer this replica runs and the LIVE
-        blend weights the cycle reads (mirrors gie_policy_info)."""
-        return {
+        """/debugz/policy: which scorer this replica runs, the LIVE blend
+        or exponent weights the cycle reads, and with --scorer learned the
+        loaded artifact's identity, provenance and promotion verdict
+        (mirrors gie_policy_info)."""
+        report = {
             "scorer": getattr(self.scheduler.cfg, "scorer", "blend"),
             "weights": self._policy_weights(),
         }
+        art = self.policy_artifact
+        if art is not None:
+            judgment = art.get("judgment") or {}
+            report["artifact"] = {
+                "path": self.opts.policy_artifact,
+                "schema": art.get("schema"),
+                "checksum": art.get("checksum"),
+                "feature_schema": list(art.get("feature_schema", ())),
+                "provenance": art.get("provenance", {}),
+                "judgment_promote": judgment.get("promote"),
+                "judgment_scenarios": [
+                    {"name": row.get("name"), "passed": row.get("passed")}
+                    for row in judgment.get("scenarios", [])],
+            }
+        return report
 
     # -- scrape lifecycle follows endpoint lifecycle -----------------------
 
@@ -479,7 +518,7 @@ class ExtProcServerRunner:
             wire=wire_lane, workers=self.opts.extproc_workers)
         own_metrics.set_policy_info(
             scorer=getattr(self.scheduler.cfg, "scorer", "blend"),
-            weights=self._policy_weights())
+            weights=self._policy_weights(), artifact=self.policy_artifact)
         try:
             self.debugz_server = own_metrics.start_metrics_server(
                 self.opts.metrics_port,

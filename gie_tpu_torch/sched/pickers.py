@@ -109,3 +109,22 @@ def topk_picker(
     neg = torch.full((), NEG, dtype=torch.float32, device=scores.device)
     masked = torch.where(mask, quantized + rot * _TIE_EPS, neg)
     return _finalize(masked, mask, shed, valid, lane_tiebreak=False)
+
+
+def weighted_random_picker(
+    scores: torch.Tensor,  # f32[N, M]
+    mask: torch.Tensor,    # bool[N, M]
+    shed: torch.Tensor,    # bool[N]
+    valid: torch.Tensor,   # bool[N]
+    gumbel: torch.Tensor,  # f32[N, M] standard Gumbel noise
+    *,
+    temperature: float = 0.05,
+) -> PickResult:
+    """Gumbel-top-k sampling picker: spreads a wave across near-equal
+    endpoints instead of herding it onto the argmax. The reference draws
+    the noise from the wave's key inside the cycle; here it comes in as
+    `gumbel`, the same standard draws the sinkhorn picker takes, scaled by
+    `temperature`."""
+    neg = torch.full((), NEG, dtype=torch.float32, device=scores.device)
+    masked = torch.where(mask, scores + gumbel * float(temperature), neg)
+    return _finalize(masked, mask, shed, valid)

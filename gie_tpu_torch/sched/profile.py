@@ -23,8 +23,10 @@ import dataclasses
 import functools
 import itertools
 import logging
+import os
 import threading
 import time
+import zipfile
 from typing import Callable, Optional
 
 import numpy as np
@@ -50,8 +52,6 @@ log = logging.getLogger(__name__)
 # Later slices of the port (ROADMAP.md, Queue 1) that bring what this one
 # rejects at construction.
 _LATER = {
-    "scorer": "the learned-scorer slice",
-    "picker": "the random-picker slice",
     "predictor_fn": "the latency-predictor slice",
     "mesh": "the multi-device slice",
     "federation": "the federation slice",
@@ -87,7 +87,7 @@ class ProfileConfig:
     enable_session: bool = True
     session_key_chunks: int = 1
     shed_sheddable: bool = True
-    picker: str = "topk"         # "topk" | "sinkhorn" ("random": later slice)
+    picker: str = "topk"         # "topk" | "random" | "sinkhorn"
     sample_temperature: float = 0.05
     sinkhorn_tau: float = 0.02
     sinkhorn_iters: int = 8
@@ -97,7 +97,7 @@ class ProfileConfig:
     use_pallas_topk: bool = False
     # Route the Sinkhorn solve through the fused Sinkhorn kernel.
     use_pallas_sinkhorn: bool = False
-    scorer: str = "blend"        # "blend" ("learned": later slice)
+    scorer: str = "blend"        # "blend" | "learned"
     record_affinity: bool = True
 
     def __post_init__(self) -> None:
@@ -127,11 +127,6 @@ class ProfileConfig:
             raise ValueError(
                 f"unknown picker {self.picker!r}; known: topk, random, "
                 "sinkhorn")
-        # What this slice of the port does not carry yet.
-        if self.scorer == "learned":
-            raise _not_ported("scorer='learned'", "scorer")
-        if self.picker == "random":
-            raise _not_ported("picker='random'", "picker")
 
 
 def _affinity_columns(named: dict, primary: torch.Tensor,
@@ -269,8 +264,14 @@ def build_stages(
     if wvec is None:
         wvec = _weight_vector(weights, tuple(named), mask.device)
     total = None
-    if cfg.pd_disaggregation or not (cfg.picker == "topk"
-                                     and cfg.use_pallas_topk):
+    if cfg.scorer == "learned":
+        # The gie-learn multiplicative policy; the reference forbids it
+        # beside the fused top-k and the dual pick (ProfileConfig).
+        from gie_tpu_torch.learn.policy import multiplicative_total
+
+        total = multiplicative_total(stacked, wvec)
+    elif cfg.pd_disaggregation or not (cfg.picker == "topk"
+                                       and cfg.use_pallas_topk):
         total = blend(wvec, stacked)
     return mask, shed, named, stacked, wvec, total
 
@@ -293,13 +294,21 @@ def _pick_stage(
     gumbel: Optional[torch.Tensor],
     cfg: ProfileConfig,
 ) -> tuple[PickResult, dict]:
-    """The configured picker; the aux dict carries the Sinkhorn duals."""
+    """The configured picker; the aux dict carries the Sinkhorn duals.
+    `gumbel` is the wave's standard Gumbel noise, which the random and
+    sinkhorn pickers take (the reference hands both the wave's key)."""
     if cfg.picker == "topk" and cfg.use_pallas_topk:
         from gie_tpu_torch.ops.fused_topk import fused_blend_topk
 
         vals, idxs = fused_blend_topk(stacked, wvec, mask, k=C.FALLBACKS)
         return pickers.finalize_from_topk(
             vals, idxs, mask, shed, reqs.valid), {}
+    if cfg.picker == "random":
+        if gumbel is None:
+            raise ValueError("the random picker needs a Gumbel noise tensor")
+        return pickers.weighted_random_picker(
+            total, mask, shed, reqs.valid, gumbel,
+            temperature=cfg.sample_temperature), {}
     if cfg.picker == "sinkhorn":
         from gie_tpu_torch.sched.sinkhorn import sinkhorn_picker
 
@@ -332,10 +341,11 @@ def scheduling_cycle(
     role of the reference's donated buffers) and returns (result, state).
 
     `gumbel` is the standard Gumbel noise f32[N, M] the sinkhorn picker's
-    rounding uses (the reference draws it from its PRNG key inside the
-    cycle), f32[2, N, M] under pd_disaggregation (plane 0 for the prefill
-    solve, plane 1 for the decode solve: the reference's split of the
-    wave's key); other pickers ignore it and take None. `wvec`: see
+    rounding and the random picker's sampling use (the reference draws it
+    from its PRNG key inside the cycle), f32[2, N, M] under
+    pd_disaggregation (plane 0 for the prefill pick, plane 1 for the
+    decode pick: the reference's split of the wave's key); the top-k
+    picker ignores it and takes None. `wvec`: see
     build_stages. The cycle makes no call that waits for the device, so
     it can be captured into a CUDA graph (sched/graphs.py).
     """
@@ -611,7 +621,7 @@ class Scheduler:
     first use, and never reallocated: a bucket change fills the target
     bucket's tensors from the current one's (resize_into) and an install
     copies into them, so the addresses a captured cycle holds stay live.
-    Randomness: the sinkhorn picker's Gumbel noise comes from a
+    Randomness: the sinkhorn and random pickers' Gumbel noise comes from a
     torch.Generator on the scheduler's device seeded with `seed`, or from
     `noise_source(shape) -> Tensor` when given (the parity tests replay
     the JAX scheduler's noise through it).
@@ -725,8 +735,8 @@ class Scheduler:
 
     def _noise_shape(self, n: int, m: int) -> Optional[tuple]:
         """The Gumbel noise a wave of (n, m) draws: [n, m] for the sinkhorn
-        picker, [2, n, m] for its dual pick, none for the others."""
-        if self.cfg.picker != "sinkhorn":
+        and random pickers, [2, n, m] for their dual pick, none for top-k."""
+        if self.cfg.picker == "topk":
             return None
         return (2, n, m) if self.cfg.pd_disaggregation else (n, m)
 
@@ -1228,6 +1238,58 @@ class Scheduler:
             self._apply_queued()
             load = self.state.assumed_load.clone()
         return load.cpu().numpy()
+
+    # -- warm-restart persistence -------------------------------------------
+    # The reference accepts prefix-index loss on restart; a checkpoint lets
+    # a restarted EPP keep its cache affinity. The reference writes it with
+    # orbax, a JAX library; the port, which imports no JAX, writes the
+    # export_state arrays as one .npz (the two formats differ; a reference
+    # checkpoint crosses over through export_state / install_state).
+
+    _CHECKPOINT = "sched_state.npz"
+
+    def save_state(self, directory: str) -> None:
+        """Write the live state to `directory`: read to host under the
+        lock, after the queued completions and event folds are applied, so
+        the file holds one consistent state; written to a temporary name
+        and renamed over the checkpoint."""
+        from gie_tpu_torch.convert import state_to_numpy
+
+        with self._lock:
+            self._apply_queued()
+            arrays = state_to_numpy(self.state)
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory, self._CHECKPOINT)
+        with open(path + ".tmp", "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(path + ".tmp", path)
+
+    def restore_state(self, directory: str) -> bool:
+        """Install the checkpoint in `directory`; False (the state left as
+        it was) when it is missing, unreadable or inconsistent. The saved
+        state keeps the M bucket it was saved at, which becomes the live
+        one (the next pick migrates it as usual). A checkpoint written
+        before the Sinkhorn duals existed restores with them at ones, as
+        the reference's legacy restore fills them. The cross-field shape
+        check (check_state_shapes) refuses a mixed layout, and a prefix
+        table of another row count than this scheduler's is refused too:
+        its states are allocated once."""
+        path = os.path.join(directory, self._CHECKPOINT)
+        try:
+            with np.load(path, allow_pickle=False) as saved:
+                arrays = {k: saved[k] for k in saved.files}
+        except (OSError, ValueError, EOFError, zipfile.BadZipFile):
+            return False
+        if "ot_v" not in arrays and "assumed_load" in arrays:
+            arrays["ot_v"] = np.ones(np.shape(arrays["assumed_load"]),
+                                     np.float32)
+        restored = self.prepare_install(arrays)
+        if restored is None:
+            return False
+        with self._lock:
+            self._apply_queued()           # then overwritten
+            self.state = resize_into(restored, self._bucket_state(restored.m))
+        return True
 
     # -- replication digest surface ----------------------------------------
 

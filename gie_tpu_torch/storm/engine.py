@@ -35,9 +35,10 @@ What the port adds to the reference engine, and nothing else:
                 probes raise it, where the reference's engine scores any
                 stream error as a client 5xx and carries on.
 
-Subsystems of later slices are refused at construction, before any stub
-or thread exists: a non-blend scorer or policy weights, a mesh, the fleet
-picker, federation, autoscale and the replication standby (each raises
+The learned scorer (``scorer``, ``policy_weights``) runs as the
+reference runs it, the judge's path (learn/judge.py). Subsystems of later
+slices are refused at construction, before any stub or thread exists: a
+mesh, the fleet picker, federation, autoscale and the replication standby (each raises
 the port's not-ported error naming its slice). Their branches of the
 reference engine are not carried; their tallies stay in the decision
 digest as the empty values the reference records when they are off, so
@@ -71,6 +72,7 @@ from gie_tpu_torch.extproc.server import (
     StreamAborted,
     StreamingServer,
 )
+from gie_tpu_torch.learn.policy import float32_from_hex, weights_from_mapping
 from gie_tpu_torch.metricsio import MetricsStore
 from gie_tpu_torch.metricsio.engine import ScrapeEngine
 from gie_tpu_torch.metricsio.mappings import VLLM
@@ -168,8 +170,8 @@ class FederationSpec:
 @dataclasses.dataclass
 class EngineConfig:
     """The reference's fields and defaults (see gie_tpu/storm/engine.py
-    for each knob's rationale). The subsystems of later slices — scorer
-    != "blend" / policy_weights, mesh_devices > 1, fleet_topk > 0,
+    for each knob's rationale). The subsystems of later slices —
+    mesh_devices > 1, fleet_topk > 0,
     federation, autoscale_max_extra > 0, standby — are refused by
     StormEngine."""
 
@@ -226,9 +228,6 @@ def _refuse_later_slices(cfg: EngineConfig, program: Program) -> None:
     """Raise the not-ported error for the first subsystem of a later
     slice that `cfg` or `program` asks for, in the reference engine's
     construction order."""
-    if cfg.scorer != "blend" or cfg.policy_weights:
-        raise _not_ported(f"storm scorer {cfg.scorer!r} (policy_weights "
-                          f"{cfg.policy_weights!r})", "scorer")
     if cfg.mesh_devices > 1:
         raise _not_ported("a storm over a scheduling mesh", "mesh")
     if cfg.fleet_topk > 0:
@@ -501,6 +500,14 @@ class StormEngine:
         prof, weights = tuned_profile()
         prof = dataclasses.replace(
             prof, queue_limit=cfg.queue_limit, kv_limit=cfg.kv_limit)
+        if cfg.scorer != "blend":
+            # The gie-learn judge path: the multiplicative scorer with the
+            # trained exponents (bit-exact from their float32 hex form).
+            prof = dataclasses.replace(prof, scorer=cfg.scorer)
+            if cfg.policy_weights:
+                weights = weights_from_mapping({
+                    name: float(float32_from_hex(hexed))
+                    for name, hexed in cfg.policy_weights})
         self.scheduler = Scheduler(prof, weights=weights, device=self.device,
                                    noise_source=self.noise_source)
         # Virtual mode hands every subsystem the same clock; real mode

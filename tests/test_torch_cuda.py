@@ -670,8 +670,22 @@ def test_golden_stream_makes_no_synchronizing_call(dev, config):
 
 def _config(config):
     """(cfg, weights, the path's kernel wrapper) of a card configuration;
-    a "+pd" suffix turns on pd_disaggregation."""
+    a "+pd" suffix turns on pd_disaggregation. "learned+sinkhorn-kernel"
+    is the tuned Sinkhorn-kernel profile under the committed policy
+    artifact's exponents, "tuned+random" the tuned profile with the random
+    picker (no kernel: its wrapper is None)."""
     pd = config.endswith("+pd")
+    if config == "learned+sinkhorn-kernel":
+        from gie_tpu_torch.learn import artifact
+
+        art = artifact.load_artifact("config/policy/storm-lora-v1.json")
+        cfg, _ = tuned_profile()
+        return (dataclasses.replace(cfg, use_pallas_sinkhorn=True,
+                                    scorer="learned"),
+                artifact.to_sched_weights(art), fused_sinkhorn_plan)
+    if config == "tuned+random":
+        cfg, weights = tuned_profile()
+        return dataclasses.replace(cfg, picker="random"), weights, None
     if config.startswith("topk-kernel"):
         return (ProfileConfig(picker="topk", use_pallas_topk=True,
                               pd_disaggregation=pd), None, fused_blend_topk)
@@ -714,7 +728,7 @@ def _replay_matches_eager(sched, reqs, eps):
         sched._apply_queued()
         start = _copy_state(sched._use_bucket(m))
     res = sched.pick(reqs, eps)
-    gumbel = sched.drawn[-1] if sched.cfg.picker == "sinkhorn" else None
+    gumbel = sched.drawn[-1] if sched.cfg.picker != "topk" else None
     with ops.tally({}):
         ref, end = scheduling_cycle(
             start, pad_requests(_batch_to_device(reqs, sched.device),
@@ -761,6 +775,72 @@ def test_replayed_waves_match_the_eager_cycle(dev, config):
     assert list(sched._graphs) == [(1024, 256, 32)]
     assert counter.launches == before + 5
     assert counter.warmup_launches == warm + 1
+
+
+@pytest.mark.parametrize("config", ["learned+sinkhorn-kernel", "tuned+random"])
+def test_learned_and_random_replays_match_the_eager_cycle(dev, config):
+    """3 carried waves of 1024 x 256 under the learned scorer (the
+    multiplicative total into the Sinkhorn kernel) and under the random
+    picker (the wave's noise scaled by sample_temperature), each a replay
+    of the captured cycle, against the eager cycle on a copy of the state
+    with the same noise; one Sinkhorn launch a learned wave, none for the
+    random picker."""
+    sched = _recorded_scheduler(config, dev)
+    counter = _config(config)[2]
+    before = {fn: fn.launches for fn in (fused_sinkhorn_plan,
+                                         fused_blend_topk)}
+    for w in range(3):
+        reqs, eps = _wave_inputs(n=1024, m=256, live=200, seed=w)
+        res = _replay_matches_eager(sched, reqs, eps)
+        assert (res.status == 0).mean() > 0.9
+        sched.complete(res.indices[:512, 0], np.full(512, 0.5, np.float32))
+    assert len(sched.drawn) == 3 and sched.warm_inline_compiles == 1
+    for fn, n in before.items():
+        assert fn.launches == n + (3 if fn is counter else 0)
+
+
+def test_save_state_during_waves_restores_a_consistent_state(dev, tmp_path):
+    """save_state while another thread picks wave after wave on the card:
+    each checkpoint restores (on the card and on the CPU) to the state
+    after one of those waves, bit for bit, never a mix of two."""
+    sched = _recorded_scheduler("tuned+sinkhorn-kernel", dev)
+    states, errors = {}, []
+    done = threading.Event()
+
+    def waves():
+        try:
+            for w in range(16):
+                reqs, eps = _wave_inputs(n=1024, m=256, live=200, seed=w % 4)
+                sched.pick(reqs, eps)       # only picks change the state
+                state = sched.export_state()
+                states[int(state["tick"])] = state
+        except Exception as e:          # reported by the main thread
+            errors.append(e)
+        finally:
+            done.set()
+
+    t = threading.Thread(target=waves)
+    t.start()
+    saves = []
+    while not done.is_set() and len(saves) < 8:
+        d = tmp_path / f"s{len(saves)}"
+        sched.save_state(str(d))
+        saves.append(d)
+    t.join()
+    assert not errors and saves
+    states[0] = None                    # a save before the first wave
+    for d in saves:
+        for where in (dev, torch.device("cpu")):
+            fresh = Scheduler(*_config("tuned+sinkhorn-kernel")[:2],
+                              device=where)
+            assert fresh.restore_state(str(d))
+            got = fresh.export_state()
+            want = states[int(got["tick"])]
+            if want is None:
+                continue
+            for k in want:
+                assert got[k].dtype == want[k].dtype, k
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 @pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel", "topk-kernel"])
@@ -1152,3 +1232,80 @@ def test_pd_lattice_warms_and_explain_matches_cpu(dev, config):
         else:
             np.testing.assert_allclose(got[k], ref[k], atol=1e-5, rtol=0,
                                        err_msg=k)
+
+
+_HELD_SERVER = r"""
+import ctypes, sys, time
+from gie_tpu_torch.extproc.workers import ExtProcWorkerPool
+
+class Session:
+    done = False
+    def feed(self, data):
+        return [data]
+    def close(self, error):
+        pass
+
+class Streaming:
+    def wire_session(self):
+        return Session()
+
+pool = ExtProcWorkerPool(Streaming(), 1, wire=True)
+print(pool.bind("127.0.0.1:0"), flush=True)
+pool.start()
+sys.stdin.readline()                         # the client is connected
+time.sleep(0.5)
+ctypes.PyDLL(None).sleep(int(sys.argv[1]))   # blocks with the GIL held
+time.sleep(int(sys.argv[1]) / 2 + 5)
+pool.stop(0).wait(10)
+"""
+
+
+def test_acceptor_answers_a_stream_that_waited_past_30_s(dev):
+    """grpcio 1.80 cancels a call that its server has not taken up within
+    30 s, and a call is taken up by the acceptor's poller thread, which
+    needs the GIL. The port's acceptors raise that limit
+    (extproc/workers.py UNREQUESTED_MAX_S): with the server's GIL held
+    35 s while a stream opens every 0.5 s, every stream is answered, the
+    longest after waiting past 30 s."""
+    import subprocess
+    import sys
+
+    import grpc
+
+    hold = 35
+    server = subprocess.Popen(
+        [sys.executable, "-c", _HELD_SERVER, str(hold)],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    try:
+        port = int(server.stdout.readline())
+        chan = grpc.insecure_channel(f"127.0.0.1:{port}")
+        method = chan.stream_stream(
+            "/envoy.service.ext_proc.v3.ExternalProcessor/Process")
+        assert list(method(iter([b"warm"]), timeout=30)) == [b"warm"]
+        server.stdin.write("go\n")
+        server.stdin.flush()
+        out = []
+
+        def one(i):
+            time.sleep(i * 0.5)
+            t0 = time.monotonic()
+            try:
+                got = list(method(iter([b"x%d" % i]), timeout=3 * hold))
+                out.append((got == [b"x%d" % i], time.monotonic() - t0))
+            except grpc.RpcError as e:
+                out.append((f"{e.code()}: {e.details()}",
+                            time.monotonic() - t0))
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(2 * hold)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(4 * hold)
+        chan.close()
+        assert not any(t.is_alive() for t in threads)
+        assert [o for o in out if o[0] is not True] == []
+        assert len(out) == 2 * hold and max(w for _, w in out) > 30.0
+    finally:
+        server.kill()
+        server.wait(30)

@@ -254,7 +254,8 @@ def test_descriptors_byte_identical():
 LIVE = ["--no-resilience", "--no-obs"]
 # (argv, the _LATER key of the slice it is refused until, or None where
 # the runner builds: the resilience and observability layers, both on by
-# default, --fault arming and the KV-event listener are ported).
+# default, --fault arming, the KV-event listener and the learned scorer
+# are ported).
 REFUSED = [
     ([], None),                                 # resilience + obs on
     (["--no-resilience"], None),                # obs on
@@ -267,7 +268,9 @@ REFUSED = [
     (LIVE + ["--kv-events-port", "19300"], None),
     (LIVE + ["--fleet-topk", "2"], "fleet"),
     (LIVE + ["--mesh-devices", "2"], "mesh"),
-    (LIVE + ["--scorer", "learned", "--policy-artifact", "x.json"], "scorer"),
+    # Ported: with a scheduler injected the runner reads no artifact,
+    # as the reference's does not.
+    (LIVE + ["--scorer", "learned", "--policy-artifact", "x.json"], None),
     (LIVE + ["--enable-predictor"], "predictor_fn"),
     (LIVE + ["--fault", "scrape.fetch=error:0.5"], None),
 ]
@@ -366,3 +369,34 @@ def test_pd_scheduler_config_builds_a_pd_runner(tmp_path, monkeypatch):
         assert runner.picker.pd_budget_floor_s == pytest.approx(0.12)
     finally:
         runner.stop()
+
+
+def test_acceptors_keep_arrived_calls_until_the_poller_takes_them(
+        monkeypatch):
+    """Every SO_REUSEPORT acceptor is built with gRPC core's limit on an
+    arrived call's wait for the acceptor's poller raised past any stream
+    timeout (grpcio 1.80 cancels such a call after 30 s by default; the
+    card test test_acceptor_answers_a_stream_that_waited_past_30_s holds
+    it there)."""
+    import grpc
+
+    from gie_tpu_torch.extproc import workers
+
+    seen = []
+    real = grpc.server
+
+    def spy(*args, **kwargs):
+        seen.append(dict(kwargs.get("options", ())))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(workers.grpc, "server", spy)
+    pool = workers.ExtProcWorkerPool(object(), 3, wire=True)
+    assert pool.bind("127.0.0.1:0") > 0
+    pool.stop(0).wait(10)
+    assert len(seen) == 3
+    for options in seen:
+        assert options == {
+            "grpc.so_reuseport": 1,
+            "grpc.server_max_unrequested_time_in_server":
+                workers.UNREQUESTED_MAX_S}
+    assert workers.UNREQUESTED_MAX_S >= 3600

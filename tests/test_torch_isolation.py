@@ -112,13 +112,19 @@ def test_scheduler_without_device_raises_when_cuda_is_absent(monkeypatch):
     assert Scheduler(device="cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("kwargs, slice_name", [
-    ({"scorer": "learned"}, "learned-scorer"),
-    ({"picker": "random"}, "random-picker"),
+@pytest.mark.parametrize("kwargs", [
+    {"scorer": "learned"},
+    {"picker": "random"},
+    {"picker": "random", "pd_disaggregation": True},
 ])
-def test_out_of_slice_config_raises(kwargs, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
-        ProfileConfig(**kwargs)
+def test_formerly_refused_config_builds(kwargs):
+    """The learned scorer and the random picker are ported: a profile
+    that asks for them builds a Scheduler, and the reference agrees."""
+    from gie_tpu.sched.profile import ProfileConfig as JaxProfileConfig
+
+    assert Scheduler(ProfileConfig(**kwargs), device="cpu").cfg == (
+        ProfileConfig(**kwargs))
+    JaxProfileConfig(**kwargs)
 
 
 @pytest.mark.parametrize("kwargs, slice_name", [

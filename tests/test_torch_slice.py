@@ -265,3 +265,25 @@ weights: {queue: 2.5, prefix: 4.0, session: 8.0}
     assert type(jw)(**convert.weights_to_numpy(w)) == jw
     with pytest.raises(ValueError, match="unknown scheduler config key"):
         load_scheduler_config("bogus: 1")
+
+
+def test_queued_releases_on_a_hot_slot_apply_as_the_calls_one_by_one():
+    """A queue whose calls mostly release one slot (hundreds of layers,
+    as a burst's completions pile up behind a capture): applied in its
+    layers, the load is bit-equal to the calls applied one by one."""
+    _, tsched, _, _ = _run_waves("tuned-sinkhorn-kernel", waves=1)
+    queued = Scheduler(*tuned_profile(), seed=SEED, device="cpu")
+    assert queued.install_state(tsched.export_state())
+    rng = np.random.default_rng(6)
+    calls = []
+    for _ in range(600):
+        slots = np.where(rng.uniform(size=2) < 0.8, 3,
+                         rng.integers(-1, M + 2, 2)).astype(np.int64)
+        calls.append(("complete", slots,
+                      rng.uniform(0, 0.05, 2).astype(np.float32)))
+    for call in calls:
+        tsched.complete(call[1], call[2])
+        queued._enqueue(call)
+    np.testing.assert_array_equal(queued.snapshot_assumed_load(),
+                                  tsched.snapshot_assumed_load())
+    assert queued._queued == []

@@ -82,9 +82,6 @@ def _program(shapes=()):
 
 
 REFUSALS = {
-    "scorer": (EngineConfig(scorer="learned"), ()),
-    "scorer-weights": (EngineConfig(policy_weights=(("queue", "3f800000"),)),
-                       ()),
     "mesh": (EngineConfig(mesh_devices=8), ()),
     "fleet": (EngineConfig(fleet_topk=4), ()),
     "federation": (EngineConfig(federation=FederationSpec()), ()),
