@@ -146,16 +146,46 @@ count adds the launches a replay makes:
      one, both exports bit-equal to the state saved, and a checkpoint
      without the Sinkhorn duals restoring them at ones. Prints its wall
      seconds and its kernel launches;
+ 15. HA state replication, the file lease and the autoscale loop on the
+     card: (a) a leader and a follower Scheduler (tuned +
+     use_pallas_sinkhorn, M=256), each with a ReplicationManager on
+     loopback over one LeaseFileElector lease: the leader runs phase 3's 5
+     carried waves, the follower syncs (its export bit-equal to the
+     leader's and to a CPU Scheduler restored from the decoded digest),
+     the leader's lease is released, the follower promotes and runs 5 more
+     waves, each replayed on that CPU Scheduler with the same noise; the
+     digest's bytes, the export time on the card, the encode and decode
+     times and the time from release to promotion; (b) two server
+     processes built from the real flags (--leader-elect
+     --leader-lease-path --replication-port, --autoscale-mode recommend,
+     phase 6's scheduler config) over 256 stub pods: the leader answers a
+     warm-up round and a burst of 1024 streams, its /metrics carries
+     gie_autoscale_desired_replicas and _recommendations_total, the
+     follower's "replication" sub-service reads SERVING with
+     gie_replication_epoch_lag at most 1; the leader is SIGKILLed, the
+     follower's readiness reads SERVING within the lease TTL plus 5 s,
+     and it answers 1024 streams at FULL, one Sinkhorn launch a wave, each
+     system prompt's streams landing mostly where the leader's picks put
+     it (the share printed beside the share a cold table reaches by
+     chance); (c) storm-capacity and storm-soak under virtual time on the
+     card and on a CPU engine (phase 10's noise): decisions, the autoscale
+     steps, the standby probes and the in-storm fault counts equal. Prints
+     each part's wall seconds;
  11. the `kernels` line: launches on the main path (phases 3-6, 8, 9, 12,
-     13 and 14, replays counted), error, times, bound.
+     13, 14 and 15, replays counted; phase 15's promoted server reports
+     its own), error, times, bound.
 Then the card's name and power limit (nvidia-smi), and as the last line
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. Every listener the script starts takes its
+port from free_port(), which draws below Linux's ephemeral range, so no
+bind(0) or outgoing connection can take it before the listener binds.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import random
 import statistics
 import subprocess
 import sys
@@ -188,6 +218,15 @@ def emit(obj: dict) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def same_export(got: dict, want: dict, what: str) -> None:
+    """Two export_state dicts hold the same arrays, bit for bit."""
+    differ = [k for k in want if k not in got or got[k].dtype != want[k].dtype
+              or got[k].shape != want[k].shape
+              or got[k].tobytes() != want[k].tobytes()]
+    check(set(got) == set(want) and not differ,
+          f"{what}: the export differs in {differ or sorted(set(got) ^ set(want))}")
 
 
 def cuda_ms(fn, reps: int = 20, trials: int = 5, warmup: int = 5) -> float:
@@ -405,6 +444,34 @@ def workload(dev):
     return eps, wave
 
 
+def compare_primaries(res, ref, valid, name) -> np.ndarray:
+    """A card wave `res` against its CPU replay `ref`: statuses equal, OK
+    primaries valid slots with finite scores, and primaries equal wherever
+    the CPU's top-two gap is 1e-4 or more. -> the rows whose primaries
+    differ."""
+    check((res.status == ref.status).all(), f"{name}: statuses differ")
+    ok = res.status == 0
+    prim = res.indices[ok, 0]
+    check(bool(((prim >= 0) & (prim < M)).all()) and bool(valid[prim].all()),
+          f"{name}: an OK pick names an invalid slot")
+    check(bool(np.isfinite(res.scores[ok, 0]).all()),
+          f"{name}: non-finite score on an OK pick")
+    differ = res.indices[:, 0] != ref.indices[:, 0]
+    gap = ref.scores[:, 0] - ref.scores[:, 1]
+    check(bool((gap[differ] < 1e-4).all()),
+          f"{name}: a pick differs where the CPU top-two gap >= 1e-4")
+    return differ
+
+
+def complete_half(sched, res, reqs) -> None:
+    """Completion feedback for the first half of a wave."""
+    from gie_tpu_torch.sched.profile import request_cost_host
+
+    costs = np.asarray([request_cost_host(float(p)) for p in
+                        reqs.prompt_len[: N // 2].cpu().numpy()], np.float32)
+    sched.complete(res.indices[: N // 2, 0], costs)
+
+
 def phase_slice(dev, name, cfg, weights, kernels, own) -> dict:
     """Drive `cfg` on the card over carried waves; replay every wave on a
     CPU Scheduler from the same state with the same noise. Every kernel
@@ -413,7 +480,7 @@ def phase_slice(dev, name, cfg, weights, kernels, own) -> dict:
     with `own` None (phase 14's random picker) no kernel at all."""
     from gie_tpu_torch import convert
     from gie_tpu_torch.sched import Scheduler
-    from gie_tpu_torch.sched.profile import gumbel_noise, request_cost_host
+    from gie_tpu_torch.sched.profile import gumbel_noise
     from gie_tpu_torch.sched.types import RequestBatch
 
     gen = torch.Generator(device=dev)
@@ -452,27 +519,13 @@ def phase_slice(dev, name, cfg, weights, kernels, own) -> dict:
             check(kernels[own].launches == w + 1,
                   f"{name}: {kernels[own].launches} kernel launches after "
                   f"{w + 1} waves")
-        ref = cpu.pick(cpu_waves[w], eps_cpu)
-        check((res.status == ref.status).all(), f"{name}: statuses differ")
-        ok = res.status == 0
-        prim = res.indices[ok, 0]
-        check(bool(((prim >= 0) & (prim < M)).all()) and bool(valid[prim].all()),
-              f"{name}: an OK pick names an invalid slot")
-        check(bool(np.isfinite(res.scores[ok, 0]).all()),
-              f"{name}: non-finite score on an OK pick")
-        differ = res.indices[:, 0] != ref.indices[:, 0]
-        gap = ref.scores[:, 0] - ref.scores[:, 1]
-        check(bool((gap[differ] < 1e-4).all()),
-              f"{name}: a pick differs where the CPU top-two gap >= 1e-4")
+        differ = compare_primaries(res, cpu.pick(cpu_waves[w], eps_cpu),
+                                   valid, name)
         agree += int((~differ).sum())
         allowed += int(differ.sum())
         rows += len(differ)
-        # Completion feedback for the first half of the wave.
-        half = res.indices[: N // 2, 0]
-        costs = np.asarray([request_cost_host(float(p)) for p in
-                            reqs.prompt_len[: N // 2].cpu().numpy()],
-                           np.float32)
-        gpu.complete(half, costs)
+        complete_half(gpu, res, reqs)
+        ok = res.status == 0
         emit({"phase": "slice", "config": name, "wave": w,
               "ms": wave_ms[-1], "ok_rows": int(ok.sum()),
               "primary_agree": int((~differ).sum()), "rows": len(differ)})
@@ -1182,11 +1235,12 @@ def storm_run(name, dev, kernels, *, virtual=True, pool=None) -> dict:
     return {"rec": rec, "scorecard": score}
 
 
-def same_storm(card_run, cpu_run) -> None:
-    """A card run and its CPU run reached the same decisions."""
+def same_storm(card_run, cpu_run, extra=()) -> None:
+    """A card run and its CPU run reached the same decisions (and the
+    same `extra` scorecard fields)."""
     a, b = card_run["scorecard"], cpu_run["scorecard"]
     name = a["name"]
-    fields = ("decision_fingerprint",) + STORM_COUNTS
+    fields = ("decision_fingerprint",) + STORM_COUNTS + tuple(extra)
     diff = [f for f in fields if a[f] != b[f]]
     diff += [f"per_tenant.{t}" for t in sorted(set(a["per_tenant"])
                                                | set(b["per_tenant"]))
@@ -1263,12 +1317,43 @@ def need_transport():
             f"packages: {e}") from None
 
 
+PORT_SEED = 0x9E11          # with the pid, seeds the generator free_port draws from
+_port_rng = random.Random(PORT_SEED ^ os.getpid())
+_ports_chosen: set = set()
+
+
+def local_port_range() -> tuple:
+    """Linux's ephemeral range (ip_local_port_range): every bind(0) and
+    outgoing connect() on the host draws its port from it."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo, hi = (int(x) for x in f.read().split())
+    except (OSError, ValueError):
+        lo, hi = 32768, 60999                      # the kernel's default
+    return lo, hi
+
+
 def free_port() -> int:
+    """A port for a listener this script starts: drawn from a seeded
+    generator from above 1024 to below the ephemeral range, so no bind(0)
+    or outgoing connection of another part of the run can take it between
+    this choice and the listener's bind; checked to bind on the wildcard
+    now; never the same port twice in one run."""
     import socket
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+    lo, _hi = local_port_range()
+    for _ in range(10_000):
+        port = _port_rng.randrange(1025, lo)
+        if port in _ports_chosen:
+            continue
+        _ports_chosen.add(port)
+        with socket.socket() as sock:
+            try:
+                sock.bind(("0.0.0.0", port))
+            except OSError:
+                continue                           # held by someone else
+        return port
+    raise RuntimeError(f"no free port in 1025..{lo - 1}")
 
 
 def write_scheduler_config(cfg, weights, tmp) -> str:
@@ -1972,7 +2057,6 @@ def phase_main(cfg, weights, tmp) -> dict:
     stream's trace, the OpenMetrics /metrics carrying a trace_id exemplar
     on the pick-latency histogram, OTLP spans at the sink, then SIGTERM
     and exit 0 within MAIN_EXIT_S."""
-    import os
     import re
     import signal
 
@@ -2034,24 +2118,40 @@ def phase_main(cfg, weights, tmp) -> dict:
         check(health_status(hport, "resilience") == SERVING,
               "main: the resilience sub-service is not SERVING after the "
               "streams")
-        picks = json.loads(http_get(mport, f"/debugz/picks?n={MAIN_STREAMS}"))
+        def get(path, accept=""):
+            """GET from the metrics port; a refused or failed request
+            raises with main.log's tail (a listener that could not bind
+            logs "metrics server failed to start" there)."""
+            try:
+                return http_get(mport, path, accept=accept)
+            except Exception as e:
+                raise RuntimeError(
+                    f"main: GET :{mport}{path} failed: {e!r}; log:\n"
+                    f"{tail(log_path)}") from e
+
+        def log_tail():
+            return f"; log:\n{tail(log_path)}"
+
+        picks = json.loads(get(f"/debugz/picks?n={MAIN_STREAMS}"))
         recorded = {r.get("trace_id") for r in picks}
         check(len(picks) == MAIN_STREAMS and recorded == set(trace_ids),
               f"main: /debugz/picks holds {len(picks)} records, "
-              f"{len(recorded & set(trace_ids))} of the streams' traces")
+              f"{len(recorded & set(trace_ids))} of the streams' traces"
+              + log_tail())
         check({r.get("rung") for r in picks} == {"full"},
-              f"main: picks answered by {sorted({r.get('rung') for r in picks})}")
-        one = json.loads(http_get(mport, f"/debugz/trace?id={trace_ids[7]}"))
+              f"main: picks answered by {sorted({r.get('rung') for r in picks})}"
+              + log_tail())
+        one = json.loads(get(f"/debugz/trace?id={trace_ids[7]}"))
         check(one.get("trace_id") == trace_ids[7] and one.get("events"),
-              f"main: /debugz/trace returned {one}")
-        om = http_get(mport, "/metrics",
-                      accept="application/openmetrics-text; version=1.0.0")
+              f"main: /debugz/trace returned {one}" + log_tail())
+        om = get("/metrics",
+                 accept="application/openmetrics-text; version=1.0.0")
         exemplar = re.search(
             rb'gie_pick_latency_seconds_bucket\{le="[^"]+"\} [0-9.e+]+ '
             rb'# \{trace_id="([0-9a-f]{32})"\}', om)
         check(exemplar is not None and om.rstrip().endswith(b"# EOF"),
               "main: the OpenMetrics exposition has no trace_id exemplar "
-              "on gie_pick_latency_seconds")
+              "on gie_pick_latency_seconds" + log_tail())
         # The runner's lattice kick: the streams' lattice (M=64 for 8
         # pods, 8 chunk lanes for a bodyless request) warms in full.
         from gie_tpu_torch.sched.constants import N_BUCKETS
@@ -2059,7 +2159,7 @@ def phase_main(cfg, weights, tmp) -> dict:
         lattice = {(n, 64, 8) for n in N_BUCKETS}
         deadline = time.monotonic() + 120
         while True:
-            report = json.loads(http_get(mport, "/debugz/scheduler"))
+            report = json.loads(get("/debugz/scheduler"))
             warm_buckets = {tuple(k) for k in report["warm_buckets"]}
             if lattice <= warm_buckets or time.monotonic() > deadline:
                 break
@@ -2067,7 +2167,8 @@ def phase_main(cfg, weights, tmp) -> dict:
         emit({"phase": "main-warm", "warm_buckets": report["warm_buckets"],
               "warm_inline_compiles": report["warm_inline_compiles"]})
         check(lattice <= warm_buckets,
-              f"main: the streams' lattice is not warm: {report}")
+              f"main: the streams' lattice is not warm: {report}"
+              + log_tail())
         deadline = time.monotonic() + 10
         while not spans and time.monotonic() < deadline:
             time.sleep(0.1)
@@ -2566,10 +2667,8 @@ def phase_kvevents(dev, kernels, tmp) -> dict:
                       "count")
             agg.flush()
             cpu_agg.flush()
-            card, ref = sched.export_state(), cpu.export_state()
-            differ = [k for k in ref if card[k].tobytes() != ref[k].tobytes()]
-            check(not differ, f"kv-events: {what}: the card's export differs "
-                              f"from the CPU's in {differ}")
+            same_export(sched.export_state(), cpu.export_state(),
+                        f"kv-events: {what}: the card against the CPU")
 
         program = kv_event_program(hostports)
         both(program, "the program")
@@ -2855,10 +2954,7 @@ def learn_checkpoint(dev, kernels, tmp) -> dict:
     saved = gpu.export_state()
 
     def same(got, what):
-        diff = [k for k in saved if got[k].dtype != saved[k].dtype
-                or not np.array_equal(got[k], saved[k])]
-        check(set(got) == set(saved) and not diff,
-              f"checkpoint: {what} differs from the saved state in {diff}")
+        same_export(got, saved, f"checkpoint: {what} against the saved state")
 
     restored = {}
     for where in (dev, torch.device("cpu")):
@@ -2924,6 +3020,475 @@ def phase_learn(dev, kernels, tmp) -> dict:
                "classic_wave_wall_ms": timing["classic"]["wall_ms_per_wave"],
                "runner_answered": served["answered"],
                "judge_promote": judged["promote"]}
+    emit(summary)
+    return summary
+
+
+# -- phase 15: HA replication, the file lease and the autoscale loop ---------
+
+HA_TTL_S = 5.0             # LeaseFileElector's default lease TTL (the runner's)
+HA_FAST_RENEW_S = 0.1      # (a)'s electors: renew interval
+HA_REPLICATION_S = 0.5     # (b)'s --replication-interval-s
+HA_STORMS = ("storm-capacity", "storm-soak")
+# What a card storm and its CPU storm must also share in phase 15.
+HA_STORM_FIELDS = ("autoscale_events", "failover_checks", "pool_size_trace")
+
+
+def ha_waves(sched, cpu, reqs_list, eps, eps_cpu, cpu_waves, name, kernels,
+             own, reinstall_first) -> dict:
+    """`sched` picks each wave on the card, `cpu` replays it from the same
+    state with the same noise (phase 3's rule: primaries equal wherever the
+    CPU's top-two gap is 1e-4 or more); one launch of `own` a wave and
+    complete() feedback for half of each. `reinstall_first` False keeps the
+    CPU's own state for the first wave (a state restored from a digest)."""
+    valid = eps.valid.cpu().numpy()
+    base = kernels[own].launches
+    agree = rows = allowed = 0
+    for w, reqs in enumerate(reqs_list):
+        if w or reinstall_first:
+            cpu.install_state(sched.export_state())
+        res = sched.pick(reqs, eps)
+        check(kernels[own].launches == base + w + 1,
+              f"{name}: {kernels[own].launches - base} launches after "
+              f"{w + 1} waves")
+        differ = compare_primaries(res, cpu.pick(cpu_waves[w], eps_cpu),
+                                   valid, name)
+        agree += int((~differ).sum())
+        allowed += int(differ.sum())
+        rows += len(differ)
+        complete_half(sched, res, reqs)
+    check(agree >= 0.999 * rows,
+          f"{name}: primary picks agree on only {agree}/{rows} rows")
+    return {"waves": len(reqs_list), "primary_agree": agree, "rows": rows,
+            "differ_within_gap": allowed}
+
+
+def ha_one_process(dev, cfg, weights, kernels, tmp) -> dict:
+    """(a): a leader and a follower Scheduler on the card (tuned +
+    use_pallas_sinkhorn, M=256), each with a ReplicationManager on loopback
+    over one LeaseFileElector lease. The leader runs phase 3's 5 carried
+    waves; the follower syncs, bit-equal to the leader and to a CPU
+    Scheduler restored from the decoded digest; the leader's lease is
+    released, the follower promotes and runs 5 more waves, each replayed on
+    that CPU Scheduler with the same noise."""
+    from gie_tpu_torch import convert
+    from gie_tpu_torch.replication import (
+        ReplicationManager,
+        codec,
+        follower as follower_mod,
+        replication_identity,
+    )
+    from gie_tpu_torch.runtime.leader import LeaseFileElector
+    from gie_tpu_torch.sched import Scheduler
+    from gie_tpu_torch.sched.profile import gumbel_noise
+    from gie_tpu_torch.sched.types import RequestBatch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    drawn = []
+
+    def noise(shape):
+        drawn.append(gumbel_noise(shape, gen, dev))
+        return drawn[-1]
+
+    leader = Scheduler(cfg, weights, device=dev, noise_source=noise)
+    follower = Scheduler(cfg, weights, device=dev, noise_source=noise)
+    cpu = Scheduler(cfg, weights, device="cpu",
+                    noise_source=lambda shape: drawn[-1].cpu())
+    eps, wave = workload(dev)
+    eps_cpu = convert.endpoints_from_numpy(convert.endpoints_to_numpy(eps),
+                                           device="cpu")
+    waves = [wave(w) for w in range(2 * WAVES)]
+    cpu_waves = [RequestBatch(**{f.name: getattr(r, f.name).cpu()
+                                 for f in dataclasses.fields(RequestBatch)})
+                 for r in waves]
+    lease = f"{tmp}/ha-a.lease"
+    managers, electors = {}, {}
+    for role, sched in (("leader", leader), ("follower", follower)):
+        mgr = managers[role] = ReplicationManager(scheduler=sched, era=role)
+        el = electors[role] = LeaseFileElector(
+            lease, identity=replication_identity(mgr.advertise, role),
+            lease_ttl_s=HA_TTL_S, renew_interval_s=HA_FAST_RENEW_S)
+        el.on_role_change = mgr.on_role_change
+        mgr.attach_elector(el)
+    try:
+        electors["leader"].start()
+        deadline = time.monotonic() + 10
+        while (not electors["leader"].is_leader()
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        electors["follower"].start()
+        time.sleep(3 * HA_FAST_RENEW_S)
+        check(electors["leader"].is_leader()
+              and not electors["follower"].is_leader(),
+              "ha: the leader did not take the lease first")
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        led = ha_waves(leader, cpu, waves[:WAVES], eps, eps_cpu,
+                       cpu_waves[:WAVES], "ha leader", kernels,
+                       "fused_sinkhorn_plan", reinstall_first=True)
+        t0 = time.perf_counter()
+        exported = leader.export_state()
+        export_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        section = codec.encode_section(exported)
+        blob = codec.build_digest(1, {"sched": section})
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        digest = codec.decode_digest(blob)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        check(digest is not None, "ha: the digest does not decode")
+        now = time.monotonic()
+        check(managers["leader"].step(now) == "published",
+              "ha: the leader did not publish")
+        outcome = managers["follower"].step(now)
+        check(outcome == follower_mod.INSTALLED,
+              f"ha: the follower's sync ended {outcome}")
+        same_export(follower.export_state(), exported, "ha follower")
+        check(cpu.install_state(digest.sections["sched"]),
+              "ha: the CPU Scheduler refused the digest")
+        same_export(cpu.export_state(), exported, "ha CPU from the digest")
+        installed = managers["follower"].follower.installed_epoch
+        t0 = time.monotonic()
+        electors["leader"].stop()                  # releases the lease
+        while (not electors["follower"].is_leader()
+               and time.monotonic() - t0 < 2 * HA_TTL_S):
+            time.sleep(0.001)
+        promotion_s = time.monotonic() - t0
+        check(electors["follower"].is_leader(),
+              "ha: the follower did not promote after the release")
+        check(managers["follower"].promoted_with_epoch == installed,
+              "ha: the follower promoted without its installed epoch")
+        promoted = ha_waves(follower, cpu, waves[WAVES:], eps, eps_cpu,
+                            cpu_waves[WAVES:], "ha promoted follower",
+                            kernels, "fused_sinkhorn_plan",
+                            reinstall_first=False)
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        check(launches["fused_sinkhorn_plan"] == 2 * WAVES,
+              f"ha: {launches} launches for {2 * WAVES} waves")
+        pub = managers["follower"]
+        check(pub.step(time.monotonic()) == "published",
+              "ha: the promoted follower did not publish")
+    finally:
+        for el in electors.values():
+            el.stop()
+        for mgr in managers.values():
+            mgr.stop()
+    rec = {"phase": "ha-replication", "digest_bytes": len(blob),
+           "sched_section_bytes": len(section),
+           "export_ms": export_ms, "encode_ms": encode_ms,
+           "decode_ms": decode_ms,
+           "install_ms": managers["follower"].follower.last_install_s * 1e3,
+           "release_to_promotion_s": promotion_s,
+           "leader": led, "promoted": promoted, "launches": launches}
+    emit(rec)
+    return rec
+
+
+def ha_server_process(argv, fleet_port, n_pods, stop, stats) -> None:
+    """A server in a process of its own: the runner main() builds from
+    `argv`, over `n_pods` stub pods on fleet_port, until `stop` is set;
+    then its kernel launches and dispatched waves go on `stats`. A SIGKILL
+    ends it with nothing reported."""
+    from gie_tpu_torch.ops.fused_sinkhorn import fused_sinkhorn_plan
+    from gie_tpu_torch.runtime import metrics as own_metrics
+    from gie_tpu_torch.runtime.runner import ExtProcServerRunner
+
+    runner = ExtProcServerRunner(
+        server_options(argv), fleet_cluster("smoke", fleet_ips(n_pods),
+                                            fleet_port))
+    runner.setup()
+    runner.start()
+    stop.wait()
+    stats.put({"launches": fused_sinkhorn_plan.launches,
+               "waves": int(own_metrics.PIPELINE_WAVES.value())})
+    runner.stop()
+
+
+def metric_samples(port: int) -> dict:
+    """/metrics of a server as {(name, labels): value}."""
+    import urllib.request
+
+    from gie_tpu_torch.metricsio.scrape import parse_sample_lines
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as resp:
+        text = resp.read().decode()
+    return {(s.name, tuple(sorted(s.labels.items()))): s.value
+            for s in parse_sample_lines(text)}
+
+
+def sample_sum(samples: dict, name: str) -> float:
+    return sum(v for (n, _l), v in samples.items() if n == name)
+
+
+def ha_burst(ctx, port, rounds, procs) -> list:
+    """CLIENTS client processes over `port`, one round of
+    STREAMS_PER_ROUND streams each in `rounds`: -> [(a round's outcomes,
+    its wall seconds)] in round order."""
+    barrier, results = ctx.Barrier(CLIENTS + 1), ctx.Queue()
+    for k in range(CLIENTS):
+        procs.append(ctx.Process(
+            target=client_process,
+            args=(port, CHANNELS // CLIENTS, rounds, k, STREAMS_PER_ROUND,
+                  barrier, results), daemon=True))
+        procs[-1].start()
+    out = []
+    for w in rounds:
+        barrier.wait(600)
+        got = [results.get(timeout=900) for _ in range(CLIENTS)]
+        check(all(g[0] == w for g in got), "ha burst: rounds out of step")
+        outcomes = [o for g in got for o in g[1]]
+        errs = [o[4] for o in outcomes if o[4]]
+        check(not errs, f"ha burst: {len(errs)} streams failed, first: "
+                        f"{errs[:1]}")
+        out.append((outcomes, max(g[3] for g in got) - min(g[2] for g in got)))
+    return out
+
+
+def prompt_endpoints(rounds) -> dict:
+    """System prompt -> {primary endpoint: streams} of rounds' answers
+    ([(round, outcomes)])."""
+    out: dict = {}
+    for w, outcomes in rounds:
+        for i, dest, *_ in outcomes:
+            if dest is not None:
+                ep = dest.split(",")[0]
+                k = (i + w) % 16
+                out.setdefault(k, {})
+                out[k][ep] = out[k].get(ep, 0) + 1
+    return out
+
+
+def ha_failover(cfg, weights, tmp) -> dict:
+    """(b): two server processes built from the real flags (--leader-elect
+    --leader-lease-path --replication-port, --autoscale-mode recommend,
+    phase 6's scheduler config) over M stub pods. The leader answers a
+    warm-up round and a burst; the follower's replication sub-service reads
+    SERVING with an epoch lag of at most 1; the leader is SIGKILLed; the
+    follower's readiness reads SERVING within the lease TTL plus 5 s and it
+    answers a burst, none lost, the ladder at FULL, each system prompt's
+    streams landing mostly where the leader's picks put it."""
+    need_transport()
+    import multiprocessing
+
+    from gie_tpu_torch.runtime.health import NOT_SERVING, SERVING
+
+    ctx = multiprocessing.get_context("spawn")
+    stop_fleet, ready = ctx.Event(), ctx.Queue()
+    procs = [ctx.Process(target=stub_fleet_process,
+                         args=(M, 0, ready, stop_fleet), daemon=True)]
+    procs[0].start()
+    servers = {}
+    lease = f"{tmp}/ha-b.lease"
+    try:
+        fleet_port = ready.get(timeout=120)
+        config = write_scheduler_config(cfg, weights, tmp)
+        t_start = time.monotonic()
+        for name in ("a", "b"):
+            ports = {k: free_port() for k in
+                     ("grpc", "health", "metrics", "replication")}
+            argv = ["--insecure-serving", "--scheduler-config", config,
+                    "--pool-name", "smoke",
+                    "--grpc-port", str(ports["grpc"]),
+                    "--grpc-health-port", str(ports["health"]),
+                    "--metrics-port", str(ports["metrics"]),
+                    "--extproc-workers", str(EXTPROC_WORKERS),
+                    "--scrape-interval-ms", str(SCRAPE_INTERVAL_MS),
+                    "--leader-elect", "--leader-lease-path", lease,
+                    "--replication-port", str(ports["replication"]),
+                    "--replication-interval-s", str(HA_REPLICATION_S),
+                    "--autoscale-mode", "recommend",
+                    "--autoscale-interval-s", "1.0",
+                    "--autoscale-max", str(4 * M)]
+            stop, stats = ctx.Event(), ctx.Queue()
+            proc = ctx.Process(target=ha_server_process,
+                               args=(argv, fleet_port, M, stop, stats),
+                               daemon=True)
+            proc.start()
+            servers[name] = {"proc": proc, "stop": stop, "stats": stats,
+                             **ports}
+            if name == "a":             # a takes the lease before b starts
+                deadline = time.monotonic() + 300
+                status = None
+                while time.monotonic() < deadline and proc.is_alive():
+                    try:
+                        status = health_status(ports["health"], "readiness")
+                    except Exception:
+                        status = None
+                    if status == SERVING:
+                        break
+                    time.sleep(0.2)
+                check(status == SERVING, "ha: server a never became ready")
+        leader, standby = servers["a"], servers["b"]
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and standby["proc"].is_alive():
+            try:
+                if (health_status(standby["health"], "liveness") == SERVING):
+                    break
+            except Exception:
+                pass
+            time.sleep(0.2)
+        check(health_status(standby["health"], "readiness") == NOT_SERVING,
+              "ha: the standby's readiness is not NOT_SERVING")
+        startup_s = time.monotonic() - t_start
+        time.sleep(2.0)                 # every pod scraped by both
+        (warm, _), (led, led_wall) = ha_burst(ctx, leader["grpc"], [-1, 0],
+                                              procs)    # -1: warm-up
+        live = {f"{ip}:{fleet_port}" for ip in fleet_ips(M)}
+        check(all(o[1] is not None and o[1].split(",")[0] in live
+                  for o in led), "ha: the leader left a stream unanswered")
+        # The standby syncs the state the burst left (interval 0.5 s).
+        deadline = time.monotonic() + 30
+        while True:
+            lag_samples = metric_samples(standby["metrics"])
+            lag = sample_sum(lag_samples, "gie_replication_epoch_lag")
+            repl = health_status(standby["health"], "replication")
+            if (repl == SERVING and lag <= 1) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        check(repl == SERVING, "ha: the standby's replication sub-service "
+                               "is not SERVING")
+        check(lag <= 1, f"ha: the standby's epoch lag is {lag}")
+        epoch = sample_sum(lag_samples, "gie_replication_epoch")
+        leader_metrics = metric_samples(leader["metrics"])
+        for name in ("gie_autoscale_desired_replicas",
+                     "gie_autoscale_recommendations_total"):
+            check(any(n == name for n, _ in leader_metrics),
+                  f"ha: the leader's /metrics lacks {name}")
+        desired = sample_sum(leader_metrics, "gie_autoscale_desired_replicas")
+        recs = sample_sum(leader_metrics,
+                          "gie_autoscale_recommendations_total")
+        check(recs >= 1, "ha: the leader's autoscale loop recommended "
+                         "nothing")
+        time.sleep(2 * HA_REPLICATION_S)   # a last sync of the settled load
+        t_kill = time.monotonic()
+        leader["proc"].kill()
+        leader["proc"].join(30)
+        status = None
+        while time.monotonic() - t_kill < HA_TTL_S + 5.0:
+            try:
+                status = health_status(standby["health"], "readiness")
+            except Exception:
+                status = None
+            if status == SERVING:
+                break
+            time.sleep(0.05)
+        failover_s = time.monotonic() - t_kill
+        check(status == SERVING, f"ha: the standby not ready "
+                                 f"{failover_s:.1f} s after the SIGKILL")
+        deg0 = sample_sum(metric_samples(standby["metrics"]),
+                          "gie_degraded_picks_total")
+        ((took, took_wall),) = ha_burst(ctx, standby["grpc"], [1], procs)
+        answered = sum(o[1] is not None and o[1].split(",")[0] in live
+                       for o in took)
+        check(answered == STREAMS_PER_ROUND,
+              f"ha: the promoted standby answered {answered} of "
+              f"{STREAMS_PER_ROUND}")
+        after = metric_samples(standby["metrics"])
+        degraded = sample_sum(after, "gie_degraded_picks_total") - deg0
+        check(degraded == 0 and sample_sum(after, "gie_degraded_mode") == 0,
+              f"ha: the promoted standby left FULL ({degraded} degraded "
+              "picks)")
+        check(health_status(standby["health"], "resilience") == SERVING,
+              "ha: the promoted standby's resilience sub-service is not "
+              "SERVING")
+        # Prefix state came across: each system prompt's streams land
+        # mostly on the endpoints the leader put it on (in either of its
+        # rounds: every pick stored the prompt's chunks there). `spread`
+        # is the share a standby with a cold prefix table would reach by
+        # chance.
+        before = prompt_endpoints([(-1, warm), (0, led)])
+        now_ = prompt_endpoints([(1, took)])
+        same = sum(n for k, eps_ in now_.items() for ep, n in eps_.items()
+                   if ep in before.get(k, {}))
+        share = same / max(sum(sum(e.values()) for e in now_.values()), 1)
+        spread = statistics.mean(len(v) for v in before.values()) / M
+        check(share > 0.5, f"ha: only {share:.3f} of the promoted standby's "
+                           "streams landed where the leader put their "
+                           "system prompt")
+        standby["stop"].set()
+        stats = standby["stats"].get(timeout=120)
+        check(stats["launches"] == stats["waves"] >= 1,
+              f"ha: the promoted standby's {stats['launches']} Sinkhorn "
+              f"launches for {stats['waves']} waves")
+        standby["proc"].join(60)
+    finally:
+        stop_fleet.set()
+        for srv in servers.values():
+            # Never set the event a SIGKILLed server waited on: notify()
+            # waits for that sleeper to wake, which it never will.
+            if srv["proc"].is_alive():
+                srv["stop"].set()
+                srv["proc"].join(30)
+            if srv["proc"].is_alive():
+                srv["proc"].kill()
+                srv["proc"].join(10)
+        for proc in procs:
+            proc.join(30)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    rec = {"phase": "ha-failover", "startup_s": startup_s,
+           "leader_streams_per_s": STREAMS_PER_ROUND / led_wall,
+           "standby_epoch": epoch, "standby_epoch_lag": lag,
+           "autoscale_desired": desired, "autoscale_recommendations": recs,
+           "failover_s": failover_s, "promoted_answered": answered,
+           "promoted_streams_per_s": STREAMS_PER_ROUND / took_wall,
+           "prefix_share": share, "leader_prompt_spread": spread,
+           "promoted_waves": stats["waves"],
+           "launches": {"fused_sinkhorn_plan": stats["launches"],
+                        "fused_blend_topk": 0}}
+    emit(rec)
+    return rec
+
+
+def ha_storms(dev, kernels) -> dict:
+    """(c): storm-capacity and storm-soak under virtual time on the card
+    and on a CPU engine with noise from one seeded CPU generator:
+    decisions, the autoscale steps, the standby probes and the in-storm
+    fault counts equal."""
+    cpu = torch.device("cpu")
+    out = {}
+    for name in HA_STORMS:
+        on_card = storm_run(name, dev, kernels)
+        on_cpu = storm_run(name, cpu, kernels)
+        same_storm(on_card, on_cpu, HA_STORM_FIELDS)
+        card = on_card["scorecard"]
+        if name == "storm-capacity":
+            check(card["autoscale_events"] and card["client_5xx"] == 0,
+                  f"ha {name}: no autoscale step or client 5xx: "
+                  f"{card['autoscale_events']}")
+        else:
+            checks = card["failover_checks"]
+            check(checks and all(c["ok"] for c in checks),
+                  f"ha {name}: standby probes {checks}")
+        out[name] = {"wall_s": on_card["rec"]["wall_s"],
+                     "cpu_wall_s": on_cpu["rec"]["wall_s"],
+                     "waves": on_card["rec"]["waves"],
+                     "autoscale_events": len(card["autoscale_events"]),
+                     "failover_checks": len(card["failover_checks"])}
+    rec = {"phase": "ha-storms", **out}
+    emit(rec)
+    return rec
+
+
+def phase_ha(dev, cfg, weights, kernels, tmp) -> dict:
+    """Phase 15: (a) replication in one process, (b) failover through the
+    real flags in two server processes, (c) the autoscale storms."""
+    t0 = time.monotonic()
+    one = ha_one_process(dev, cfg, weights, kernels, tmp)
+    two = ha_failover(cfg, weights, tmp)
+    storms = ha_storms(dev, kernels)
+    launches = {k: one["launches"].get(k, 0) + two["launches"].get(k, 0)
+                for k in kernels}
+    summary = {"phase": "ha", "wall_s": time.monotonic() - t0,
+               "launches": launches,
+               "digest_bytes": one["digest_bytes"],
+               "failover_s": two["failover_s"],
+               "storm_wall_s": {k: v["wall_s"] for k, v in storms.items()
+                                if k != "phase"}}
     emit(summary)
     return summary
 
@@ -3008,12 +3573,14 @@ def main() -> int:
         kv = phase_kvevents(dev, kernels, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         learn = phase_learn(dev, kernels, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        ha = phase_ha(dev, cfg, weights, kernels, tmp)
 
     line = []
     for rec, phases, source, replaces in (
         (records["fused_sinkhorn_plan"],
          (sink, pick_sink, serve_sink, chaos_sink, warm_sink, pd_sink,
-          learn),
+          learn, ha),
          "gie_tpu_torch/ops/csrc/fused_sinkhorn.cu",
          "gie_tpu/ops/fused_sinkhorn.py:66"),
         (records["fused_blend_topk"],

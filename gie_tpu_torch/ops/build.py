@@ -6,12 +6,15 @@ objects are linked into one shared library with a plain C interface,
 loaded with ctypes. The library lands in ops/_build/<hash>/, keyed on a
 hash of the sources and flags, so an edit rebuilds and an unchanged tree
 reuses the last build. Nothing here runs at import: `library()` builds on
-the first launch of a kernel on a CUDA tensor.
+the first launch of a kernel on a CUDA tensor. Processes that share the
+build directory (a leader and a follower on one card) build one at a
+time under a file lock: the first builds, the others wait and load it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -144,7 +147,14 @@ def _load() -> None:
             log = f.read()
     else:
         os.makedirs(BUILD_ROOT, exist_ok=True)
-        log = _compile(out_dir)
+        with open(os.path.join(BUILD_ROOT, ".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)     # released on close
+            cached = os.path.exists(path)        # another process built it
+            if cached:
+                with open(os.path.join(out_dir, "build.log")) as f:
+                    log = f.read()
+            else:
+                log = _compile(out_dir)
     lib = ctypes.CDLL(path)
     for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)

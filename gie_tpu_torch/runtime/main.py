@@ -4,9 +4,9 @@ cmd/lwepp/main.go:36-116).
     python -m gie_tpu_torch.runtime.main --pool-name my-pool --demo \
         --no-resilience --no-obs
 
-The scheduler runs on the CUDA card. Until their slices of the port land,
-the runner refuses the resilience and observability layers (on by default,
-hence the two flags) and --kube (the kube slice) is refused here.
+The scheduler runs on the CUDA card. --kube (the kube slice) is refused
+here, and the runner refuses the other flags of later slices
+(runner.refuse_out_of_slice).
 
 Without a real kube-apiserver in this environment, the ClusterClient seam
 (gie_tpu/controller/cluster.py) is served either by an external integration

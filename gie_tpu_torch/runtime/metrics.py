@@ -497,6 +497,65 @@ SLOT_OVERFLOW = Gauge(
     "gie_endpoint_slot_overflow_total",
     "Endpoint admissions refused because every scheduler slot (M_MAX) was "
     "taken — the pool outgrew the compiled capacity")
+# Autoscaling recommender (autoscale/): the closed-loop replica
+# controller's own observability. In recommend-only mode these gauges ARE
+# the product — operators compare the desired series against their HPA
+# before handing over actuation.
+AUTOSCALE_DESIRED = Gauge(
+    "gie_autoscale_desired_replicas",
+    "Replica count the recommender currently wants for the pool workload")
+AUTOSCALE_CURRENT = Gauge(
+    "gie_autoscale_current_replicas",
+    "Configured replica count the recommendation was made against")
+AUTOSCALE_CAPACITY = Gauge(
+    "gie_autoscale_capacity_per_replica",
+    "Online per-replica capacity estimate (admitted picks/s near "
+    "saturation, EWMA, SLO-derated)")
+AUTOSCALE_SHED_RATE = Gauge(
+    "gie_autoscale_shed_per_s",
+    "Windowed shed rate (all 429 sources) the last recommendation saw")
+AUTOSCALE_STALE = Gauge(
+    "gie_autoscale_signals_stale",
+    "1 while the recommender is holding because pool metrics are stale "
+    "(scrape outage / never-scraped pods) — never scale on stale data")
+AUTOSCALE_RECS = Counter(
+    "gie_autoscale_recommendations_total",
+    "Recommendations by direction",
+    ["direction"])  # up|down|hold
+AUTOSCALE_APPLIED = Counter(
+    "gie_autoscale_apply_total",
+    "Actuation outcomes",
+    ["outcome"])  # patched|noop|dry_run|not_leader|no_target|error
+# HA state replication (replication/): the warm-standby sync loop's own
+# observability. On a leader the epoch is the publisher's; on a follower
+# it is the last INSTALLED epoch, and lag / staleness quantify how cold a
+# takeover would be right now.
+REPLICATION_ROLE = Gauge(
+    "gie_replication_role",
+    "1 while this replica leads (publishes digests), 0 while it syncs")
+REPLICATION_EPOCH = Gauge(
+    "gie_replication_epoch",
+    "State epoch: published (leader) or last installed (follower)")
+REPLICATION_EPOCH_LAG = Gauge(
+    "gie_replication_epoch_lag",
+    "Leader epoch minus last installed epoch, as observed by the follower")
+REPLICATION_DIGEST_BYTES = Gauge(
+    "gie_replication_digest_bytes",
+    "Encoded size of the current full state digest")
+REPLICATION_STALENESS = Gauge(
+    "gie_replication_staleness_seconds",
+    "Seconds since the follower last confirmed the leader's state "
+    "(install or 304); -1 before first contact, 0 while leading")
+REPLICATION_INSTALL_SECONDS = Histogram(
+    "gie_replication_install_seconds",
+    "Digest decode-to-installed latency on the follower",
+    buckets=(1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 0.1, 0.3, 1.0))
+REPLICATION_SYNCS = Counter(
+    "gie_replication_sync_total",
+    "Follower sync attempts by outcome",
+    # installed|not_modified|no_leader|fetch_error|corrupt|stale_epoch|
+    # delta_mismatch|rejected
+    ["outcome"])
 PD_BUDGET_SINGLEHOP = Counter(
     "gie_pd_budget_singlehop_total",
     "Disaggregated picks collapsed to the decode worker only because "

@@ -12,11 +12,18 @@ card and raises where there is none. The resilience layer (breaker
 board, degradation ladder, outlier ejection, --fault / --fault-scenario
 injection) and the observability layer (flight recorder, tracer, OTLP
 export, /debugz pages, dump rotation) are wired as the reference wires
-them, both on by default. Subsystems that later slices of the port bring
-are refused at construction with the port's not-ported error, never
-skipped silently (`refuse_out_of_slice`): the kube, leader-election,
-replication, autoscale, federation, KV-events, fleet, multi-device,
-learned-scorer and latency-predictor flags.
+them, both on by default. So are the KV-event listener
+(--kv-events-port), the learned scorer (--scorer learned), leader election
+on a file lease (--leader-elect; readiness then gates on leadership), HA
+state replication (--replication-port: the leader publishes its digest,
+followers install it and promote warm) and the recommend-only autoscale
+loop (--autoscale-mode recommend). Subsystems that later slices of the
+port bring are refused at construction with the port's not-ported error,
+never skipped silently (`refuse_out_of_slice`): federation (--fed-*), the
+fleet picker (--fleet-topk), the multi-device mesh (--mesh-devices), the
+latency predictor (--enable-predictor), and the kube slice's actuation
+(--autoscale-mode apply) and Lease elector (--leader-elect over a kube
+cluster client; main refuses --kube itself).
 """
 
 from __future__ import annotations
@@ -30,6 +37,14 @@ import grpc
 from gie_tpu_torch import __version__, obs
 from gie_tpu_torch.api.objectives import InferenceObjective, ObjectiveRegistry
 from gie_tpu_torch.api.types import GROUP
+from gie_tpu_torch.autoscale import (
+    AutoscaleController,
+    AutoscaleRecommender,
+    CapacityModel,
+    RecommenderConfig,
+    ReplicaActuator,
+    SignalCollector,
+)
 from gie_tpu_torch.controller.cluster import ClusterClient
 from gie_tpu_torch.controller.reconcilers import (
     InferencePoolReconciler,
@@ -58,7 +73,9 @@ from gie_tpu_torch.resilience import (
     scenarios,
 )
 from gie_tpu_torch.runtime import metrics as own_metrics
+from gie_tpu_torch.replication import ReplicationManager, replication_identity
 from gie_tpu_torch.runtime.health import HealthService, start_dedicated_health_server
+from gie_tpu_torch.runtime.leader import LeaseFileElector
 from gie_tpu_torch.runtime.logging import get_logger
 from gie_tpu_torch.runtime.options import Options
 from gie_tpu_torch.runtime.tls import server_credentials
@@ -71,7 +88,7 @@ from gie_tpu_torch.utils.kubemeta import GKNN
 from gie_tpu_torch.utils.lora import LoraRegistry
 
 
-def refuse_out_of_slice(opts: Options) -> None:
+def refuse_out_of_slice(opts: Options, cluster=None) -> None:
     """Raise the port's not-ported error for the first option whose
     subsystem a later slice of the port brings (ROADMAP.md, Queue 1)."""
     defaults = Options()
@@ -79,9 +96,9 @@ def refuse_out_of_slice(opts: Options) -> None:
                   if f.name.startswith("fed_")
                   and getattr(opts, f.name) != getattr(defaults, f.name)]
     refusals = (
-        (opts.leader_elect, "--leader-elect", "kube"),
-        (opts.replication_port > 0, "--replication-port", "replication"),
-        (opts.autoscale_mode != "off", "--autoscale-mode", "autoscale"),
+        (opts.leader_elect and hasattr(cluster, "_json"),
+         "--leader-elect on a kube Lease (KubeLeaseElector)", "kube"),
+        (opts.autoscale_mode == "apply", "--autoscale-mode apply", "kube"),
         (bool(federation), "--fed-* (federation: "
                            + ", ".join(federation) + ")", "federation"),
         (opts.fleet_topk > 0, "--fleet-topk", "fleet"),
@@ -100,7 +117,7 @@ class ExtProcServerRunner:
         cluster: ClusterClient,
         scheduler: Optional[Scheduler] = None,
     ):
-        refuse_out_of_slice(opts)
+        refuse_out_of_slice(opts, cluster)
         self.opts = opts
         self.log = get_logger("runner")
         self.cluster = cluster
@@ -255,6 +272,7 @@ class ExtProcServerRunner:
                 )
             )
         self.picker.objective_registry = self.objectives
+        self._build_ha(opts)
         self.streaming = StreamingServer(
             self.datastore, self.picker,
             on_served=self.picker.observe_served,
@@ -271,9 +289,102 @@ class ExtProcServerRunner:
         self._cert_reloader = None
         self._stopped = threading.Event()
 
+    def _build_ha(self, opts: Options) -> None:
+        """The elector, the autoscale loop and HA state replication, as
+        the reference's runner builds them (gie_tpu/runtime/runner.py
+        :355-496)."""
+        self.elector = None
+        # With replication enabled, the elector's holder identity carries
+        # this replica's advertised digest address — the lease doubles as
+        # the followers' leader-discovery channel.
+        repl_advertise = repl_identity = None
+        if opts.replication_port > 0:
+            repl_advertise = (
+                opts.replication_advertise
+                or f"{opts.replication_bind}:{opts.replication_port}")
+            repl_identity = replication_identity(repl_advertise)
+        if opts.leader_elect:
+            # The file lease (a kube cluster's Lease elector comes with
+            # the kube slice; refuse_out_of_slice refuses that case).
+            self.elector = LeaseFileElector(
+                opts.leader_lease_path, identity=repl_identity)
+        # Closed-loop replica control behind --autoscale-mode recommend:
+        # the collector differentiates the pick path's own counters, the
+        # recommender sizes the pool, and the dry-run actuator exports
+        # gie_autoscale_* without writing.
+        self.autoscaler = None
+        self.capacity_model = None
+        if opts.autoscale_mode != "off":
+            # Persisted per-pool capacity estimate: seed the EWMA from the
+            # last leader's checkpoint instead of default_per_replica.
+            self.capacity_model = CapacityModel()
+            if opts.autoscale_state_dir:
+                if self.capacity_model.restore(opts.autoscale_state_dir):
+                    self.log.info(
+                        "capacity estimate restored",
+                        dir=opts.autoscale_state_dir,
+                        per_replica=self.capacity_model.per_replica())
+            collector = SignalCollector(
+                self.metrics_store,
+                # Local endpoints only: the autoscaler sizes THIS
+                # cluster's Deployment.
+                self.datastore.local_endpoints,
+                queue_limit=self.scheduler.cfg.queue_limit,
+                kv_limit=self.scheduler.cfg.kv_limit,
+                # Stale = several scrape periods missed, floored well above
+                # jitter so a slow scrape tick never freezes the loop.
+                staleness_s=max(10 * opts.scrape_interval_ms / 1000.0, 1.0),
+                scrape_engine=self.scraper,
+            )
+            recommender = AutoscaleRecommender(RecommenderConfig(
+                min_replicas=opts.autoscale_min,
+                max_replicas=opts.autoscale_max,
+                shed_high_per_s=opts.autoscale_shed_high,
+                down_cooldown_s=opts.autoscale_down_cooldown_s,
+            ), model=self.capacity_model)
+            is_leader = (self.elector.is_leader
+                         if self.elector is not None else None)
+            actuator = ReplicaActuator(
+                None, opts.pool_namespace, opts.autoscale_target,
+                dry_run=True, is_leader=is_leader)
+            # No TTFT probe: it reads the latency predictor's trainer,
+            # which comes with the latency-predictor slice (the
+            # reference's `self.trainer is not None` guard).
+            self.autoscaler = AutoscaleController(
+                collector, recommender, actuator,
+                interval_s=opts.autoscale_interval_s,
+                ttft_probe=None,
+                # Followers sample but never recommend: their pick
+                # counters are zero by construction (NOT_SERVING).
+                is_leader=is_leader,
+            )
+        # HA state replication: the leader publishes its soft state,
+        # non-leaders sync it into their LIVE scheduler and capacity
+        # model, and winning an election later promotes warm with no
+        # restore step.
+        self.replication = None
+        if opts.replication_port > 0:
+            self.replication = ReplicationManager(
+                scheduler=self.scheduler,
+                capacity_model=self.capacity_model,
+                elector=self.elector,
+                port=opts.replication_port,
+                bind=opts.replication_bind,
+                advertise=repl_advertise,
+                interval_s=opts.replication_interval_s,
+                stale_after_s=opts.replication_stale_after_s,
+            )
+            if self.elector is not None:
+                self.elector.on_role_change = self.replication.on_role_change
+
     def ready(self) -> bool:
-        """Readiness per 004 README:111-115: datastore synced."""
-        return self.datastore.pool_has_synced()
+        """Readiness per 004 README:111-115: datastore synced AND (leader
+        when electing)."""
+        if not self.datastore.pool_has_synced():
+            return False
+        if self.elector is not None and not self.elector.is_leader():
+            return False
+        return True
 
     def _pool_snapshot(self) -> dict:
         """Aggregates for the HPA gauges (metrics.register_pool_aggregates)
@@ -483,6 +594,15 @@ class ExtProcServerRunner:
     def start(self) -> int:
         """Start health, metrics, and the ext-proc listener; returns the
         bound ext-proc port."""
+        if self.elector is not None:
+            self.elector.start()
+        if self.replication is not None:
+            self.replication.start()
+            self.log.info(
+                "replication manager started",
+                advertise=self.replication.advertise,
+                interval_s=self.opts.replication_interval_s,
+            )
         if self.opts.fault_specs:
             # gie-chaos (resilience/faults.py): arm the seeded injector.
             # Operator-driven chaos experiments only — production runs
@@ -504,10 +624,13 @@ class ExtProcServerRunner:
                           seed=scn.seed, path=scn.path)
         resilience_fn = (self.resilience.healthy
                          if self.resilience is not None else None)
+        replication_fn = (self.replication.healthy
+                          if self.replication is not None else None)
         # Dedicated health first — NOT_SERVING beats connection-refused
         # during startup (reference main.go:104-109).
         self.health_server, _ = start_dedicated_health_server(
-            self.ready, self.opts.grpc_health_port, None, resilience_fn)
+            self.ready, self.opts.grpc_health_port, replication_fn,
+            resilience_fn)
         # The wire lane rides on the fast lane's header scan:
         # --no-extproc-fast-lane quietly implies the legacy gRPC lane.
         wire_lane = self.opts.extproc_wire and self.opts.extproc_fast_lane
@@ -532,7 +655,8 @@ class ExtProcServerRunner:
         # registered per acceptor so probes hit the same socket spread
         # real traffic does.
         def _add_health(srv):
-            HealthService(self.ready, None, resilience_fn).add_to_server(srv)
+            HealthService(self.ready, replication_fn,
+                          resilience_fn).add_to_server(srv)
 
         pool = ExtProcWorkerPool(
             self.streaming, self.opts.extproc_workers, wire=wire_lane,
@@ -567,6 +691,14 @@ class ExtProcServerRunner:
                           dir=self.opts.obs_dump_dir,
                           interval_s=self.opts.obs_dump_interval_s,
                           keep=self.opts.obs_dump_keep)
+        if self.autoscaler is not None:
+            self.autoscaler.start()
+            self.log.info(
+                "autoscale loop started",
+                mode=self.opts.autoscale_mode,
+                target=self.opts.autoscale_target,
+                bounds=(self.opts.autoscale_min, self.opts.autoscale_max),
+            )
         self.log.info(
             "ext-proc server started",
             port=port,
@@ -604,6 +736,21 @@ class ExtProcServerRunner:
         if self._stopped.is_set():
             return
         self._stopped.set()
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
+        if self.replication is not None:
+            self.replication.stop()
+        # Persist the capacity EWMA on LEADER shutdown: the next
+        # single-replica start seeds from it instead of the default.
+        # Followers skip the write — their copy lags the leader's, and
+        # the last writer would win the directory.
+        if (self.capacity_model is not None
+                and self.opts.autoscale_state_dir
+                and (self.elector is None or self.elector.is_leader())):
+            try:
+                self.capacity_model.save(self.opts.autoscale_state_dir)
+            except Exception as e:  # shutdown must finish regardless
+                self.log.error("capacity checkpoint failed", err=e)
         if self._dump_thread is not None:
             # _stopped is already set; the wait()-gated loop exits on its
             # next wake.
@@ -637,6 +784,8 @@ class ExtProcServerRunner:
             self._otlp.close()
         if self.opts.fault_specs:
             faults.uninstall()
+        if self.elector is not None:
+            self.elector.stop()
         if self._cert_reloader is not None:
             self._cert_reloader.close()
         self.log.info("shutdown complete")

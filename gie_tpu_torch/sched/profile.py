@@ -19,6 +19,7 @@ state.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -56,8 +57,6 @@ _LATER = {
     "mesh": "the multi-device slice",
     "federation": "the federation slice",
     "kube": "the kube slice",
-    "replication": "the replication slice",
-    "autoscale": "the autoscale slice",
     "fleet": "the fleet slice",
 }
 
@@ -679,6 +678,10 @@ class Scheduler:
         # capture on theirs meanwhile).
         self._fold_graphs: dict[tuple[int, int], FoldGraph] = {}
         self._fold_stream: Optional[torch.cuda.Stream] = None
+        # CUDA: the stream the last wave was queued on (pick_async's
+        # current stream). A digest export or install from another thread
+        # queues its copies there, behind the waves and ahead of the next.
+        self._wave_stream: Optional[torch.cuda.Stream] = None
         # CUDA: complete(), apply_prefix_events() and
         # clear_prefix_endpoint() calls not yet applied to the state, in
         # call order, as host arrays (see complete()), their lanes, and the
@@ -901,7 +904,8 @@ class Scheduler:
                          else _to_host_async(getattr(result, f.name)[:n]))
                 for f in dataclasses.fields(PickResult)})
             event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
+            self._wave_stream = torch.cuda.current_stream(self.device)
+            event.record(self._wave_stream)
         return PendingWave(result=host, n=n, load_snapshot=snap, event=event)
 
     def complete(self, endpoint_slots, costs) -> None:
@@ -1293,16 +1297,33 @@ class Scheduler:
 
     # -- replication digest surface ----------------------------------------
 
+    def _state_stream(self):
+        """A context that makes the waves' stream current (see
+        _wave_stream); a no-op on the CPU and before the first wave."""
+        stream = self._wave_stream
+        if stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(stream)
+
     def export_state(self) -> dict:
         """Flat host-array dict of the full state, array-compatible with
         gie_tpu's Scheduler.export_state (uint32 table columns and
-        counters)."""
+        counters).
+
+        The lock covers only the queued calls' apply and a device copy of
+        the state; the device-to-host transfer of that copy runs outside
+        it, so a leader's periodic digest refresh never holds a wave back
+        for a transfer. On CUDA both are queued on the waves' stream
+        (behind every wave already queued), and the transfer waits on
+        that stream alone: never a device-wide synchronize, so a capture
+        on a warm thread is never broken."""
         from gie_tpu_torch.convert import state_to_numpy
 
-        with self._lock:
-            self._apply_queued()
-            snap = _copy_state(self.state)
-        return state_to_numpy(snap)
+        with self._state_stream():
+            with self._lock:
+                self._apply_queued()
+                snap = _copy_state(self.state)
+            return state_to_numpy(snap)
 
     def prepare_install(self, arrays: dict) -> Optional[SchedState]:
         """Validate digest arrays into a SchedState on this scheduler's
@@ -1312,7 +1333,8 @@ class Scheduler:
         from gie_tpu_torch.convert import state_from_numpy
 
         try:
-            restored = state_from_numpy(arrays, device=self.device)
+            with self._state_stream():
+                restored = state_from_numpy(arrays, device=self.device)
         except (KeyError, TypeError, ValueError):
             return None
         if not check_state_shapes(restored):
@@ -1323,8 +1345,10 @@ class Scheduler:
 
     def commit_install(self, state: SchedState) -> None:
         """Install a prepare_install-validated state: copied into the
-        tensors of its M bucket, which becomes the live one."""
-        with self._lock:
+        tensors of its M bucket, which becomes the live one (on CUDA,
+        copies queued on the waves' stream; a bucket's tensors are never
+        reallocated, since a captured cycle holds their addresses)."""
+        with self._lock, self._state_stream():
             self._apply_queued()           # then overwritten, as before
             self.state = resize_into(state, self._bucket_state(state.m))
             # Journaled KV events newer than the TTL fold into the

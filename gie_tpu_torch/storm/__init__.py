@@ -7,9 +7,10 @@ device, breakers/ladder/drain/outlier ejection, scraping — in real or
 virtual time, scored into the reference's JSON scorecard (scorecard.py).
 ``python -m gie_tpu_torch.storm <scenario> [--device cpu]`` replays a
 recorded scenario whose ``drive`` carries a ``storm`` section; the search
-harness is storm/search.py. Subsystems of later slices (federation,
-autoscale, the replication standby, the fleet picker, a mesh, a learned
-scorer) are refused at engine construction.
+harness is storm/search.py. The autoscale loop, the replication standby
+probe and the learned scorer run as in the reference; subsystems of
+later slices (federation, the fleet picker, a mesh) are refused at
+engine construction.
 """
 
 from gie_tpu_torch.storm.engine import (          # noqa: F401

@@ -36,13 +36,18 @@ What the port adds to the reference engine, and nothing else:
                 stream error as a client 5xx and carries on.
 
 The learned scorer (``scorer``, ``policy_weights``) runs as the
-reference runs it, the judge's path (learn/judge.py). Subsystems of later
-slices are refused at construction, before any stub or thread exists: a
-mesh, the fleet picker, federation, autoscale and the replication standby (each raises
-the port's not-ported error naming its slice). Their branches of the
-reference engine are not carried; their tallies stay in the decision
-digest as the empty values the reference records when they are off, so
-a port fingerprint can equal a reference one.
+reference runs it, the judge's path (learn/judge.py), and so do the
+autoscale loop (``autoscale_max_extra``: the real SignalCollector ->
+CapacityModel -> AutoscaleRecommender, actuation = pods joining this
+pool) and the replication standby probe (``standby`` and the
+``standby_failover`` shape: the real StatePublisher digest, fetched and
+decoded the way a follower would). Subsystems of later slices are refused
+at construction, before any stub or thread exists: a mesh, the fleet
+picker and federation (each raises the port's not-ported error naming its
+slice). Their branches of the reference engine are not carried; their
+tallies stay in the decision digest as the empty values the reference
+records when they are off, so a port fingerprint can equal a reference
+one.
 
 Determinism: the SCHEDULE is bit-identical per seed (shapes.py). Under
 ``virtual_time`` the decision sequence is a pure function of the seed and
@@ -62,6 +67,12 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from gie_tpu_torch.autoscale.model import CapacityModel
+from gie_tpu_torch.autoscale.recommender import (
+    AutoscaleRecommender,
+    RecommenderConfig,
+)
+from gie_tpu_torch.autoscale.signals import SignalCollector
 from gie_tpu_torch.datastore import Datastore
 from gie_tpu_torch.datastore.objects import EndpointPool, Pod
 from gie_tpu_torch.extproc import metadata as mdkeys
@@ -77,6 +88,7 @@ from gie_tpu_torch.metricsio import MetricsStore
 from gie_tpu_torch.metricsio.engine import ScrapeEngine
 from gie_tpu_torch.metricsio.mappings import VLLM
 from gie_tpu_torch.ops import KernelUnavailable
+from gie_tpu_torch.replication import StatePublisher, codec
 from gie_tpu_torch.resilience import faults
 from gie_tpu_torch.resilience import scenarios as scenarios_mod
 from gie_tpu_torch.resilience.breaker import BreakerBoard, BreakerConfig
@@ -99,7 +111,6 @@ from gie_tpu_torch.storm.shapes import (
     Arrival,
     Program,
     Schedule,
-    StandbyFailover,
     program_from_drive,
 )
 from gie_tpu_torch.utils.lora import LoraRegistry
@@ -171,8 +182,7 @@ class FederationSpec:
 class EngineConfig:
     """The reference's fields and defaults (see gie_tpu/storm/engine.py
     for each knob's rationale). The subsystems of later slices —
-    mesh_devices > 1, fleet_topk > 0,
-    federation, autoscale_max_extra > 0, standby — are refused by
+    mesh_devices > 1, fleet_topk > 0, federation — are refused by
     StormEngine."""
 
     ttft_slo_s: float = 2.5
@@ -224,23 +234,16 @@ class EngineConfig:
             serve_min_samples=10_000)
 
 
-def _refuse_later_slices(cfg: EngineConfig, program: Program) -> None:
+def _refuse_later_slices(cfg: EngineConfig) -> None:
     """Raise the not-ported error for the first subsystem of a later
-    slice that `cfg` or `program` asks for, in the reference engine's
-    construction order."""
+    slice that `cfg` asks for, in the reference engine's construction
+    order."""
     if cfg.mesh_devices > 1:
         raise _not_ported("a storm over a scheduling mesh", "mesh")
     if cfg.fleet_topk > 0:
         raise _not_ported("the storm's fleet picker (fleet_topk)", "fleet")
     if cfg.federation is not None:
         raise _not_ported("a federation storm", "federation")
-    if cfg.autoscale_max_extra > 0:
-        raise _not_ported("the storm's autoscale loop "
-                          "(autoscale_max_extra)", "autoscale")
-    if cfg.standby or any(isinstance(s, StandbyFailover)
-                          for s in program.shapes):
-        raise _not_ported("the storm's replication standby "
-                          "(standby_failover)", "replication")
 
 
 class _AdmissionGate:
@@ -415,7 +418,7 @@ class StormEngine:
         self.name = name
         # Refusals and the device come first: nothing below (the clock
         # hand-off to faults, stubs, threads) may exist when they raise.
-        _refuse_later_slices(self.cfg, program)
+        _refuse_later_slices(self.cfg)
         self.device = resolve_device(device)
         self.noise_source = noise_source
         # The constructor kwarg overrides the config.
@@ -476,7 +479,9 @@ class StormEngine:
         self._shed_bands: dict = defaultdict(int)
         self._rung_trace: list[tuple] = []
         self._pool_trace: list[tuple] = []
+        self._autoscale_events: list[dict] = []
         self._upgrades: list[dict] = []
+        self._failover_checks: list[dict] = []
         # Decision log: every landed pick as (t, destination, band), the
         # core of the scorecard's decision_fingerprint.
         self._pick_log: list[tuple] = []
@@ -559,6 +564,27 @@ class StormEngine:
             clock=self.clock, rng=self._rng)
         self.resilience.staleness_fn = self.scrape.staleness_seconds
         self._sync_scrapers()
+        # Autoscale loop (optional): the real recommender over the real
+        # signal collector; actuation = pods joining this pool.
+        self.collector = self.recommender = None
+        if cfg.autoscale_max_extra > 0:
+            self.collector = SignalCollector(
+                self.metrics_store, self.datastore.local_endpoints,
+                queue_limit=cfg.queue_limit, staleness_s=2.0,
+                scrape_engine=self.scrape)
+            self.recommender = AutoscaleRecommender(RecommenderConfig(
+                min_replicas=pool.n_pods,
+                max_replicas=pool.n_pods + cfg.autoscale_max_extra,
+                shed_high_per_s=cfg.autoscale_shed_high_per_s,
+                up_sustain_s=cfg.autoscale_up_sustain_s,
+                down_cooldown_s=3600.0), model=CapacityModel())
+        # Replication standby probe (optional): the leader's digest
+        # publisher over the live scheduler state; failover_check events
+        # fetch + decode it the way a follower would.
+        self.publisher = None
+        if cfg.standby:
+            self.publisher = StatePublisher(
+                {"sched": self.scheduler.export_state}, era="storm")
 
     def _slot_reclaimed(self, slot: int) -> None:
         self.scheduler.evict_endpoint(slot)
@@ -770,9 +796,30 @@ class StormEngine:
                 (ttft, float(c.output_tokens),
                  inf.arrival.tenant or "default"))
 
+    def _autoscale_tick(self) -> None:
+        # The signal window and the store's row stamps must share one
+        # clock family: virtual now in virtual mode, the collector's
+        # wall-clock default otherwise (matching the store's default).
+        now = self.clock.now() if self.virtual else None
+        sig = self.collector.sample(now=now)
+        current = len(self.datastore.local_endpoints())
+        rec = self.recommender.observe(sig, current=current, now=now)
+        if rec.desired > current:
+            base = len(self._pod_names)
+            for k in range(rec.desired - current):
+                self._add_pod(
+                    f"as{base + k}",
+                    f"{self.pool.replacement_ip_base}.{200 + base + k}",
+                    self.pool.stub_cfgs()[0])
+            self._sync_scrapers()
+            self._autoscale_events.append({
+                "t": round(self._now(), 3), "from": current,
+                "to": rec.desired, "reason": rec.reason})
+
     def _control_event(self, ev) -> None:
-        """Rolling-upgrade steps; the other control events belong to the
-        refused subsystems and never reach a port engine."""
+        """Rolling-upgrade steps and standby probes; the federation's
+        events belong to a refused subsystem and never reach a port
+        engine."""
         if ev.kind == "drain":
             i = ev.args[0]
             name = f"p{i}"
@@ -800,6 +847,26 @@ class StormEngine:
             self._upgrades.append({
                 "t": round(self._now(), 3), "pod": name,
                 "step": "replace", "hostport": hostport})
+        elif ev.kind == "failover_check" and self.publisher is not None:
+            self._failover_probe()
+
+    def _failover_probe(self) -> None:
+        """Warm-standby readiness: publish the live digest, fetch and
+        decode it the way a follower would. The probe asserts nothing
+        itself — the scorecard records epoch and decoded-section evidence
+        for the test to pin."""
+        self.publisher.refresh()
+        status, _headers, body = self.publisher.serve(
+            since=None, era=None, if_none_match=None)
+        n_arrays = 0
+        digest = codec.decode_digest(body) if status == 200 else None
+        if digest is not None:
+            n_arrays = sum(len(v) for v in digest.sections.values())
+        self._failover_checks.append({
+            "t": round(self._now(), 3), "status": int(status),
+            "epoch": self.publisher.status().get("epoch"),
+            "decoded_arrays": n_arrays,
+            "ok": bool(digest is not None and n_arrays > 0)})
 
     # -- run ---------------------------------------------------------------
 
@@ -990,6 +1057,7 @@ class StormEngine:
 
     def _world_loop(self) -> None:
         cfg = self.cfg
+        next_autoscale = cfg.autoscale_interval_s
         next_trace = 0.0
         last = self.clock.now()
         while not self._stop.is_set():
@@ -1007,6 +1075,12 @@ class StormEngine:
                     (round(t, 2), int(self.resilience.ladder.rung())))
                 self._pool_trace.append(
                     (round(t, 2), len(self.datastore.local_endpoints())))
+            if self.recommender is not None and t >= next_autoscale:
+                next_autoscale = t + cfg.autoscale_interval_s
+                try:
+                    self._autoscale_tick()
+                except Exception:
+                    pass
 
     # -- scoring -----------------------------------------------------------
 
@@ -1015,8 +1089,8 @@ class StormEngine:
         order, with its timestamp and band), every shed/error tally, the
         breaker transition order, the rung/pool traces and the control-
         plane outcomes: the reference's fields, so the digests compare
-        across the two packages. "autoscale" and "fed_picks" are the
-        values the reference records with those subsystems off."""
+        across the two packages. "fed_picks" is the value the reference
+        records with federation off."""
         ej = (self.resilience.ejector.ejections
               if self.resilience.ejector is not None else [])
         decisions = {
@@ -1037,7 +1111,8 @@ class StormEngine:
             "rung_trace": self._rung_trace,
             "pool_trace": self._pool_trace,
             "ejection_slots": [int(e[1]) for e in ej],
-            "autoscale": [],
+            "autoscale": [(e["from"], e["to"])
+                          for e in self._autoscale_events],
             "upgrades": [(u["step"], u["pod"]) for u in self._upgrades],
             "fed_picks": [],
         }
@@ -1122,8 +1197,8 @@ class StormEngine:
                  "pool_median_s": round(m, 4)}
                 for t, s, q, m in ej],
             "upgrades": self._upgrades,
-            "autoscale_events": [],
-            "failover_checks": [],
+            "autoscale_events": self._autoscale_events,
+            "failover_checks": self._failover_checks,
             "final_endpoints": sorted(
                 ep.hostport for ep in self.datastore.endpoints()),
             "lora_arrivals": sum(

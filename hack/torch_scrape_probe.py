@@ -71,7 +71,22 @@ main() runs them first), and watches it two ways:
                  0.1 s, each over 0.2 s written there too: a stall that
                  blocks the reads of the server alone is a lock of its
                  address space, one that blocks every /proc read and the
-                 thread start is the sandbox's task table.
+                 thread start is the sandbox's task table; and, every
+                 0.1 s to PREFIX.mm.jsonl, readings that never touch the
+                 server's mm, each source read on a thread of its own and
+                 timed (a read over 0.2 s is written with its path, so the
+                 path that blocks names itself): /proc/vmstat deltas
+                 (compact_stall, compact_fail, thp_fault_alloc,
+                 thp_fault_fallback, allocstall_*, pgmajfault), the
+                 pressure stall lines of /proc/pressure/{cpu,memory,io},
+                 the cgroup's cpu.stat (nr_throttled, throttled_usec) and
+                 memory.events (high, max) deltas, and each server
+                 thread's state field and wchan (from
+                 /proc/<pid>/task/<tid>/stat and wchan), counted by state
+                 and by wchan; once, at the start, the transparent huge
+                 page settings (enabled, defrag), nproc and the cgroup's
+                 cpu.max and memory.max (PREFIX.mm.jsonl's first line and
+                 the standard output).
 
 --inject-hold S holds the server's GIL S seconds in a blocking C call 1 s
 into each run's first measured burst: a stand-in for a stall, to show
@@ -1095,6 +1110,161 @@ def _path_checks(server: int, others: list) -> dict:
             "proc-others": read_others, "clone": clone, "mmap": page}
 
 
+VMSTAT_KEYS = ("compact_stall", "compact_fail", "thp_fault_alloc",
+               "thp_fault_fallback", "pgmajfault")
+
+
+def _read(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def _cgroup_dir() -> str:
+    """This process's cgroup v2 directory (the server's is the same: it
+    is our child)."""
+    try:
+        for line in _read("/proc/self/cgroup").splitlines():
+            if line.startswith("0::"):
+                return "/sys/fs/cgroup" + line[3:].strip()
+    except OSError:
+        pass
+    return "/sys/fs/cgroup"
+
+
+def _kv(text: str) -> dict:
+    out = {}
+    for line in text.splitlines():
+        bits = line.split()
+        if len(bits) == 2:
+            try:
+                out[bits[0]] = int(bits[1])
+            except ValueError:
+                pass
+    return out
+
+
+def mm_settings() -> dict:
+    """The host's memory-management settings that decide a stall's cause,
+    read once."""
+    cg = _cgroup_dir()
+    out = {"nproc": os.cpu_count(), "cgroup": cg}
+    for key, path in (
+            ("kernel", "/proc/version"),
+            ("thp_enabled", "/sys/kernel/mm/transparent_hugepage/enabled"),
+            ("thp_defrag", "/sys/kernel/mm/transparent_hugepage/defrag"),
+            ("cpu_max", f"{cg}/cpu.max"),
+            ("memory_max", f"{cg}/memory.max"),
+            ("memory_high", f"{cg}/memory.high")):
+        try:
+            out[key] = _read(path).strip()
+        except OSError as e:
+            out[key] = f"unreadable: {e.strerror}"
+    return out
+
+
+def _mm_sources(server: int) -> dict:
+    """{name: read() -> dict} of readings that never touch the server's
+    mm (the caller takes the counters' deltas)."""
+    cg = _cgroup_dir()
+
+    def vmstat():
+        kv = _kv(_read("/proc/vmstat"))
+        out = {k: kv[k] for k in VMSTAT_KEYS if k in kv}
+        out.update({k: v for k, v in kv.items()
+                    if k.startswith("allocstall")})
+        return out
+
+    def pressure():
+        out = {}
+        for res in ("cpu", "memory", "io"):
+            try:
+                text = _read(f"/proc/pressure/{res}")
+            except OSError:
+                continue
+            for line in text.splitlines():
+                kind, *fields = line.split()
+                vals = dict(f.split("=") for f in fields)
+                out[f"{res}.{kind}.avg10"] = float(vals["avg10"])
+                out[f"{res}.{kind}.total"] = int(vals["total"])
+        return out
+
+    def cgroup():
+        out = {}
+        for name, keys in (("cpu.stat", ("nr_throttled", "throttled_usec")),
+                           ("memory.events", ("high", "max", "oom"))):
+            try:
+                kv = _kv(_read(f"{cg}/{name}"))
+            except OSError:
+                continue
+            out.update({f"{name}.{k}": kv[k] for k in keys if k in kv})
+        return out
+
+    def threads():
+        # A kernel view without wchan files (a sandboxed one) still gives
+        # each thread's state; its wchan then counts as "absent".
+        states, wchans = {}, {}
+        for tid in os.listdir(f"/proc/{server}/task"):
+            try:
+                stat = _read(f"/proc/{server}/task/{tid}/stat")
+            except OSError:
+                continue
+            try:
+                wchan = _read(f"/proc/{server}/task/{tid}/wchan").strip()
+            except OSError:
+                wchan = "absent"
+            state = stat[stat.rindex(")") + 2]
+            states[state] = states.get(state, 0) + 1
+            if state != "S" or wchan not in ("0", "", "absent"):
+                key = f"{state}:{wchan or '0'}"
+                wchans[key] = wchans.get(key, 0) + 1
+        return {"states": states, "wchans": wchans}
+
+    return {"vmstat": vmstat, "pressure": pressure, "cgroup": cgroup,
+            "threads": threads}
+
+
+def _mm_watch(name: str, fn, out, lock, stop) -> None:
+    """Read one source every 0.1 s on this thread: counters as deltas
+    (only those that moved), pressure as its stall microseconds and
+    non-zero averages, thread states as read; every read over 0.2 s is
+    written with its time, so a path that blocks names itself."""
+    prev = None
+    while not stop.is_set():
+        t0 = time.monotonic()
+        try:
+            cur, err = fn(), None
+        except OSError as e:
+            cur, err = None, e.strerror
+        took = time.monotonic() - t0
+        rec = {"src": name, "t": round(t0, 3)}
+        if took > 0.2:
+            rec["slow_s"] = round(took, 3)
+        if err:
+            rec["error"] = err
+        if cur is not None and name in ("vmstat", "cgroup"):
+            if prev is not None:
+                moved = {k: v - prev.get(k, v) for k, v in cur.items()
+                         if v != prev.get(k, v)}
+                if moved:
+                    rec["delta"] = moved
+            prev = cur
+        elif cur is not None and name == "pressure":
+            if prev is not None:
+                moved = {k[:-6]: v - prev.get(k, v) for k, v in cur.items()
+                         if k.endswith(".total") and v != prev.get(k, v)}
+                if moved:
+                    rec["stall_us"] = moved
+                    rec["avg10"] = {k[:-6]: v for k, v in cur.items()
+                                    if k.endswith(".avg10") and v}
+            prev = cur
+        elif cur is not None:
+            rec.update(cur)
+        if len(rec) > 2:
+            with lock:
+                out.write(json.dumps(rec) + "\n")
+        time.sleep(max(0.1 - took, 0.0))
+
+
 def parent(args) -> int:
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     work = tempfile.mkdtemp(prefix="probe-")
@@ -1118,6 +1288,14 @@ def parent(args) -> int:
     others: list = []
     for kind, fn in _path_checks(proc.pid, others).items():
         threading.Thread(target=_timed_calls, args=(kind, fn, net, net_stop),
+                         daemon=True).start()
+    settings = mm_settings()
+    print(json.dumps({"probe": "mm-settings", **settings}), flush=True)
+    mm, mm_lock = open(args.out + ".mm.jsonl", "w"), threading.Lock()
+    mm.write(json.dumps({"src": "settings", **settings}) + "\n")
+    for name, fn in _mm_sources(proc.pid).items():
+        threading.Thread(target=_mm_watch, args=(name, fn, mm, mm_lock,
+                                                 net_stop),
                          daemon=True).start()
     stalls, onset, reported, last_beat = [], None, False, None
     names: dict = {}
@@ -1154,6 +1332,9 @@ def parent(args) -> int:
                 onset = None
         time.sleep(0.5)
     net_stop.set()
+    time.sleep(0.3)                     # the watchers' last writes
+    with mm_lock:
+        mm.close()
     timeline.close()
     print(json.dumps({"probe": "summary", "child_rc": proc.returncode,
                       "gil_stalls": stalls}), flush=True)

@@ -24,7 +24,10 @@ queues a wave without waiting for the device, a wave's materialize()
 waits for that wave only, and the batching picker answers a burst. The
 storm twin, run under virtual time with its Scheduler on the card,
 reaches the decisions of the same storm on the CPU (decision
-fingerprints equal)."""
+fingerprints equal). A digest publisher refreshing every 10 ms beside a
+capture and a stream of waves never makes pick_async wait, and a digest
+installs into the captured buffers across an M-bucket switch with no new
+allocation."""
 
 import dataclasses
 import threading
@@ -1309,3 +1312,130 @@ def test_acceptor_answers_a_stream_that_waited_past_30_s(dev):
     finally:
         server.kill()
         server.wait(30)
+
+
+# -- HA state replication on the card ---------------------------------------
+
+
+def test_publishing_every_10_ms_beside_a_warm_and_waves(dev):
+    """A digest publisher refreshes every 10 ms (Scheduler.export_state on
+    its own thread) while a warm thread captures the M=256 lattice and the
+    main thread queues wave after wave at M=64: under
+    set_sync_debug_mode("warn") no pick_async call makes a synchronizing
+    call (each warning is recorded with the thread and whether that
+    thread was inside pick_async), the capture is not broken, and every
+    refresh succeeds. After the last wave a digest decodes to the
+    scheduler's own export, bit for bit."""
+    import warnings
+
+    from gie_tpu_torch.replication import StatePublisher, codec
+
+    sched = _recorded_scheduler("tuned+sinkhorn-kernel", dev)
+    reqs, eps = _wave_inputs(n=64, m=64, live=50, seed=1)
+    sched.pick(reqs, eps)                    # the M=64 key is captured
+    errors, epochs, syncs = [], [], []
+    main = threading.current_thread()
+    inside = [False]
+
+    def export():
+        try:
+            return sched.export_state()
+        except Exception as e:          # reported by the main thread
+            errors.append(e)
+            raise
+
+    pub = StatePublisher({"sched": export}, era="card")
+    stop = threading.Event()
+
+    def publish():
+        while not stop.is_set():
+            epochs.append(pub.refresh())
+            time.sleep(0.01)
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        me = threading.current_thread()
+        syncs.append((me.name, me is main and inside[0], str(message)))
+
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    shown, filters = warnings.showwarning, list(warnings.filters)
+    warnings.simplefilter("always")
+    warnings.showwarning = record
+    torch.cuda.set_sync_debug_mode("warn")
+    publisher = threading.Thread(target=publish, name="publisher")
+    publisher.start()
+    waves = 0
+    try:
+        warm = sched.warm_lattice_async(256, 16)
+        pending = []
+        while warm.is_alive() or waves < 64:
+            inside[0] = True
+            pending.append(sched.pick_async(reqs, eps))
+            inside[0] = False
+            waves += 1
+            if len(pending) > 2:
+                res = pending.pop(0).materialize()
+                assert (res.status == 0).all()
+        for p in pending:
+            p.materialize()
+        warm.join(300)
+    finally:
+        stop.set()
+        publisher.join(60)
+        torch.cuda.set_sync_debug_mode(before)
+        warnings.showwarning = shown
+        warnings.filters[:] = filters
+    assert [s for s in syncs if s[1]] == []          # none in pick_async
+    assert not errors, errors
+    assert not sched._warm_failures
+    assert {(n, 256, 16) for n in N_BUCKETS} <= sched._warm_buckets
+    assert len(epochs) >= 10 and epochs[-1] >= 2
+    pub.refresh()
+    digest = codec.decode_digest(pub.serve()[2])
+    want = sched.export_state()
+    for k, v in want.items():
+        got = digest.sections["sched"][k]
+        assert got.dtype == v.dtype, k
+        np.testing.assert_array_equal(got, v, err_msg=k)
+
+
+@pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel", "topk-kernel"])
+def test_digest_install_writes_the_captured_buffers_across_buckets(dev,
+                                                                   config):
+    """A digest exported at M=64 installs on a scheduler whose live bucket
+    is M=256, both buckets captured: commit_install allocates nothing,
+    switches the live bucket to 64 in the tensors the graphs hold, exports
+    the digest's arrays bit for bit, and the next wave replays without a
+    capture and equals the eager cycle. A digest whose prefix table has
+    another row count is refused by prepare_install."""
+    from gie_tpu_torch.replication import codec
+
+    sched = _recorded_scheduler(config, dev)
+    other = _recorded_scheduler(config, dev, seed=1)
+    for m in (64, 256):
+        _replay_matches_eager(sched, *_wave_inputs(n=64, m=m, live=50,
+                                                   seed=m))
+    _replay_matches_eager(other, *_wave_inputs(n=64, m=64, live=50, seed=5))
+    exported = other.export_state()
+    digest = codec.decode_digest(codec.encode_digest(1, {"sched": exported}))
+    assert sched.state.m == 256
+    ptrs = {(m, k): t.data_ptr() for m, st in sched._states.items()
+            for k, t in vars(st).items() if torch.is_tensor(t)}
+    prepared = sched.prepare_install(digest.sections["sched"])
+    assert prepared is not None
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    sched.commit_install(prepared)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == allocated
+    assert sched.state is sched._states[64]
+    assert ptrs == {(m, k): t.data_ptr() for m, st in sched._states.items()
+                    for k, t in vars(st).items() if torch.is_tensor(t)}
+    for k, v in sched.export_state().items():
+        np.testing.assert_array_equal(v, exported[k], err_msg=k)
+    inline = sched.warm_inline_compiles
+    _replay_matches_eager(sched, *_wave_inputs(n=64, m=64, live=50, seed=9))
+    assert sched.warm_inline_compiles == inline
+    short = {k: (v[:-32] if k.startswith("prefix_") else v)
+             for k, v in exported.items()}
+    assert sched.prepare_install(short) is None

@@ -254,14 +254,16 @@ def test_descriptors_byte_identical():
 LIVE = ["--no-resilience", "--no-obs"]
 # (argv, the _LATER key of the slice it is refused until, or None where
 # the runner builds: the resilience and observability layers, both on by
-# default, --fault arming, the KV-event listener and the learned scorer
+# default, --fault arming, the KV-event listener, the learned scorer, the
+# file-lease elector, replication and the recommend-only autoscale loop
 # are ported).
 REFUSED = [
     ([], None),                                 # resilience + obs on
     (["--no-resilience"], None),                # obs on
-    (LIVE + ["--leader-elect"], "kube"),
-    (LIVE + ["--replication-port", "19100"], "replication"),
-    (LIVE + ["--autoscale-mode", "recommend"], "autoscale"),
+    (LIVE + ["--leader-elect"], None),
+    (LIVE + ["--replication-port", "19100"], None),
+    (LIVE + ["--autoscale-mode", "recommend"], None),
+    (LIVE + ["--autoscale-mode", "apply"], "kube"),
     (LIVE + ["--fed-cluster", "east", "--fed-peer", "w=http://w:1"],
      "federation"),
     (LIVE + ["--fed-drain", "--fed-cluster", "east"], "federation"),
@@ -278,7 +280,7 @@ REFUSED = [
 
 @pytest.mark.parametrize("argv, key", REFUSED,
                          ids=[" ".join(a) or "defaults" for a, _ in REFUSED])
-def test_runner_refuses_out_of_slice(argv, key):
+def test_runner_refuses_out_of_slice(argv, key, tmp_path):
     from gie_tpu_torch.controller import FakeCluster
     from gie_tpu_torch.runtime.runner import ExtProcServerRunner
     from gie_tpu_torch.sched import Scheduler
@@ -287,6 +289,10 @@ def test_runner_refuses_out_of_slice(argv, key):
     if key is None:
         if opts.kv_events_port:
             opts.kv_events_port = _free_port()   # the listener binds it
+        if opts.replication_port:
+            opts.replication_port = _free_port()  # the manager binds it
+        if opts.leader_elect:
+            opts.leader_lease_path = str(tmp_path / "lease")
         runner = ExtProcServerRunner(opts, FakeCluster(),
                                      scheduler=Scheduler(device="cpu"))
         try:
@@ -304,6 +310,11 @@ def test_runner_refuses_out_of_slice(argv, key):
                 with urllib.request.urlopen(req, timeout=10) as resp:
                     assert json.loads(resp.read()) == {"accepted": 1}
                 assert runner.kv_events.dropped == 1   # no such endpoint
+            assert (runner.elector is not None) == opts.leader_elect
+            assert ((runner.replication is not None)
+                    == (opts.replication_port > 0))
+            assert ((runner.autoscaler is not None)
+                    == (opts.autoscale_mode == "recommend"))
         finally:
             runner.stop()
         return

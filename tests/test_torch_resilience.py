@@ -693,8 +693,7 @@ def test_fieldscan_native_scan_fault_falls_back_to_python():
 
 # Points whose subsystem a later slice of the port brings: named here,
 # neither woven in the port nor exercised by its tests yet.
-LATER_POINTS = {"replication.poll", "replication.publish", "kube.patch",
-                "peer.poll", "peer.publish", "peer.partition"}
+LATER_POINTS = {"kube.patch", "peer.poll", "peer.publish", "peer.partition"}
 
 
 def _literals(path: pathlib.Path) -> set:

@@ -5,10 +5,9 @@
              second call the same leaderboard (virtual time: every
              number in it is a function of the seed and the config).
   refusals   each subsystem of a later slice raises the port's
-             not-ported error naming that slice — from an EngineConfig,
-             a standby_failover shape, or a shipped scenario that needs
-             it through run_scenario — before any stub, thread or clock
-             hand-off exists.
+             not-ported error naming that slice — from an EngineConfig
+             or a shipped scenario that needs it through run_scenario —
+             before any stub, thread or clock hand-off exists.
   device     with no CUDA device and no device argument, run_scenario,
              search and the CLI's main raise (so `python -m` exits
              non-zero); none moves to the CPU on its own.
@@ -85,9 +84,6 @@ REFUSALS = {
     "mesh": (EngineConfig(mesh_devices=8), ()),
     "fleet": (EngineConfig(fleet_topk=4), ()),
     "federation": (EngineConfig(federation=FederationSpec()), ()),
-    "autoscale": (EngineConfig(autoscale_max_extra=2), ()),
-    "replication": (EngineConfig(standby=True), ()),
-    "replication-shape": (EngineConfig(), (S.StandbyFailover(),)),
 }
 
 
@@ -118,10 +114,6 @@ def _needs(name) -> str:
         return "fleet"
     if "federation" in storm:
         return "federation"
-    if storm.get("autoscale_max_extra", 0) > 0:
-        return "autoscale"
-    if any(s["kind"] == "standby_failover" for s in storm.get("shapes", [])):
-        return "replication"
     return ""
 
 
@@ -130,11 +122,18 @@ UNPORTED = [n for n in scenarios.list_scenarios()
 
 
 def test_only_three_storm_scenarios_run_on_this_slice():
+    """Named when three storms ran; since the autoscale loop and the
+    replication standby came, seven run and five wait for federation or
+    the fleet."""
     runnable = sorted(n for n in scenarios.list_scenarios()
                       if n.startswith("storm-") and not _needs(n))
-    assert runnable == ["storm-equivalence", "storm-noisy-neighbor",
-                        "storm-search-smoke"]
-    assert len(UNPORTED) == 9
+    assert runnable == ["storm-capacity", "storm-equivalence",
+                        "storm-flash-upgrade", "storm-learn-judge",
+                        "storm-noisy-neighbor", "storm-search-smoke",
+                        "storm-soak"]
+    assert sorted(UNPORTED) == ["storm-fed-drain", "storm-fed-partition",
+                                "storm-fed-spill", "storm-fleet",
+                                "storm-longhorizon"]
 
 
 @pytest.mark.parametrize("name", UNPORTED)
