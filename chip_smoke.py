@@ -171,9 +171,32 @@ count adds the launches a replay makes:
      card and on a CPU engine (phase 10's noise): decisions, the autoscale
      steps, the standby probes and the in-storm fault counts equal. Prints
      each part's wall seconds;
+ 16. multi-cluster federation on the card: (a) two server processes
+     built from the real flags with phase 6's profile at queue_limit 16:
+     west over 64 stub pods (--fed-cluster west --fed-port) and east over
+     192 (--fed-peer west=...; its 192 slots and west's 64 imported ones
+     fill M=256), east answering a warm-up round and one burst of 1024
+     streams (1 in 16 CRITICAL, 1 in 16 SHEDDABLE) per state: local
+     (every pick on east), spill (every east slot's scraped queue at the
+     limit: non-CRITICAL picks on west, CRITICAL on east,
+     gie_federation_spill_total equal to the spilled count, a
+     gie.federation span at the OTLP sink), prefix (west's published hot
+     keys folded against every west slot of east's device table; spilled
+     sessions landing on the west pods their first spill put them on, the
+     share printed beside chance), drain (every pick on west), partition
+     (west SIGKILLed: east local-only within local_only_after_s plus the
+     long-poll window, gie_federation_local_only 1, no pick on west, sheds
+     only in the sheddable band) and heal (west restarted with a greater
+     era: installed and readmitted); one spilled wave captured in east's
+     process replayed on a CPU Scheduler with the same state and noise;
+     no inline capture after the warm-up round, one Sinkhorn launch a
+     wave; (b) storm-fed-spill, -drain and -partition under virtual time
+     on the card and on a CPU engine (phase 10's noise): decisions and
+     the federation blocks equal. Prints each state's streams/s and the
+     spill, local-only and readmission times;
  11. the `kernels` line: launches on the main path (phases 3-6, 8, 9, 12,
-     13, 14 and 15, replays counted; phase 15's promoted server reports
-     its own), error, times, bound.
+     13, 14, 15 and 16, replays counted; phase 15's promoted server and
+     phase 16's east report their own), error, times, bound.
 Then the card's name and power limit (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}. Every listener the script starts takes its
 port from free_port(), which draws below Linux's ephemeral range, so no
@@ -182,6 +205,7 @@ bind(0) or outgoing connection can take it before the listener binds.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -1381,12 +1405,13 @@ def server_options(argv):
     return opts
 
 
-def fleet_ips(n: int) -> list:
-    """Pod i's own loopback address."""
-    return [f"127.1.{i // 200}.{i % 200 + 1}" for i in range(n)]
+def fleet_ips(n: int, first: int = 0) -> list:
+    """Pod i's own loopback address, for pods first .. first + n - 1."""
+    return [f"127.1.{i // 200}.{i % 200 + 1}" for i in range(first, first + n)]
 
 
-def stub_fleet_process(n: int, seed: int, ready, stop, events=None) -> None:
+def stub_fleet_process(n: int, seed: int, ready, stop, events=None,
+                       first: int = 0, floor=None) -> None:
     """The model-server fleet, in a process of its own: `n` VLLMStubs, pod
     i on fleet_ips(n)[i], all behind one port. One HTTP listener on the
     wildcard answers each pod's /metrics by the local address the scrape
@@ -1399,13 +1424,18 @@ def stub_fleet_process(n: int, seed: int, ready, stop, events=None) -> None:
     `publishers` stubs get an event_sink (reporting as ip:fleet port), and
     while `posting` is set each tick POSTs the events they published as
     JSON lines to 127.0.0.1:<port>/events, adding their count to the
-    counter; while it is clear they are discarded."""
+    counter; while it is clear they are discarded.
+
+    `first` offsets the pods' addresses (fleet_ips(n, first)); `floor`, a
+    shared double, keeps every stub's waiting queue at least that long
+    while it is above 0 (arrivals topped up after each tick's step), so a
+    server's scraped queue depth reads saturated on every slot."""
     import http.server
     import urllib.request
 
     from gie_tpu_torch.simulator import StubConfig, VLLMStub
 
-    ips = fleet_ips(n)
+    ips = fleet_ips(n, first)
     stubs = {ip: VLLMStub(StubConfig(), name=f"vllm-{i}")
              for i, ip in enumerate(ips)}
     lock = threading.Lock()
@@ -1471,6 +1501,10 @@ def stub_fleet_process(n: int, seed: int, ready, stop, events=None) -> None:
                 if rng.uniform() < 0.05:
                     arrive(stub, tick + i)
                 stub.step(0.05)
+                k = 0
+                while floor is not None and len(stub.queue) < floor.value:
+                    arrive(stub, tick + i + k)
+                    k += 1
         if published:
             batch, published[:] = list(published), []
             if events[1].is_set():
@@ -1501,9 +1535,10 @@ def fleet_cluster(pool_name: str, ips, port: int):
     return cluster
 
 
-def stream_frames(w: int, i: int):
+def stream_frames(w: int, i: int, band: str = ""):
     """Stream i of round w as Envoy sends it: request headers (the body
-    follows), the JSON body of the north-star mix, and -> the response
+    follows; with `band`, the objective header names that criticality
+    band), the JSON body of the north-star mix, and -> the response
     headers frame echoing the served endpoint. -> (headers, body,
     response_headers(hostport), prompt)."""
     from gie_tpu_torch.extproc import envoy, metadata as md, pb
@@ -1519,7 +1554,9 @@ def stream_frames(w: int, i: int):
         pb.HeaderValue(key=":path", raw_value=b"/v1/completions"),
         pb.HeaderValue(key="content-type", raw_value=b"application/json"),
         pb.HeaderValue(key=md.FLOW_FAIRNESS_ID_KEY,
-                       raw_value=b"tenant-%d" % (i % 4))])
+                       raw_value=b"tenant-%d" % (i % 4))]
+        + ([pb.HeaderValue(key=md.OBJECTIVE_KEY, raw_value=band.encode())]
+           if band else []))
     headers = pb.ProcessingRequest(request_headers=pb.HttpHeaders(
         headers=hmap, end_of_stream=False)).SerializeToString()
     body_frame = pb.ProcessingRequest(request_body=pb.HttpBody(
@@ -1567,12 +1604,15 @@ def open_channels(port: int, n: int):
     return chans, methods
 
 
-def one_stream(method, w, i):
-    """One Envoy-shaped exchange. -> (destination, seconds to the pick,
-    seconds for the whole stream)."""
+def one_stream(method, w, i, band: str = ""):
+    """One Envoy-shaped exchange (stream_frames(w, i, band)). -> (the
+    destination, or "<code>" for an immediate response such as a shed,
+    seconds to the pick, seconds for the whole stream)."""
     import queue as _queue
 
-    headers, body, response_headers, _ = stream_frames(w, i)
+    from gie_tpu_torch.extproc import pb
+
+    headers, body, response_headers, _ = stream_frames(w, i, band)
     q = _queue.Queue()
     q.put(headers)
     q.put(body)
@@ -1582,6 +1622,13 @@ def one_stream(method, w, i):
     call = method(iter(q.get, None), timeout=STREAM_TIMEOUT_S)
     first = next(call)
     t_pick = time.perf_counter() - t0
+    resp = pb.ProcessingResponse.FromString(first)
+    if resp.WhichOneof("response") == "immediate_response":
+        q.put(None)
+        for _ in call:
+            pass
+        return (f"<{resp.immediate_response.status.code}>", t_pick,
+                time.perf_counter() - t0)
     dest = destination(first)
     next(call)                                  # the request-body response
     if dest is not None:
@@ -1593,44 +1640,91 @@ def one_stream(method, w, i):
     return dest, t_pick, time.perf_counter() - t0
 
 
+async def aio_stream(method, w, i, band: str = ""):
+    """one_stream on grpc.aio (`method` a grpc.aio stream-stream
+    callable): the same frames in the same order, the same result."""
+    import grpc
+
+    from gie_tpu_torch.extproc import pb
+
+    headers, body, response_headers, _ = stream_frames(w, i, band)
+    t0 = time.perf_counter()
+    call = method(timeout=STREAM_TIMEOUT_S)
+    await call.write(headers)
+    await call.write(body)
+    first = await call.read()
+    t_pick = time.perf_counter() - t0
+    if first is grpc.aio.EOF:
+        raise RuntimeError(f"stream ended with no response: "
+                           f"{await call.code()}")
+    resp = pb.ProcessingResponse.FromString(first)
+    dest = None
+    if resp.WhichOneof("response") == "immediate_response":
+        dest = f"<{resp.immediate_response.status.code}>"
+    else:
+        dest = destination(first)
+        await call.read()                       # the request-body response
+        if dest is not None:
+            await call.write(response_headers(dest.split(",")[0]))
+            await call.read()                   # the response-headers response
+    await call.done_writing()
+    while await call.read() is not grpc.aio.EOF:
+        pass
+    return dest, t_pick, time.perf_counter() - t0
+
+
 def client_process(port: int, channels: int, rounds, share, total: int,
-                   barrier, results) -> None:
+                   barrier, results, stream=None) -> None:
     """Envoy's side, in a process of its own: for each round w, wait on
     `barrier` with the other clients and the server's process, then open
-    streams i = share, share + k, ... (< total) all at once, one thread
-    each, over this process's channels. Puts (w, [(i, destination, pick s,
-    stream s, error)], first start, last end) on `results`."""
-    chans, methods = open_channels(port, channels)
+    streams i = share, share + k, ... (< total) all at once over this
+    process's channels. Puts (w, [(i, destination, pick s, stream s,
+    error)], first start, last end, this process's CPU seconds in the
+    round) on `results`. `stream` replaces aio_stream (same arguments and
+    result).
+
+    One asyncio loop drives every stream, as Envoy's event loop does: a
+    thread per stream (and grpc's sync API adds one more to feed each
+    stream's requests) put two thousand threads beside the server's on
+    the host in each burst."""
+    import asyncio
+
+    import grpc
+
+    from gie_tpu_torch.extproc.service import SERVICE_NAME
+
+    stream = aio_stream if stream is None else stream
     mine = list(range(share, total, CLIENTS))
-    try:
-        for w in rounds:
-            out = [None] * len(mine)
-            t_in = [0.0] * len(mine)
-            t_out = [0.0] * len(mine)
-            gate = threading.Barrier(len(mine) + 1)
 
-            def run(j, w=w, out=out, t_in=t_in, t_out=t_out, gate=gate):
-                gate.wait(300)
-                t_in[j] = time.monotonic()
-                try:
-                    out[j] = (mine[j],) + one_stream(
-                        methods[j % len(methods)], w, mine[j]) + ("",)
-                except Exception as e:
-                    out[j] = (mine[j], None, 0.0, 0.0, repr(e)[:300])
-                t_out[j] = time.monotonic()
+    async def one(method, w, i):
+        t_in = time.monotonic()
+        try:
+            out = (i,) + await stream(method, w, i) + ("",)
+        except Exception as e:
+            out = (i, None, 0.0, 0.0, repr(e)[:300])
+        return out, t_in, time.monotonic()
 
-            threads = [threading.Thread(target=run, args=(j,))
-                       for j in range(len(mine))]
-            for t in threads:
-                t.start()
-            barrier.wait(600)
-            gate.wait(300)
-            for t in threads:
-                t.join(600)
-            results.put((w, out, min(t_in), max(t_out)))
-    finally:
-        for c in chans:
-            c.close()
+    async def drive():
+        chans = [grpc.aio.insecure_channel(
+            f"127.0.0.1:{port}",
+            options=(("grpc.use_local_subchannel_pool", 1),))
+            for _ in range(channels)]
+        methods = [c.stream_stream(f"/{SERVICE_NAME}/Process") for c in chans]
+        try:
+            for w in rounds:
+                await asyncio.to_thread(barrier.wait, 600)
+                cpu0 = time.process_time()
+                got = await asyncio.gather(*(
+                    one(methods[j % len(methods)], w, i)
+                    for j, i in enumerate(mine)))
+                results.put((w, [g[0] for g in got], min(g[1] for g in got),
+                             max(g[2] for g in got),
+                             time.process_time() - cpu0))
+        finally:
+            for c in chans:
+                await c.close()
+
+    asyncio.run(drive())
 
 
 def health_status(port: int, service: str) -> int:
@@ -1664,12 +1758,87 @@ def check_exposition(port: int) -> dict:
     return {"samples": len(names), "bytes": len(text)}
 
 
+class _MallInfo2(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_size_t) for name in (
+        "arena", "ordblks", "smblks", "hblks", "hblkhd", "usmblks",
+        "fsmblks", "uordblks", "fordblks", "keepcost")]
+
+
+def malloc_info() -> dict:
+    """glibc's mallinfo2 over all arenas: heap bytes from sbrk/arena
+    heaps, chunks and bytes mmapped on their own, bytes in use and free,
+    and the top chunk a trim would release. {} where there is none."""
+    try:
+        fn = ctypes.CDLL(None).mallinfo2
+    except (OSError, AttributeError):
+        return {}
+    fn.restype = _MallInfo2
+    info = fn()
+    return {f"malloc.{k}": getattr(info, k) for k in (
+        "arena", "hblks", "hblkhd", "uordblks", "fordblks", "keepcost")}
+
+
+_gc_clock = {"start": 0.0, "s": [0.0, 0.0, 0.0]}
+
+
+def _gc_timer(phase: str, info: dict) -> None:
+    """gc.callbacks hook: seconds the cyclic collector ran, by generation."""
+    if phase == "start":
+        _gc_clock["start"] = time.perf_counter()
+    else:
+        _gc_clock["s"][info["generation"]] += (
+            time.perf_counter() - _gc_clock["start"])
+
+
+def process_readings() -> dict:
+    """What the server process holds at a round's edge: pinned host
+    allocations (count, bytes, time), the device allocator's segments and
+    allocations, the process's threads (Python's and the OS's), its
+    memory mappings, glibc malloc's heap and mmapped chunks, its CPU
+    seconds, and the cyclic collector's runs and seconds by generation
+    (timed from the first reading on)."""
+    import gc
+
+    if _gc_timer not in gc.callbacks:
+        gc.callbacks.append(_gc_timer)
+    out = {"py_threads": threading.active_count(),
+           "cpu_s": time.process_time()}
+    for g, st in enumerate(gc.get_stats()):
+        out[f"gc.gen{g}_collections"] = st["collections"]
+        out[f"gc.gen{g}_s"] = _gc_clock["s"][g]
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("Threads:"):
+                    out["os_threads"] = int(line.split()[1])
+    except OSError:
+        out["os_threads"] = None
+    host = getattr(torch.cuda, "host_memory_stats", None)
+    if host is not None:
+        for k, v in sorted(host().items()):
+            if isinstance(v, (int, float)) and not k.endswith(".peak"):
+                out[f"host.{k}"] = v
+    try:
+        with open("/proc/self/maps") as f:
+            out["maps"] = sum(1 for _ in f)
+    except OSError:
+        out["maps"] = None
+    out.update(malloc_info())
+    dev_stats = torch.cuda.memory_stats()
+    for k in ("segment.all.current", "allocation.all.current",
+              "num_device_alloc", "num_device_free", "num_alloc_retries",
+              "reserved_bytes.all.current"):
+        out[f"device.{k}"] = dev_stats.get(k, 0)
+    return out
+
+
 def phase_server(dev, name, cfg, weights, kernels, own, tmp) -> dict:
     """The ext-proc server on the card for one configuration: the runner
     main() would build, over 256 stub pods (a process of their own), under
     bursts of concurrent Envoy-shaped streams from CLIENTS client
     processes; then sequential streams replayed on a CPU runner."""
     need_transport()
+    import gc
     import multiprocessing
 
     from gie_tpu_torch import obs
@@ -1677,6 +1846,12 @@ def phase_server(dev, name, cfg, weights, kernels, own, tmp) -> dict:
     from gie_tpu_torch.runtime.health import SERVING
     from gie_tpu_torch.runtime.runner import ExtProcServerRunner
 
+    # The server shares this process with the phases before it, whose heap
+    # a server of its own would not hold: freeze that heap, so the
+    # collector's full passes during the bursts walk only what the runner
+    # and its streams allocate.
+    gc.collect()
+    gc.freeze()
     ctx = multiprocessing.get_context("spawn")
     stop, ready = ctx.Event(), ctx.Queue()
     procs = [ctx.Process(target=stub_fleet_process, args=(M, 0, ready, stop),
@@ -1746,8 +1921,19 @@ def phase_server(dev, name, cfg, weights, kernels, own, tmp) -> dict:
                 degraded0 = degraded_picks()
                 fanout = time_completer(runner.picker)
                 seq0 = newest_seq(obs.RECORDER)
+            before = process_readings()
+            transitions_before = len(rs.ladder.transitions)
             barrier.wait(600)
             got = [results.get(timeout=900) for _ in range(CLIENTS)]
+            # Each round's edges, warm-up included: a stall is the round
+            # whose ladder moved; the readings say what the process made.
+            emit({"phase": "server-round", "config": name, "round": w,
+                  "wall_s": max(g[3] for g in got) - min(g[2] for g in got),
+                  "client_cpu_s": sum(g[4] for g in got),
+                  "ladder_moves": len(rs.ladder.transitions)
+                  - transitions_before,
+                  "staleness_s": runner.scraper.staleness_seconds(),
+                  "before": before, "after": process_readings()})
             check(all(g[0] == w for g in got), f"{name}: rounds out of step")
             outcomes = [o for g in got for o in g[1]]
             errs = [o[4] for o in outcomes if o[4]]
@@ -1879,6 +2065,7 @@ def phase_server(dev, name, cfg, weights, kernels, own, tmp) -> dict:
             if proc.is_alive():
                 proc.terminate()
                 proc.join(10)
+        gc.unfreeze()
     emit(summary)
     return summary
 
@@ -3493,6 +3680,596 @@ def phase_ha(dev, cfg, weights, kernels, tmp) -> dict:
     return summary
 
 
+# -- phase 16: multi-cluster federation --------------------------------------
+
+FED_WEST_PODS, FED_EAST_PODS = 64, 192   # together the north star's M=256
+FED_QUEUE_LIMIT = 16.0     # phase 16's profile: a stub queue this long saturates
+FED_INTERVAL_S = 0.2       # --fed-interval-s of both servers
+FED_WAIT_S = 1.0           # east's --fed-wait-s (the long poll's window)
+FED_LOCAL_ONLY_S = 10.0    # the runner's default --fed-local-only-after-s
+FED_STORMS = ("storm-fed-spill", "storm-fed-drain", "storm-fed-partition")
+FED_ROUNDS = ("warm-up", "local", "spill", "prefix", "drain", "partition",
+              "heal")
+
+
+def fed_band(i: int) -> str:
+    """Stream i's criticality band in phase 16: 1 in 16 CRITICAL, 1 in 16
+    SHEDDABLE, the rest STANDARD (no objective header)."""
+    return {0: "critical", 1: "sheddable"}.get(i % 16, "")
+
+
+def fed_stream(method, w, i):
+    """one_stream for phase 16: stream i carries fed_band(i)."""
+    return one_stream(method, w, i, fed_band(i))
+
+
+async def fed_aio_stream(method, w, i):
+    """aio_stream for phase 16's client processes: stream i carries
+    fed_band(i)."""
+    return await aio_stream(method, w, i, fed_band(i))
+
+
+def fed_server_process(argv, fleet_port, ips, era_seq, stop, ready) -> None:
+    """A federation server in a process of its own: the runner main()
+    builds from `argv` over the pods at `ips` on fleet_port. With
+    `era_seq` its exchange mints that era before it serves (a restarted
+    peer EPP's new lineage). Puts its exchange's era on `ready` once it
+    serves; runs until `stop` is set or it is killed."""
+    from gie_tpu_torch.runtime.runner import ExtProcServerRunner
+
+    runner = ExtProcServerRunner(
+        server_options(argv), fleet_cluster("west", ips, fleet_port))
+    if era_seq:
+        runner.fed_exchange.publisher.bump_era(seq=era_seq)
+        runner.fed_exchange.refresh()
+    runner.setup()
+    runner.start()
+    ready.put(list(runner.fed_exchange.publisher.era))
+    stop.wait()
+    runner.stop()
+
+
+def fed_digest(port: int) -> dict:
+    """A federation exchange's full digest, decoded by the port's codec:
+    {section: arrays}."""
+    import urllib.request
+
+    from gie_tpu_torch.replication import codec
+
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/federation/digest", timeout=30) as r:
+        digest = codec.decode_digest(r.read())
+    check(digest is not None, "fed: west's digest does not decode")
+    return digest.sections
+
+
+def fed_fold_share(export: dict, keys: np.ndarray, slots) -> float:
+    """The share of `keys` whose prefix-table row has every slot of
+    `slots` present in an exported scheduler state."""
+    table = export["prefix_keys"].reshape(-1)
+    present = export["prefix_present"].reshape(table.shape[0], -1)
+    rows = {int(k): r for r, k in enumerate(table) if k}
+    hit = 0
+    for k in keys.tolist():
+        r = rows.get(int(k))
+        if r is not None and all(
+                (int(present[r, s // 32]) >> (s % 32)) & 1 for s in slots):
+            hit += 1
+    return hit / max(len(keys), 1)
+
+
+def fed_capture(runner):
+    """Arm a capture of east's next dispatched wave: its batches, the
+    state it started from (exported just before it) and its Gumbel noise.
+    -> (arm(), captured dict)."""
+    from gie_tpu_torch.sched.profile import gumbel_noise
+
+    sched = runner.scheduler
+    orig = sched.pick_async
+    cap, armed = {}, threading.Event()
+    gen = torch.Generator(device=sched.device)
+    gen.manual_seed(16)
+
+    def noise(shape):
+        cap["noise"] = gumbel_noise(shape, gen, sched.device)
+        return cap["noise"]
+
+    def pick_async(reqs, eps, **kw):
+        if not armed.is_set():
+            return orig(reqs, eps, **kw)
+        armed.clear()
+        cap["state"] = sched.export_state()
+        cap["reqs"], cap["eps"] = reqs, eps
+        sched.noise_source = noise
+        try:
+            cap["wave"] = orig(reqs, eps, **kw)
+        finally:
+            sched.noise_source = None
+        return cap["wave"]
+
+    sched.pick_async = pick_async
+    return armed.set, cap
+
+
+def fed_replay(cap, cfg, weights, name) -> dict:
+    """The captured card wave replayed on a CPU Scheduler from the same
+    state with the same noise: phase 3's primary rule."""
+    from gie_tpu_torch.sched import Scheduler
+
+    check("wave" in cap, f"{name}: no wave was captured")
+    noise = cap["noise"].cpu()
+    cpu = Scheduler(cfg, weights, device="cpu",
+                    noise_source=lambda shape: noise)
+    cpu.install_state(cap["state"])
+    res = cap["wave"].materialize()
+    ref = cpu.pick(cap["reqs"], cap["eps"])
+    valid = cap["eps"].valid.cpu().numpy()
+    differ = compare_primaries(res, ref, valid, name)
+    remote = int(valid[FED_EAST_PODS:].sum())
+    check(remote == FED_WEST_PODS,
+          f"{name}: the captured wave holds {remote} imported slots")
+    return {"replay_rows": int(len(differ)),
+            "replay_primaries_equal": int((~differ).sum()),
+            "replay_primary": int(res.indices[0, 0])}
+
+
+def fed_east_process(argv, fleet_port, ips, cfg, weights, cmds,
+                     replies) -> None:
+    """East, in a process of its own: the runner main() builds from
+    `argv` over the pods at `ips` on fleet_port, on the card. Answers the
+    phase's commands from `cmds` on `replies` (a failure as ("error",
+    text)) until "stop"."""
+    import traceback
+
+    from gie_tpu_torch.ops.fused_sinkhorn import fused_sinkhorn_plan
+    from gie_tpu_torch.ops.fused_topk import fused_blend_topk
+    from gie_tpu_torch.runtime import metrics as own_metrics
+    from gie_tpu_torch.runtime.runner import ExtProcServerRunner
+
+    kernels = {"fused_sinkhorn_plan": fused_sinkhorn_plan,
+               "fused_blend_topk": fused_blend_topk}
+    try:
+        runner = ExtProcServerRunner(
+            server_options(argv), fleet_cluster("east", ips, fleet_port))
+        sched, fed = runner.scheduler, runner.federation
+        check(sched.device.type == "cuda" and sched.cfg.use_pallas_sinkhorn
+              and runner.picker.federation is fed,
+              f"fed: east's scheduler on {sched.device}, federation wired "
+              f"{runner.picker.federation is fed}")
+        arm, cap = fed_capture(runner)
+        runner.setup()
+        runner.start()
+        link = runner.fed_exchange.links["west"]
+        local = [e.slot for e in runner.datastore.local_endpoints()]
+        base = {}
+    except Exception:
+        replies.put(("error", traceback.format_exc()))
+        return
+    replies.put(("ready", runner.grpc_server.port))
+
+    def imported():
+        eps = [e for e in runner.datastore.endpoints() if e.cluster == "west"]
+        return {"hostports": sorted(e.hostport for e in eps),
+                "slots": sorted(e.slot for e in eps), "local": len(local),
+                "scraped": bool(np.isfinite(
+                    runner.metrics_store.pool_rows(local)[1]).all())}
+
+    def reset():
+        for t in runner.picker._warm_threads:
+            t.join(300)
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        base.update(waves=own_metrics.PIPELINE_WAVES.value(),
+                    inline=sched.debug_report()["warm_inline_compiles"])
+        return base["inline"]
+
+    def peer():
+        view = fed._peers["west"]
+        return {"local_only": view.local_only,
+                "local_only_spells": view.local_only_spells,
+                "rung_moves": len(runner.resilience.ladder.transitions),
+                "local_only_metric": own_metrics.FED_LOCAL_ONLY.value("west"),
+                "installed_era": list(link.installed_era or ()),
+                "era_flips": link.era_flips,
+                "spills": sum(own_metrics.FED_SPILL.value("west", b)
+                              for b in ("critical", "standard",
+                                        "sheddable"))}
+
+    def report():
+        for t in runner.picker._warm_threads:
+            t.join(300)
+        return {"inline_captures_after_warmup":
+                    sched.debug_report()["warm_inline_compiles"]
+                    - base["inline"],
+                "waves": int(own_metrics.PIPELINE_WAVES.value()
+                             - base["waves"]),
+                "launches": {k: fn.launches for k, fn in kernels.items()},
+                "matrix": fed.capacity_matrix(), "link": link.report()}
+
+    commands = {
+        "imported": imported, "reset": reset, "peer": peer,
+        "report": report, "arm": arm,
+        "saturated": lambda limit: bool((
+            runner.metrics_store.host_queue_depths()[local] >= limit).all()),
+        "fold": lambda keys, slots: fed_fold_share(
+            sched.export_state(), keys, slots),
+        "replay": lambda: fed_replay(cap, cfg, weights, "fed replay"),
+        "drain": runner.fed_exchange.set_draining,
+    }
+    try:
+        while True:
+            cmd, args = cmds.get()
+            if cmd == "stop":
+                break
+            try:
+                replies.put(("ok", commands[cmd](*args)))
+            except Exception:
+                replies.put(("error", traceback.format_exc()))
+    finally:
+        runner.stop()
+        replies.put(("stopped", None))
+
+
+def fed_until(pred, timeout: float, probe=None, every: float = 0.1) -> float:
+    """Seconds until `pred()` holds (calling `probe` between reads), or
+    fail after `timeout`."""
+    t0 = time.monotonic()
+    while not pred():
+        check(time.monotonic() - t0 < timeout,
+              f"fed: condition not met within {timeout} s")
+        if probe is not None:
+            probe()
+        time.sleep(every)
+    return time.monotonic() - t0
+
+
+def fed_servers(dev, cfg, weights, kernels, tmp) -> dict:
+    """(a): two server processes built from the real flags on the card,
+    with phase 6's profile at queue_limit FED_QUEUE_LIMIT: west over
+    FED_WEST_PODS stub pods (--fed-cluster west --fed-port) and east over
+    FED_EAST_PODS (--fed-peer west=...; tenant-0 traced to an OTLP sink).
+    East takes a warm-up round and then a burst per state: local
+    (nothing spills), spill (every east slot saturated: non-CRITICAL
+    picks land on west, CRITICAL stays home, gie_federation_spill_total
+    counts them), prefix (west's hot keys folded against every west slot
+    of east's table; spilled sessions stick to the west pods that served
+    them), drain, partition (west SIGKILLed: east local-only, sheds only
+    in the sheddable band) and heal (west restarted with a greater era and
+    readmitted). One spilled wave is replayed on a CPU scheduler in east's
+    process."""
+    need_transport()
+    import multiprocessing
+
+    from gie_tpu_torch.federation import summary as fed_summary
+
+    ctx = multiprocessing.get_context("spawn")
+    stop_fleets, floor = ctx.Event(), ctx.Value("d", 0.0)
+    ready_w, ready_e = ctx.Queue(), ctx.Queue()
+    west_ips = fleet_ips(FED_WEST_PODS, first=FED_EAST_PODS)
+    east_ips = fleet_ips(FED_EAST_PODS)
+    procs = [ctx.Process(target=stub_fleet_process,
+                         args=(FED_WEST_PODS, 1, ready_w, stop_fleets),
+                         kwargs={"first": FED_EAST_PODS}, daemon=True),
+             ctx.Process(target=stub_fleet_process,
+                         args=(FED_EAST_PODS, 0, ready_e, stop_fleets),
+                         kwargs={"floor": floor}, daemon=True)]
+    for proc in procs:
+        proc.start()
+    east, west, sink, chans = None, None, None, []
+    cmds, replies = ctx.Queue(), ctx.Queue()
+    cfg16 = dataclasses.replace(cfg, queue_limit=FED_QUEUE_LIMIT)
+    rec = {"phase": "fed-servers", "queue_limit": FED_QUEUE_LIMIT,
+           "west_pods": FED_WEST_PODS, "east_pods": FED_EAST_PODS}
+
+    def call(cmd, *args, timeout=300):
+        cmds.put((cmd, args))
+        kind, value = replies.get(timeout=timeout)
+        check(kind == "ok", f"fed: east's {cmd} failed: {value}")
+        return value
+
+    try:
+        west_fleet, east_fleet = (ready_w.get(timeout=120),
+                                  ready_e.get(timeout=120))
+        config = write_scheduler_config(cfg16, weights, tmp)
+        fed_port = free_port()
+
+        def common(pool):
+            return ["--insecure-serving", "--scheduler-config", config,
+                    "--pool-name", pool, "--grpc-port", str(free_port()),
+                    "--grpc-health-port", str(free_port()),
+                    "--metrics-port", str(free_port()),
+                    "--extproc-workers", str(EXTPROC_WORKERS),
+                    "--scrape-interval-ms", str(SCRAPE_INTERVAL_MS),
+                    "--fed-interval-s", str(FED_INTERVAL_S)]
+
+        def start_west(era_seq):
+            argv = common("west") + ["--fed-cluster", "west",
+                                     "--fed-port", str(fed_port)]
+            stop, ready = ctx.Event(), ctx.Queue()
+            proc = ctx.Process(target=fed_server_process,
+                               args=(argv, west_fleet, west_ips, era_seq,
+                                     stop, ready), daemon=True)
+            proc.start()
+            return {"proc": proc, "stop": stop, "ready": ready,
+                    "grpc": int(argv[argv.index("--grpc-port") + 1])}
+
+        t_start = time.monotonic()
+        west = start_west(None)
+        sink, sink_port, spans = otlp_sink()
+        argv = common("east") + [
+            "--fed-cluster", "east",
+            "--fed-peer", f"west=http://127.0.0.1:{fed_port}",
+            "--fed-wait-s", str(FED_WAIT_S),
+            "--obs-sample-rate", "0", "--obs-tenant-sample", "tenant-0=1.0",
+            "--obs-otlp-endpoint", f"http://127.0.0.1:{sink_port}"]
+        west_era = west["ready"].get(timeout=300)
+        east = ctx.Process(target=fed_east_process,
+                           args=(argv, east_fleet, east_ips, cfg16, weights,
+                                 cmds, replies), daemon=True)
+        east.start()
+        kind, east_port = replies.get(timeout=300)
+        check(kind == "ready", f"fed: east did not start: {east_port}")
+        east_hp = {f"{ip}:{east_fleet}" for ip in east_ips}
+        west_hp = {f"{ip}:{west_fleet}" for ip in west_ips}
+        fed_until(lambda: (lambda r: set(r["hostports"]) == west_hp
+                           and r["scraped"])(call("imported")), 60,
+                  every=0.2)
+        got = call("imported")
+        west_slots = got["slots"]
+        check(got["local"] == FED_EAST_PODS and west_slots == list(
+            range(FED_EAST_PODS, M)), f"fed: {got['local']} local slots, "
+                                      f"west {west_slots[:3]}...")
+        rec["startup_s"] = time.monotonic() - t_start
+        # West serves a burst of its own: its prefix table then holds the
+        # sixteen system prompts, which its exchange publishes.
+        (west_out, _), = ha_burst(ctx, west["grpc"], [-1], procs)
+        check(all(o[1] is not None and o[1].split(",")[0] in west_hp
+                  for o in west_out), "fed: west left a stream unanswered")
+
+        barrier, results = ctx.Barrier(CLIENTS + 1), ctx.Queue()
+        for k in range(CLIENTS):
+            procs.append(ctx.Process(
+                target=client_process,
+                args=(east_port, CHANNELS // CLIENTS,
+                      list(range(-1, len(FED_ROUNDS) - 1)), k,
+                      STREAMS_PER_ROUND, barrier, results, fed_aio_stream),
+                daemon=True))
+            procs[-1].start()
+        chans, methods = open_channels(east_port, 1)
+        probe_n = [0]
+
+        def probe():
+            """A stream of its own: a one-request wave, with which the
+            picker's per-wave federation tick runs."""
+            probe_n[0] += 1
+            fed_stream(methods[0], 90, 16 * probe_n[0] + 2)
+
+        rounds, timing = {}, {}
+        for w, state in zip(range(-1, len(FED_ROUNDS) - 1), FED_ROUNDS):
+            t_state = time.monotonic()
+            if state == "local":
+                call("reset")
+            elif state == "spill":
+                floor.value = FED_QUEUE_LIMIT + 4
+                timing["saturate_s"] = fed_until(
+                    lambda: call("saturated", FED_QUEUE_LIMIT), 60)
+                spills0 = call("peer")["spills"]
+            elif state == "prefix":
+                # West's hot keys, as its exchange publishes them, folded
+                # against every west slot of east's device prefix table.
+                west_keys = fed_summary.decode_prefix(
+                    fed_digest(fed_port).get(fed_summary.PREFIX_SECTION))
+                check(west_keys is not None and len(west_keys) > 0,
+                      "fed: west published no hot prefix key")
+                timing["fold_s"] = fed_until(lambda: call(
+                    "fold", west_keys, west_slots) >= 0.9, 20, every=0.2)
+                rec["west_hot_keys"] = int(len(west_keys))
+                rec["fold_share"] = call("fold", west_keys, west_slots)
+            elif state == "drain":
+                call("arm")
+                probe()
+                rec.update(call("replay"))
+                call("drain", True)
+            elif state == "partition":
+                call("drain", False)
+                west["proc"].kill()
+                west["proc"].join(30)
+                timing["local_only_s"] = fed_until(
+                    lambda: call("peer")["local_only"], 30, probe)
+                fed_until(lambda: call("peer")["local_only_metric"] == 1.0,
+                          5)
+                check(timing["local_only_s"] <= FED_LOCAL_ONLY_S
+                      + FED_WAIT_S + FED_INTERVAL_S + 0.5,
+                      f"fed: local-only {timing['local_only_s']:.2f} s after "
+                      "the SIGKILL")
+            elif state == "heal":
+                t_restart = time.monotonic()
+                west = start_west(2)
+                healed_era = west["ready"].get(timeout=300)
+                timing["west_restart_s"] = time.monotonic() - t_restart
+                timing["readmit_s"] = fed_until(
+                    lambda: (lambda p: not p["local_only"]
+                             and p["installed_era"] == healed_era)(
+                        call("peer")), 60, probe)
+                check(healed_era > west_era and call("peer")["era_flips"]
+                      >= 1, f"fed: era {west_era} -> {healed_era}")
+                check(set(call("imported")["hostports"]) == west_hp,
+                      "fed: west's endpoints were not admitted again")
+            timing[f"{state}_setup_s"] = time.monotonic() - t_state
+            before = call("peer")
+            barrier.wait(600)
+            got = [results.get(timeout=900) for _ in range(CLIENTS)]
+            check(all(g[0] == w for g in got), "fed: rounds out of step")
+            outcomes = [o for g in got for o in g[1]]
+            errs = [o[4] for o in outcomes if o[4]]
+            check(not errs, f"fed {state}: {len(errs)} streams failed, "
+                            f"first: {errs[:1]}")
+            wall = max(g[3] for g in got) - min(g[2] for g in got)
+            rounds[state] = (outcomes, wall)
+            after = call("peer")
+            # What moved during the round: a local-only spell or a ladder
+            # move explains picks on the wrong cluster.
+            moved = {k: after[k] - before[k]
+                     for k in ("local_only_spells", "rung_moves")}
+            emit({"phase": "fed-round", "state": state, "wall_s": wall,
+                  **moved})
+            prim = [(i, o.split(",")[0]) for i, o, *_ in outcomes]
+            sheds = [(i, p) for i, p in prim if p.startswith("<")]
+            if state == "partition":
+                off = [(i, p) for i, p in sheds
+                       if fed_band(i) != "sheddable" or p != "<429>"]
+                check(not off, f"fed partition: sheds outside the "
+                               f"sheddable band: {off[:3]}")
+            else:
+                check(not sheds, f"fed {state}: {len(sheds)} streams shed: "
+                                 f"{sheds[:3]}")
+            picked = [(i, p) for i, p in prim if not p.startswith("<")]
+            home = {"warm-up": east_hp, "local": east_hp, "drain": west_hp,
+                    "partition": east_hp}.get(state)
+            bad = [(i, p) for i, p in picked
+                   if p not in (home if home is not None else
+                                east_hp if fed_band(i) == "critical"
+                                else west_hp)]
+            check(not bad, f"fed {state}: {len(bad)} picks on the wrong "
+                           f"cluster: {bad[:3]}; during the round {moved}")
+            if state == "prefix":
+                rec["spill_total_delta"] = call("peer")["spills"] - spills0
+            rec[f"{state}_streams_per_s"] = len(outcomes) / wall
+            rec[f"{state}_sheds"] = len(sheds)
+        spilled = sum(p.split(",")[0] in west_hp
+                      for st in ("spill", "prefix")
+                      for _, p, *_ in rounds[st][0])
+        check(rec["spill_total_delta"] == spilled,
+              f"fed: gie_federation_spill_total moved "
+              f"{rec['spill_total_delta']} for {spilled} spilled streams")
+        # Each system prompt's spilled streams land where its first spill
+        # round put it; `chance` is the share a cold prefix table would
+        # reach (the prompt's distinct west pods over all of them).
+        before = prompt_endpoints([(FED_ROUNDS.index("spill") - 1,
+                                    rounds["spill"][0])])
+        after = prompt_endpoints([(FED_ROUNDS.index("prefix") - 1,
+                                   rounds["prefix"][0])])
+        before = {k: {e: n for e, n in v.items() if e in west_hp}
+                  for k, v in before.items()}
+        after = {k: {e: n for e, n in v.items() if e in west_hp}
+                 for k, v in after.items()}
+        same = sum(n for k, eps_ in after.items() for ep, n in eps_.items()
+                   if ep in before.get(k, {}))
+        rec["prefix_share"] = same / max(
+            sum(sum(e.values()) for e in after.values()), 1)
+        rec["prefix_chance"] = statistics.mean(
+            len(v) for v in before.values() if v) / FED_WEST_PODS
+        check(rec["prefix_share"] > rec["prefix_chance"],
+              f"fed: spilled sessions stick to their west pods at "
+              f"{rec['prefix_share']:.3f}, chance {rec['prefix_chance']:.3f}")
+        # The spilled tenant-0 streams' traces carry the federation hop.
+        timing["otlp_s"] = fed_until(lambda: any(
+            sp.get("name") == "gie.federation" for sp in list(spans)), 30)
+        rec["otlp_federation_spans"] = sum(
+            sp.get("name") == "gie.federation" for sp in list(spans))
+        report = call("report")
+        check(report["inline_captures_after_warmup"] == 0,
+              f"fed: {report['inline_captures_after_warmup']} inline "
+              "captures after the warm-up round")
+        check(report["launches"]["fused_sinkhorn_plan"] == report["waves"]
+              >= 1, f"fed: {report['launches']} kernel launches for "
+                    f"{report['waves']} waves")
+        rec.update(report)
+        rec.update(timing)
+        rec["round_wall_s"] = {k: v[1] for k, v in rounds.items()}
+        rec["east_era"] = call("peer")["installed_era"]
+        cmds.put(("stop", ()))
+        check(replies.get(timeout=120)[0] == "stopped",
+              "fed: east did not stop")
+        east.join(60)
+    finally:
+        stop_fleets.set()
+        for c in chans:
+            c.close()
+        for srv in (west,):
+            if srv is not None and srv["proc"].is_alive():
+                srv["stop"].set()
+                srv["proc"].join(30)
+        if east is not None and east.is_alive():
+            cmds.put(("stop", ()))
+            east.join(60)
+        if sink is not None:
+            sink.shutdown()
+        for proc in procs + [p for p in (east, west and west["proc"]) if p]:
+            proc.join(30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+    emit(rec)
+    return rec
+
+
+def fed_without_late_reads(card: dict) -> dict:
+    """A storm's federation block without what the scorer reads on the
+    clock after run() released it (the link's staleness; each peer row's
+    staleness and the effective penalty derived from it) and with each
+    era as its sequence number (a flipped era's token is a fresh random
+    draw in every run)."""
+    fed = dict(card["federation"])
+    link = {k: v for k, v in fed["link"].items() if k != "staleness_s"}
+    if link.get("installed_era"):
+        link["installed_era"] = link["installed_era"][0]
+    fed["link"] = link
+    fed["peer_era"] = fed["peer_era"][0]
+    fed["matrix"] = {
+        name: {k: (v[0] if k == "era" and v else v) for k, v in row.items()
+               if row["local"] or k not in ("staleness_s", "penalty")}
+        for name, row in fed["matrix"].items()}
+    return fed
+
+
+def fed_storms(dev, kernels) -> dict:
+    """(b): storm-fed-spill, -drain and -partition under virtual time on
+    the card and on a CPU engine with noise from one seeded CPU generator:
+    decisions, the per-cluster picks and serves, the local-only timeline
+    and the federation events equal."""
+    cpu = torch.device("cpu")
+    out = {}
+    for name in FED_STORMS:
+        on_card = storm_run(name, dev, kernels)
+        on_cpu = storm_run(name, cpu, kernels)
+        same_storm(on_card, on_cpu)
+        a, b = (fed_without_late_reads(r["scorecard"])
+                for r in (on_card, on_cpu))
+        differ = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+        check(not differ, f"fed storm {name}: the card and the CPU differ "
+                          f"in federation {differ}")
+        fed = on_card["scorecard"]["federation"]
+        out[name] = {"wall_s": on_card["rec"]["wall_s"],
+                     "cpu_wall_s": on_cpu["rec"]["wall_s"],
+                     "waves": on_card["rec"]["waves"],
+                     "inline_captures_after_warmup":
+                         on_card["rec"]["inline_captures_after_warmup"],
+                     "picks": {c: p["total"]
+                               for c, p in fed["picks"].items()},
+                     "events": [e["event"] for e in fed["events"]]}
+    rec = {"phase": "fed-storms", **out}
+    emit(rec)
+    return rec
+
+
+def phase_fed(dev, cfg, weights, kernels, tmp) -> dict:
+    """Phase 16: (a) two federated server processes on the card, (b) the
+    federation storms card against CPU."""
+    t0 = time.monotonic()
+    servers = fed_servers(dev, cfg, weights, kernels, tmp)
+    storms = fed_storms(dev, kernels)
+    summary = {"phase": "fed", "wall_s": time.monotonic() - t0,
+               "launches": servers["launches"],
+               "local_only_s": servers["local_only_s"],
+               "readmit_s": servers["readmit_s"],
+               "storm_wall_s": {k: v["wall_s"] for k, v in storms.items()
+                                if k != "phase"}}
+    emit(summary)
+    return summary
+
+
 def tail(path: str, n: int = 4000) -> str:
     with open(path, errors="replace") as f:
         return f.read()[-n:]
@@ -3575,12 +4352,14 @@ def main() -> int:
         learn = phase_learn(dev, kernels, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         ha = phase_ha(dev, cfg, weights, kernels, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        fed = phase_fed(dev, cfg, weights, kernels, tmp)
 
     line = []
     for rec, phases, source, replaces in (
         (records["fused_sinkhorn_plan"],
          (sink, pick_sink, serve_sink, chaos_sink, warm_sink, pd_sink,
-          learn, ha),
+          learn, ha, fed),
          "gie_tpu_torch/ops/csrc/fused_sinkhorn.cu",
          "gie_tpu/ops/fused_sinkhorn.py:66"),
         (records["fused_blend_topk"],

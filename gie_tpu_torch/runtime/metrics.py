@@ -639,6 +639,48 @@ TENANT_SERVE_ERRORS = Counter(
     "Data-plane serve errors (5xx/reset) observed per tenant at the "
     "response hop — the per-tenant half of gie_serve_outcome_total",
     ["tenant"])
+# Multi-cluster federation (federation/). The peer label is bounded by
+# configuration (--fed-peer entries), never by workload.
+FED_PEERS = Gauge(
+    "gie_federation_peers",
+    "Configured federation peer clusters")
+FED_REMOTE_ENDPOINTS = Gauge(
+    "gie_federation_remote_endpoints",
+    "Imported peer endpoints currently schedulable, per peer cluster",
+    ["peer"])
+FED_STALENESS = Gauge(
+    "gie_federation_staleness_seconds",
+    "Seconds since the peer digest was last confirmed (install or 304); "
+    "-1 before first contact",
+    ["peer"])
+FED_LOCAL_ONLY = Gauge(
+    "gie_federation_local_only",
+    "1 while the peer is excluded from spillover (stale link past the "
+    "local-only floor), else 0",
+    ["peer"])
+FED_PENALTY = Gauge(
+    "gie_federation_penalty_queue_units",
+    "Effective cross-cluster cost penalty applied to the peer's "
+    "imported endpoints, in queue-depth units (staleness-inflated)",
+    ["peer"])
+FED_SYNCS = Counter(
+    "gie_federation_syncs_total",
+    "Peer digest exchange attempts by outcome (installed, not_modified, "
+    "fetch_error, corrupt, stale_epoch, era_regression, ...)",
+    ["peer", "outcome"])
+FED_SPILL = Counter(
+    "gie_federation_spill_total",
+    "Picks that landed on an imported peer endpoint, by peer cluster "
+    "and criticality band",
+    ["peer", "band"])
+FED_ERA_FLIPS = Counter(
+    "gie_federation_era_flips_total",
+    "Peer publisher era changes observed (peer failover / partition "
+    "heal; the split-brain convergence events)",
+    ["peer"])
+FED_DRAINING = Gauge(
+    "gie_federation_cluster_draining",
+    "1 while THIS cluster is draining its traffic to peers, else 0")
 # Scorer identity: the same constant-1 info idiom as gie_build_info.
 POLICY_INFO = Gauge(
     "gie_policy_info",

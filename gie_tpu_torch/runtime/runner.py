@@ -17,11 +17,14 @@ them, both on by default. So are the KV-event listener
 on a file lease (--leader-elect; readiness then gates on leadership), HA
 state replication (--replication-port: the leader publishes its digest,
 followers install it and promote warm) and the recommend-only autoscale
-loop (--autoscale-mode recommend). Subsystems that later slices of the
-port bring are refused at construction with the port's not-ported error,
-never skipped silently (`refuse_out_of_slice`): federation (--fed-*), the
-fleet picker (--fleet-topk), the multi-device mesh (--mesh-devices), the
-latency predictor (--enable-predictor), and the kube slice's actuation
+loop (--autoscale-mode recommend), and so is multi-cluster federation
+(--fed-cluster, --fed-peer, --fed-port, --fed-drain: the digest exchange
+with every peer, imported peer endpoints in the slot space, the spill
+policy in the picker, /debugz/federation). Subsystems that later slices of
+the port bring are refused at construction with the port's not-ported
+error, never skipped silently (`refuse_out_of_slice`): the fleet picker
+(--fleet-topk), the multi-device mesh (--mesh-devices), the latency
+predictor (--enable-predictor), and the kube slice's actuation
 (--autoscale-mode apply) and Lease elector (--leader-elect over a kube
 cluster client; main refuses --kube itself).
 """
@@ -55,6 +58,7 @@ from gie_tpu_torch.datastore import Datastore
 from gie_tpu_torch.extproc.server import StreamingServer
 from gie_tpu_torch.extproc.workers import ExtProcWorkerPool
 from gie_tpu_torch.fairness import FairnessConfig, FairnessState, parse_weights
+from gie_tpu_torch.federation import FederationExchange, FederationState
 from gie_tpu_torch.learn import artifact as artifact_mod
 from gie_tpu_torch.learn.policy import weights_from_mapping
 from gie_tpu_torch.metricsio import MetricsStore
@@ -91,16 +95,10 @@ from gie_tpu_torch.utils.lora import LoraRegistry
 def refuse_out_of_slice(opts: Options, cluster=None) -> None:
     """Raise the port's not-ported error for the first option whose
     subsystem a later slice of the port brings (ROADMAP.md, Queue 1)."""
-    defaults = Options()
-    federation = [f.name for f in dataclasses.fields(Options)
-                  if f.name.startswith("fed_")
-                  and getattr(opts, f.name) != getattr(defaults, f.name)]
     refusals = (
         (opts.leader_elect and hasattr(cluster, "_json"),
          "--leader-elect on a kube Lease (KubeLeaseElector)", "kube"),
         (opts.autoscale_mode == "apply", "--autoscale-mode apply", "kube"),
-        (bool(federation), "--fed-* (federation: "
-                           + ", ".join(federation) + ")", "federation"),
         (opts.fleet_topk > 0, "--fleet-topk", "fleet"),
         (opts.mesh_devices > 1, "--mesh-devices", "mesh"),
         (opts.enable_predictor, "--enable-predictor", "predictor_fn"),
@@ -241,6 +239,38 @@ class ExtProcServerRunner:
             on_slot_reclaimed=self._slot_reclaimed,
             drain_deadline_s=opts.drain_deadline_s)
         self._overflow_logged = 0
+        # Multi-cluster federation (federation/): imported peer pools
+        # become schedulable endpoints with a staleness-inflated cost
+        # penalty; the digest exchange long-polls every configured peer.
+        self.federation = None
+        self.fed_exchange = None
+        if opts.fed_peers or opts.fed_port > 0 or opts.fed_drain:
+            peers = {}
+            for spec in opts.fed_peers:
+                name, _, url = str(spec).partition("=")
+                peers[name] = url
+            self.federation = FederationState(
+                self.datastore, self.metrics_store,
+                scheduler=self.scheduler,
+                cluster=opts.fed_cluster,
+                penalty=opts.fed_penalty,
+                stale_inflate_s=opts.fed_stale_inflate_s,
+                local_only_after_s=opts.fed_local_only_after_s,
+                spill_queue_limit=float(self.scheduler.cfg.queue_limit),
+            )
+            self.federation.draining = opts.fed_drain
+            self.fed_exchange = FederationExchange(
+                self.federation,
+                cluster=opts.fed_cluster,
+                peers=peers,
+                port=opts.fed_port,
+                bind=opts.fed_bind,
+                serve=opts.fed_port > 0,
+                interval_s=opts.fed_interval_s,
+                wait_s=opts.fed_wait_s,
+                max_endpoints=opts.fed_max_endpoints,
+                prefix_keys_fn=self.scheduler.prefix_hot_keys,
+            )
         self.picker = BatchingTPUPicker(
             self.scheduler,
             self.datastore,
@@ -255,6 +285,7 @@ class ExtProcServerRunner:
             background_warm=True,
             resilience=self.resilience,
             fairness=self.fairness,
+            federation=self.federation,
         )
         self._dump_thread: Optional[threading.Thread] = None
         own_metrics.register_pool_aggregates(self._pool_snapshot)
@@ -499,6 +530,12 @@ class ExtProcServerRunner:
             if self.resilience.ejector is not None:
                 providers["outlier"] = (
                     lambda q: self.resilience.ejector.report())
+        if self.fed_exchange is not None:
+            # The federation page: peer links (era, staleness, breaker),
+            # the per-cluster capacity matrix, and this cluster's drain
+            # flag — the full spill-policy explanation.
+            providers["federation"] = (
+                lambda q: self.fed_exchange.report())
         return providers
 
     def _policy_weights(self) -> dict:
@@ -602,6 +639,16 @@ class ExtProcServerRunner:
                 "replication manager started",
                 advertise=self.replication.advertise,
                 interval_s=self.opts.replication_interval_s,
+            )
+        if self.fed_exchange is not None:
+            self.fed_exchange.start()
+            self.log.info(
+                "federation exchange started",
+                cluster=self.opts.fed_cluster,
+                peers=sorted(self.fed_exchange.links),
+                port=(self.fed_exchange.server.port
+                      if self.fed_exchange.server is not None else None),
+                draining=self.federation.draining,
             )
         if self.opts.fault_specs:
             # gie-chaos (resilience/faults.py): arm the seeded injector.
@@ -740,6 +787,8 @@ class ExtProcServerRunner:
             self.autoscaler.stop()
         if self.replication is not None:
             self.replication.stop()
+        if self.fed_exchange is not None:
+            self.fed_exchange.stop()
         # Persist the capacity EWMA on LEADER shutdown: the next
         # single-replica start seeds from it instead of the default.
         # Followers skip the write — their copy lags the leader's, and

@@ -36,9 +36,14 @@ buckets to Scheduler.warm_lattice_async, which captures their cycles on a
 background thread, so a later wave of another size replays a graph
 instead of capturing one inline.
 
-Not carried by this slice, and refused at construction: federation
-spill (`federation=`) and the latency predictor and SLO admission
-(`trainer=`).
+With `federation=` (a FederationState) each wave first runs the spill
+policy: an item whose local candidates are all saturated gains the
+imported peer endpoints, and under a whole-cluster drain its candidates
+become the peers'. Imported endpoints are slots of the same slot space,
+so the wave goes through the same captured cycle and kernels.
+
+Not carried by this slice, and refused at construction: the latency
+predictor and SLO admission (`trainer=`).
 """
 
 from __future__ import annotations
@@ -128,7 +133,8 @@ def _fair_order(items: list["_Pending"]) -> list["_Pending"]:
 class _Pending:
     __slots__ = ("req", "candidates", "event", "result", "error",
                  "enqueued_at", "abandoned", "band", "cand_slots",
-                 "excl_breaker", "excl_drain", "tenant", "cost")
+                 "excl_breaker", "excl_drain", "tenant", "cost",
+                 "fed_remote", "fed_base")
 
     def __init__(self, req: PickRequest, candidates: list,
                  band: Optional[int] = None,
@@ -159,6 +165,13 @@ class _Pending:
         # Empty tuples until a filter actually fires.
         self.excl_breaker: tuple = ()
         self.excl_drain: tuple = ()
+        # Imported peer-cluster slots the federation spill policy ADDED to
+        # this item's candidate set (flight-recorder provenance), and the
+        # pre-spill candidate list, kept so a drain CANCELLED while this
+        # item is held can restore its local set (None until federation
+        # first mutates).
+        self.fed_remote: tuple = ()
+        self.fed_base = None
         # Tenant identity + request cost, resolved ONCE at enqueue for the
         # fairness layer; cost shares request_cost_host's units.
         vals = req.headers.get(mdkeys.FLOW_FAIRNESS_ID_KEY)
@@ -309,8 +322,6 @@ class BatchingTPUPicker:
         federation=None,
         clock: Clock = MONOTONIC,
     ):
-        if federation is not None:
-            raise _not_ported("federation spill", "federation")
         if trainer is not None:
             raise _not_ported("a latency-predictor trainer (and the SLO "
                               "admission it drives)", "predictor_fn")
@@ -402,6 +413,10 @@ class BatchingTPUPicker:
         # per WAVE whether this wave takes the full device path, a probe
         # wave, or a host-side degraded pick. None = no ladder.
         self.resilience = resilience
+        # Multi-cluster federation (federation/): imported peer endpoints
+        # join candidate sets through the spill policy at wave cadence.
+        # None = single cluster.
+        self.federation = federation
         # Smooth-weighted-round-robin credit per slot and the static-
         # subset rotation cursor (degraded rungs; collector/completer
         # threads only — the two never pick the same wave).
@@ -907,6 +922,57 @@ class BatchingTPUPicker:
                         it.cand_slots = np.fromiter(
                             (getattr(ep, "slot", -1) for ep in allowed),
                             np.int64, len(allowed))
+        # Federation spillover, decided per wave BEFORE the hold check: a
+        # pick whose local candidates are all saturated gains the imported
+        # peer endpoints (penalized in the cost model) instead of being
+        # held to die, and under whole-cluster drain the preference
+        # inverts (new picks bleed to healthy peers). An upstream-pinned
+        # subset never spills; CRITICAL never crosses while local
+        # candidates exist (FederationState.spill_candidates owns the band
+        # rules). Host-only: observe() and the queue column read no
+        # device state.
+        fed = self.federation
+        if fed is not None and (fed.has_peers() or fed.draining):
+            fed.observe()
+            queues_f = self.metrics_store.host_queue_depths()
+            for it in batch:
+                if getattr(it.req, "subset", False):
+                    continue
+                if it.fed_remote:
+                    # Already spilled on a prior cycle (a HELD item
+                    # re-enters): re-appending would duplicate remotes, so
+                    # the set is kept — EXCEPT when the drain flag flipped
+                    # since the spill: a drain-REPLACED item whose drain
+                    # was cancelled comes home (restore the pre-spill
+                    # locals and re-evaluate), and a spill-APPENDED item
+                    # caught by a newly-raised drain drops its locals.
+                    was_replaced = all(
+                        getattr(ep, "cluster", "") for ep in it.candidates)
+                    if was_replaced == bool(fed.draining):
+                        continue  # decision still matches the flag
+                    if it.fed_base is not None:
+                        it.candidates = it.fed_base
+                    it.fed_remote = ()
+                    it.cand_slots = np.fromiter(
+                        (getattr(ep, "slot", -1) for ep in it.candidates),
+                        np.int64, len(it.candidates))
+                remote = fed.spill_candidates(
+                    it.band, it.cand_slots, queues_f)
+                if not remote:
+                    continue
+                it.fed_base = list(it.candidates)
+                it.fed_remote = tuple(
+                    int(getattr(ep, "slot", -1)) for ep in remote)
+                if fed.draining:
+                    # Drain bleed: local endpoints leave NEW-pick
+                    # candidacy (spill_candidates returned None if no
+                    # healthy peer exists — availability beats drain).
+                    it.candidates = list(remote)
+                else:
+                    it.candidates = list(it.candidates) + list(remote)
+                it.cand_slots = np.fromiter(
+                    (getattr(ep, "slot", -1) for ep in it.candidates),
+                    np.int64, len(it.candidates))
         # Flow-control hold, decided BEFORE any scheduling so a held
         # request never touches device state: non-critical, within the
         # hold window, and EVERY candidate saturated.
@@ -1141,7 +1207,7 @@ class BatchingTPUPicker:
                 "candidates": [int(s) for s in item.cand_slots],
                 "excluded_breaker": list(item.excl_breaker),
                 "excluded_drain": list(item.excl_drain),
-                "fed_remote": [],
+                "fed_remote": list(item.fed_remote),
                 "draining": rec_draining,
                 "deadline_remaining_ms": (
                     round((req.deadline_at - now_mono) * 1e3, 1)
@@ -1186,6 +1252,16 @@ class BatchingTPUPicker:
             res = PickResult(endpoint=picked[0], fallbacks=picked[1:])
             res.assumed_cost = request_cost_host(
                 float(plen[i]), float(dlen[i]))
+            peer = getattr(by_slot[picked_slots[0]], "cluster", "")
+            if peer and self.federation is not None:
+                # Cross-cluster pick: tally the spill
+                # (gie_federation_spill_total) and stamp the trace, which
+                # the OTLP exporter turns into a gie.federation span.
+                self.federation.note_remote_pick(
+                    peer, _BAND_NAMES.get(item.band, "standard"))
+                tr_f = item.req.trace
+                if tr_f is not None:
+                    tr_f.event(f"federation:{peer}")
             # The cycle charges the RAW primary; if that slot wasn't
             # routable, picked[0] differs and observe_served's guard skips
             # the release.

@@ -55,7 +55,6 @@ log = logging.getLogger(__name__)
 _LATER = {
     "predictor_fn": "the latency-predictor slice",
     "mesh": "the multi-device slice",
-    "federation": "the federation slice",
     "kube": "the kube slice",
     "fleet": "the fleet slice",
 }

@@ -41,13 +41,16 @@ autoscale loop (``autoscale_max_extra``: the real SignalCollector ->
 CapacityModel -> AutoscaleRecommender, actuation = pods joining this
 pool) and the replication standby probe (``standby`` and the
 ``standby_failover`` shape: the real StatePublisher digest, fetched and
-decoded the way a follower would). Subsystems of later slices are refused
-at construction, before any stub or thread exists: a mesh, the fleet
-picker and federation (each raises the port's not-ported error naming its
-slice). Their branches of the reference engine are not carried; their
-tallies stay in the decision digest as the empty values the reference
-records when they are off, so a port fingerprint can equal a reference
-one.
+decoded the way a follower would), and so does federation (a
+``federation`` spec: a second stub fleet as the peer cluster, published
+through a real FederationPublisher and imported through a real PeerLink /
+FederationState, with the drain, partition and heal control events).
+Subsystems of later slices are refused at construction, before any stub
+or thread exists: a mesh and the fleet picker (each raises the port's
+not-ported error naming its slice). Their branches of the reference engine
+are not carried; their tallies stay in the scorecard as the values the
+reference records when they are off, so a port fingerprint can equal a
+reference one.
 
 Determinism: the SCHEDULE is bit-identical per seed (shapes.py). Under
 ``virtual_time`` the decision sequence is a pure function of the seed and
@@ -83,6 +86,12 @@ from gie_tpu_torch.extproc.server import (
     StreamAborted,
     StreamingServer,
 )
+from gie_tpu_torch.federation import (
+    FederationExchange,
+    FederationPublisher,
+    FederationState,
+)
+from gie_tpu_torch.federation import summary as fed_summary
 from gie_tpu_torch.learn.policy import float32_from_hex, weights_from_mapping
 from gie_tpu_torch.metricsio import MetricsStore
 from gie_tpu_torch.metricsio.engine import ScrapeEngine
@@ -161,15 +170,31 @@ class PoolSpec:
 
 @dataclasses.dataclass
 class FederationSpec:
-    """A peer cluster for federation storms (the reference's fields and
-    defaults, so a drive's ``federation`` block parses; the engine refuses
-    it until the federation slice)."""
+    """A peer cluster for federation storms (docs/FEDERATION.md): the engine runs a SECOND stub fleet as the
+    peer's data plane, publishes its load through a REAL
+    FederationPublisher + HTTP listener (era machinery included), and
+    the local stack imports it through a real PeerLink/FederationState
+    — so spillover, drain bleed, partition degradation, and split-brain
+    convergence all exercise the production code path; only the peer's
+    own EPP scheduling is emulated (its digest IS what a peer EPP would
+    publish)."""
 
     peer_name: str = "west"
     n_pods: int = 3
     ip_base: str = "10.79.0"
+    # Fleet-scale storms (docs/FLEET.md): run N peer clusters
+    # instead of one. Peer 0 keeps `peer_name` and ALL the single-peer
+    # machinery (partition, zombie split-brain, the pinned decision
+    # fingerprints are byte-identical at n_peers=1); peers 1..N-1 are
+    # named `{peer_name}{i}`, publish through their own real
+    # FederationPublisher each, and always answer (the chaos events stay
+    # scoped to peer 0).
     n_peers: int = 1
+    # Cross-cluster penalty in queue-depth units (storm-scale default:
+    # small enough that a saturated local pool actually spills).
     penalty: float = 2.0
+    # Link cadence — CI-scale fast-recovery variants of the production
+    # defaults (a storm must see degrade AND readmit in seconds).
     interval_s: float = 0.1
     wait_s: float = 0.5
     stale_inflate_s: float = 0.5
@@ -182,8 +207,7 @@ class FederationSpec:
 class EngineConfig:
     """The reference's fields and defaults (see gie_tpu/storm/engine.py
     for each knob's rationale). The subsystems of later slices —
-    mesh_devices > 1, fleet_topk > 0, federation — are refused by
-    StormEngine."""
+    mesh_devices > 1, fleet_topk > 0 — are refused by StormEngine."""
 
     ttft_slo_s: float = 2.5
     scrape_interval_s: float = 0.025
@@ -242,8 +266,19 @@ def _refuse_later_slices(cfg: EngineConfig) -> None:
         raise _not_ported("a storm over a scheduling mesh", "mesh")
     if cfg.fleet_topk > 0:
         raise _not_ported("the storm's fleet picker (fleet_topk)", "fleet")
-    if cfg.federation is not None:
-        raise _not_ported("a federation storm", "federation")
+
+
+class _ZombieSnapshot:
+    """Frozen pre-failover publisher lineage for split-brain storms: it
+    serves the same full frame (old era, old epoch) forever — what a
+    partitioned-away leader that never learned it lost looks like to an
+    importer."""
+
+    def __init__(self, pub):
+        self.response = pub.serve()
+
+    def serve(self, **_kw):
+        return self.response
 
 
 class _AdmissionGate:
@@ -482,6 +517,14 @@ class StormEngine:
         self._autoscale_events: list[dict] = []
         self._upgrades: list[dict] = []
         self._failover_checks: list[dict] = []
+        # Federation tallies: per-cluster pick/serve counts, the local-only
+        # timeline, and the control-event log the scorecard's per-cluster
+        # section is built from.
+        self._fed_picks: dict = defaultdict(int)    # (cluster, band) -> n
+        self._fed_serves: dict = defaultdict(int)   # cluster -> 2xx serves
+        self._fed_pick_times: list[tuple] = []      # (t, cluster)
+        self._fed_local_only_trace: list[tuple] = []
+        self._fed_events: list[dict] = []
         # Decision log: every landed pick as (t, destination, band), the
         # core of the scorecard's decision_fingerprint.
         self._pick_log: list[tuple] = []
@@ -541,6 +584,108 @@ class StormEngine:
         self._pod_names: list[str] = []
         for i, scfg in enumerate(pool.stub_cfgs()):
             self._add_pod(f"p{i}", f"{pool.ip_base}.{i + 1}", scfg)
+        # -- federation peer cluster (docs/FEDERATION.md) -------------------
+        self.fed_state = self.fed_exchange = None
+        self.peer_pub = self.peer_server = None
+        self.peer_pubs: dict = {}
+        self._peer_hostports: set[str] = set()
+        self._peer_cluster: dict[str, str] = {}
+        self._fed_partitioned = False
+        self._zombie_pub = None
+        self._zombie_alternator = 0
+        fed = cfg.federation
+        if fed is not None:
+            # Peer fleets: same stub dict (the data plane routes by
+            # hostport), never the local datastore — a peer's pods
+            # become schedulable only through the digest import. Peer 0
+            # keeps fed.peer_name / fed.ip_base (the classic single-peer
+            # engine, byte-identical at n_peers=1); fleet-scale storms
+            # add peers "{peer_name}{i}" on bumped second-octet subnets.
+            stub_cfg = pool.stub_cfgs()[0]
+            octets = fed.ip_base.split(".")
+            peer_specs: list[tuple[str, str]] = []
+            for p in range(max(1, fed.n_peers)):
+                name = fed.peer_name if p == 0 else f"{fed.peer_name}{p}"
+                ip_base = (fed.ip_base if p == 0 else
+                           f"{octets[0]}.{int(octets[1]) + p}.{octets[2]}")
+                peer_specs.append((name, ip_base))
+            peer_hosts: dict[str, list[str]] = {}
+            for name, ip_base in peer_specs:
+                hosts = []
+                for i in range(fed.n_pods):
+                    hostport = f"{ip_base}.{i + 1}:8000"
+                    self._stubs[hostport] = _StubSlot(
+                        VLLMStub(stub_cfg, name=f"{name}-p{i}"))
+                    self._stubs[hostport].stub.hostport = hostport
+                    self._peer_hostports.add(hostport)
+                    self._peer_cluster[hostport] = name
+                    hosts.append(hostport)
+                peer_hosts[name] = sorted(hosts)
+
+            def _make_sections(name: str, hosts: list[str]):
+                def _peer_meta():
+                    return fed_summary.encode_meta(
+                        self.peer_pubs[name].era, False, name)
+
+                def _peer_load():
+                    rows = []
+                    with self._world_lock:
+                        for hostport in hosts:
+                            slot = self._stubs.get(hostport)
+                            if slot is None or not slot.alive:
+                                continue
+                            rows.append((hostport,
+                                         float(len(slot.stub.queue)),
+                                         float(slot.stub.kv_utilization()),
+                                         False))
+                    return fed_summary.encode_load(
+                        rows, max_endpoints=64)
+
+                return {fed_summary.META_SECTION: _peer_meta,
+                        fed_summary.LOAD_SECTION: _peer_load}
+
+            for p, (name, _ip) in enumerate(peer_specs):
+                self.peer_pubs[name] = FederationPublisher(
+                    _make_sections(name, peer_hosts[name]),
+                    era_seq=1,
+                    # Deterministic era token: the pair's ordering
+                    # semantics never read it, but a reproducible
+                    # scorecard should not carry run-unique randomness.
+                    era_token=((self.program.seed + p) & 0x7FFF_FFFF) or 1,
+                    clock=self.clock)
+                self.peer_pubs[name].refresh()
+            # The first peer IS the classic peer: every single-peer seam
+            # (partition, zombie, the scorecard's peer_era) aliases it.
+            self.peer_pub = self.peer_pubs[fed.peer_name]
+            self.fed_state = FederationState(
+                self.datastore, self.metrics_store,
+                scheduler=self.scheduler,
+                cluster="local",
+                penalty=fed.penalty,
+                stale_inflate_s=fed.stale_inflate_s,
+                local_only_after_s=fed.local_only_after_s,
+                spill_queue_limit=cfg.queue_limit,
+                clock=self.clock.now)
+            self.fed_exchange = FederationExchange(
+                self.fed_state,
+                cluster="local",
+                # The transport is the injected in-process fetch (the
+                # same serve() surface the HTTP handler fronts; real-
+                # wire long-poll is pinned by tests/test_federation.py)
+                # — the partition/zombie machinery needs the seam. The
+                # first peer keeps the historic bare URL (pinned
+                # fingerprints); extra peers route by path suffix.
+                peers={name: ("storm://peer" if name == fed.peer_name
+                              else f"storm://peer/{name}")
+                       for name in self.peer_pubs},
+                serve=False,
+                interval_s=fed.interval_s,
+                wait_s=fed.wait_s,
+                link_open_after=fed.link_open_after,
+                link_open_s=fed.link_open_s,
+                fetch=self._fed_fetch,
+                seed=self.program.seed,
+                clock=self.clock)
         self.picker = BatchingTPUPicker(
             self.scheduler, self.datastore, self.metrics_store,
             max_wait_s=cfg.batch_window_s,
@@ -550,6 +695,7 @@ class StormEngine:
             max_batch=48,
             lora_registry=self.lora_registry,
             resilience=self.resilience,
+            federation=self.fed_state,
             clock=self.clock)
         self.server = StreamingServer(
             self.datastore, self.picker,
@@ -605,6 +751,48 @@ class StormEngine:
         for ep in self.datastore.local_endpoints():
             self.scrape.attach(
                 ep.slot, f"http://{ep.hostport}/metrics", VLLM)
+
+    def _fetch_metrics(self, url: str) -> str:
+        hostport = url.split("//", 1)[-1].split("/", 1)[0]
+        with self._world_lock:
+            slot = self._stubs.get(hostport)
+            if slot is None or not slot.alive:
+                raise ConnectionError(f"storm: {hostport} is down")
+            return slot.stub.metrics_text()
+
+    def _cluster_of(self, hostport: str) -> str:
+        return self._peer_cluster.get(hostport, "local")
+
+    def _fed_fetch(self, url, since, era, etag, wait_s):
+        """PeerLink transport for federation storms: the real peer
+        publishers over an in-process call. The FIRST peer (bare
+        "storm://peer" URL) carries the chaos seams — the partition flag
+        severing it and, after a split-brain heal, the ZOMBIE old-era
+        publisher answering alternate polls (the deterministic
+        interleave whose convergence the scorecard pins). Extra fleet
+        peers ("storm://peer/<name>") always answer."""
+        name = url.rsplit("/", 1)[-1] if url.count("/") > 2 else None
+        if name is not None and name in self.peer_pubs:
+            return self._serve_peer(name, since, era, etag, wait_s)
+        if self._fed_partitioned:
+            raise ConnectionError("storm: peer link partitioned")
+        if self._zombie_pub is not None:
+            self._zombie_alternator += 1
+            if self._zombie_alternator % 2 == 0:
+                # The zombie lineage: pre-failover era, still publishing.
+                # No etag/delta: a zombie serves its own full frames.
+                return self._zombie_pub.serve(wait_s=0.0)
+        return self._fed_exchange_fetch(url, since, era, etag, wait_s)
+
+    def _fed_exchange_fetch(self, url, since, era, etag, wait_s):
+        return self.peer_pub.serve(
+            since=since, era=era, if_none_match=etag,
+            wait_s=min(wait_s, 0.2))
+
+    def _serve_peer(self, name, since, era, etag, wait_s):
+        return self.peer_pubs[name].serve(
+            since=since, era=era, if_none_match=etag,
+            wait_s=min(wait_s, 0.2))
 
     def _fetch_metrics(self, url: str) -> str:
         hostport = url.split("//", 1)[-1].split("/", 1)[0]
@@ -681,6 +869,10 @@ class StormEngine:
         a = stream.arrival
         now = self.clock.now()
         self._pick_log.append((round(self._now(), 6), stream.dest, a.band))
+        if self.fed_state is not None:
+            cluster = self._cluster_of(stream.dest)
+            self._fed_picks[(cluster, a.band)] += 1
+            self._fed_pick_times.append((self._now(), cluster))
         with self._world_lock:
             slot = self._stubs.get(stream.dest)
             if slot is None or not slot.alive:
@@ -751,6 +943,8 @@ class StormEngine:
         else:
             self._ok += 1
             self._tenant_ok[tenant] += 1
+            if self.fed_state is not None:
+                self._fed_serves[self._cluster_of(_served)] += 1
 
     def _now(self) -> float:
         return self.clock.now() - self._t0
@@ -817,9 +1011,8 @@ class StormEngine:
                 "to": rec.desired, "reason": rec.reason})
 
     def _control_event(self, ev) -> None:
-        """Rolling-upgrade steps and standby probes; the federation's
-        events belong to a refused subsystem and never reach a port
-        engine."""
+        """Rolling-upgrade steps, standby probes and the federation's
+        drain, partition and heal."""
         if ev.kind == "drain":
             i = ev.args[0]
             name = f"p{i}"
@@ -849,6 +1042,30 @@ class StormEngine:
                 "step": "replace", "hostport": hostport})
         elif ev.kind == "failover_check" and self.publisher is not None:
             self._failover_probe()
+        elif ev.kind == "cluster_drain" and self.fed_exchange is not None:
+            # Whole-cluster drain: new picks bleed to the peer, the flag
+            # publishes so peers stop spilling in (docs/FEDERATION.md).
+            self.fed_exchange.set_draining(True)
+            self._fed_events.append(
+                {"t": round(self._now(), 3), "event": "cluster_drain"})
+        elif ev.kind == "peer_partition" and self.fed_exchange is not None:
+            self._fed_partitioned = True
+            self._fed_events.append(
+                {"t": round(self._now(), 3), "event": "partition"})
+        elif ev.kind == "peer_heal" and self.fed_exchange is not None:
+            flip_era = bool(ev.args and ev.args[0])
+            if flip_era:
+                # The far side failed over during the partition: its NEW
+                # publisher carries a greater era, while the OLD lineage
+                # (the zombie) keeps answering alternate polls after the
+                # heal — the split-brain interleave.
+                self._zombie_pub = _ZombieSnapshot(self.peer_pub)
+                self.peer_pub.bump_era()
+                self.peer_pub.refresh()
+            self._fed_partitioned = False
+            self._fed_events.append(
+                {"t": round(self._now(), 3), "event": "heal",
+                 "flip_era": flip_era})
 
     def _failover_probe(self) -> None:
         """Warm-standby readiness: publish the live digest, fetch and
@@ -878,7 +1095,13 @@ class StormEngine:
         by the chunk-lane bucket of the wave's longest body. One solo pick
         sizes bucket 1; concurrent bursts of 8 and 12 size buckets 8 and
         64 — every size the 48-wide waves can reach — for each distinct
-        chunk-lane bucket the schedule's prompt-length classes map to."""
+        chunk-lane bucket the schedule's prompt-length classes map to.
+
+        Federation first: the peer's endpoints are IMPORTED before the warm
+        picks run, so the M bucket covering the remote slots is readied
+        here — a first spill's inline capture mid-crowd would stall every
+        pick behind it."""
+        self._start_federation()
         tc = self.program.traffic
         sizes = {tc.system_prompt_bytes + tc.user_suffix_bytes}
         if schedule is not None:
@@ -919,6 +1142,20 @@ class StormEngine:
                 [t.join(timeout=60) for t in ts]
                 self._raise_kernel_failure()
 
+    def _start_federation(self) -> None:
+        """Start the exchange (idempotent) and block briefly until the
+        first peer digest installs — remote slots must exist before
+        warmup sizes the M bucket."""
+        if self.fed_exchange is None or getattr(self, "_fed_started", False):
+            return
+        self._fed_started = True
+        self.fed_exchange.start()
+        deadline = self.clock.now() + 5.0
+        links = list(self.fed_exchange.links.values())
+        while (self.clock.now() < deadline
+               and any(link.installs == 0 for link in links)):
+            self.clock.sleep(0.02)
+
     def _harness_pick(self, body: bytes) -> None:
         """A pick the harness makes (warm-up, recovery probes): its
         refusals are ignored, a kernel that cannot run here is raised."""
@@ -951,6 +1188,7 @@ class StormEngine:
         cfg = self.cfg
         if schedule is None:
             schedule = self.program.compile()
+        self._start_federation()
         if warmup:
             self.warmup(schedule)
         if cfg.force_rung is not None:
@@ -1043,6 +1281,8 @@ class StormEngine:
             # parked threads can be woken.
             self.clock.actor_end(self._main_tok)
             self._main_tok = None
+        if getattr(self, "fed_exchange", None) is not None:
+            self.fed_exchange.stop()
         for part in ("scrape", "picker"):      # absent if the build failed
             if hasattr(self, part):
                 getattr(self, part).close()
@@ -1075,6 +1315,22 @@ class StormEngine:
                     (round(t, 2), int(self.resilience.ladder.rung())))
                 self._pool_trace.append(
                     (round(t, 2), len(self.datastore.local_endpoints())))
+                if self.fed_exchange is not None:
+                    # Keep cross-cluster state flowing (the long-poll
+                    # push needs fresh epochs) and record the local-only
+                    # verdict timeline the partition property is
+                    # asserted on.
+                    try:
+                        for pub in self.peer_pubs.values():
+                            pub.refresh()
+                        self.fed_state.observe()
+                    except Exception:
+                        pass
+                    link = next(iter(self.fed_exchange.links.values()))
+                    view = self.fed_state._peers.get(link.name)
+                    self._fed_local_only_trace.append(
+                        (round(t, 2),
+                         1 if (view is None or view.local_only) else 0))
             if self.recommender is not None and t >= next_autoscale:
                 next_autoscale = t + cfg.autoscale_interval_s
                 try:
@@ -1114,7 +1370,8 @@ class StormEngine:
             "autoscale": [(e["from"], e["to"])
                           for e in self._autoscale_events],
             "upgrades": [(u["step"], u["pod"]) for u in self._upgrades],
-            "fed_picks": [],
+            "fed_picks": sorted(
+                (c, b, n) for (c, b), n in self._fed_picks.items()),
         }
         if self._admission is not None:
             decisions["extproc_accepts"] = self._admission.accepts()
@@ -1214,6 +1471,39 @@ class StormEngine:
         }
         if self._admission is not None:
             card["extproc"] = self._admission.report()
+        if self.fed_state is not None:
+            # Per-cluster federation section: the four pinned
+            # properties — spill with CRITICAL locality, drain bleed,
+            # partition -> local-only within the staleness window, and
+            # deterministic era convergence on heal — are all asserted
+            # on these fields (tests/test_storm.py).
+            fed = self.cfg.federation
+            link = next(iter(self.fed_exchange.links.values()))
+            picks_by_cluster: dict = {}
+            crit_remote = 0
+            for (cluster, band), n in self._fed_picks.items():
+                per = picks_by_cluster.setdefault(
+                    cluster, {"total": 0, "bands": {}})
+                per["total"] += n
+                per["bands"][band] = per["bands"].get(band, 0) + n
+                if cluster != "local" and band == "critical":
+                    crit_remote += n
+            card["federation"] = {
+                "peer": fed.peer_name,
+                "peers": sorted(self.peer_pubs),
+                "local_only_after_s": fed.local_only_after_s,
+                "picks": picks_by_cluster,
+                "serves": dict(self._fed_serves),
+                "critical_remote_picks": crit_remote,
+                "pick_times": [
+                    (round(t, 3), c) for t, c in self._fed_pick_times],
+                "local_only_trace": self._fed_local_only_trace,
+                "events": self._fed_events,
+                "link": link.report(),
+                "peer_era": list(self.peer_pub.era),
+                "matrix": self.fed_state.capacity_matrix(),
+                "draining": self.fed_state.draining,
+            }
         return card
 
 

@@ -41,7 +41,7 @@ main() runs them first), and watches it two ways:
                  the handler pool and its handler's entry, with the
                  stream's id read from its body frame, against each
                  client's send and end of the same stream (the client
-                 processes run chip_smoke.client_process with one_stream
+                 processes run chip_smoke.client_process with aio_stream
                  timed), PREFIX.streams.<run>.json: how long each call
                  waited to be taken up, per round; and each wave's steps
                  (the dispatcher's batch, pick_async, the queued
@@ -385,19 +385,19 @@ def _stamp_handlers(service, entries: list):
 
 
 def probe_client_process(*args) -> None:
-    """chip_smoke.client_process with one_stream timed: appends (round,
+    """chip_smoke.client_process with aio_stream timed: appends (round,
     stream, send, end, status, details) per stream to the file named by
     $PROBE_STREAMS plus this client's share."""
     sys.path.insert(0, ROOT)
     import chip_smoke
 
     rows = []
-    one = chip_smoke.one_stream
+    one = chip_smoke.aio_stream
 
-    def timed(method, w, i):
+    async def timed(method, w, i):
         t0 = time.monotonic()
         try:
-            r = one(method, w, i)
+            r = await one(method, w, i)
         except Exception as e:
             code = getattr(e, "code", None)
             rows.append((w, i, t0, time.monotonic(),
@@ -408,7 +408,7 @@ def probe_client_process(*args) -> None:
         rows.append((w, i, t0, time.monotonic(), "OK", round(r[1], 4)))
         return r
 
-    chip_smoke.one_stream = timed
+    chip_smoke.aio_stream = timed
     try:
         chip_smoke.client_process(*args)
     finally:

@@ -537,10 +537,11 @@ def test_degraded_wave_touches_no_cuda_and_probe_launches_once(dev, config):
 # -- the ext-proc server on the card ---------------------------------------
 
 
-def _card_runner(config: str, pods: int = 16):
+def _card_runner(config: str, pods: int = 16, **options):
     """The port's ExtProcServerRunner as main() builds it (no scheduler
     injected, so no device argument), scraping off and rows on a fixed
-    clock, over a FakeCluster of `pods` ready pods."""
+    clock, over a FakeCluster of `pods` ready pods; `options` are further
+    Options fields."""
     import json
     import tempfile
 
@@ -570,7 +571,8 @@ def _card_runner(config: str, pods: int = 16):
                               ip=f"10.9.0.{i + 1}"))
     runner = ExtProcServerRunner(
         Options(pool_name="pool", resilience=False, obs=False,
-                secure_serving=False, scheduler_config=f.name), cluster)
+                secure_serving=False, scheduler_config=f.name, **options),
+        cluster)
     runner.scraper.close()
     runner.setup()
     rng = np.random.default_rng(0)
@@ -666,6 +668,64 @@ def test_golden_stream_makes_no_synchronizing_call(dev, config):
         assert stream.sent[0].WhichOneof("response") == "request_headers"
     finally:
         runner.stop()
+
+
+def test_spilled_stream_makes_no_synchronizing_call(dev):
+    """A runner built with --fed-cluster / --fed-peer over 16 local pods
+    imports a peer's 4 endpoints (one poll of its link against the peer's
+    FederationHTTPServer); with every local slot's queue at queue_limit a
+    stream spills: its primary is a peer endpoint, the wave is one
+    Sinkhorn launch, and under set_sync_debug_mode("error") nothing on
+    the path (the per-wave federation tick, the spill pass, the pick)
+    waits for the card."""
+    from gie_tpu_torch.federation import (
+        FederationHTTPServer,
+        FederationPublisher,
+        summary,
+    )
+
+    peers = [(f"10.77.0.{i + 1}:8000", 1.0, 0.1, False) for i in range(4)]
+    pub = FederationPublisher({
+        summary.META_SECTION: lambda: summary.encode_meta(
+            pub.era, False, "west"),
+        summary.LOAD_SECTION: lambda: summary.encode_load(
+            peers, max_endpoints=64)}, era_token=7)
+    pub.refresh()
+    srv = FederationHTTPServer(pub, 0)
+    runner = _card_runner(
+        "tuned+sinkhorn-kernel", fed_cluster="east",
+        fed_peers=[f"west=http://127.0.0.1:{srv.port}"], fed_wait_s=0.0)
+    try:
+        assert runner.fed_exchange.links["west"].poll_once() == "installed"
+        remote = {e.hostport for e in runner.datastore.endpoints()
+                  if e.cluster == "west"}
+        assert remote == {h for h, *_ in peers}
+        limit = runner.scheduler.cfg.queue_limit
+        runner.metrics_store.update_rows(
+            [(ep.slot, {Metric.QUEUE_DEPTH: limit}, (), ())
+             for ep in runner.datastore.local_endpoints()])
+        for i in range(3):                     # build, warm the pinned pool
+            runner.streaming.process(_GoldenStream(i))
+        for t in runner.picker._warm_threads:
+            t.join(120)
+        torch.cuda.synchronize()
+        launches = fused_sinkhorn_plan.launches
+        before = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            stream = _GoldenStream(7)
+            runner.streaming.process(stream)
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+        assert len(stream.sent) == 3
+        opts_ = stream.sent[0].request_headers.response.header_mutation
+        dest = [o.header.raw_value.decode() for o in opts_.set_headers
+                if o.header.key == "x-gateway-destination-endpoint"]
+        assert dest and dest[0].split(",")[0] in remote
+        assert fused_sinkhorn_plan.launches == launches + 1
+    finally:
+        runner.stop()
+        srv.close()
 
 
 # -- waves as replays of the captured cycle --------------------------------

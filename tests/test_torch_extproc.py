@@ -255,8 +255,8 @@ LIVE = ["--no-resilience", "--no-obs"]
 # (argv, the _LATER key of the slice it is refused until, or None where
 # the runner builds: the resilience and observability layers, both on by
 # default, --fault arming, the KV-event listener, the learned scorer, the
-# file-lease elector, replication and the recommend-only autoscale loop
-# are ported).
+# file-lease elector, replication, the recommend-only autoscale loop and
+# federation are ported).
 REFUSED = [
     ([], None),                                 # resilience + obs on
     (["--no-resilience"], None),                # obs on
@@ -264,9 +264,8 @@ REFUSED = [
     (LIVE + ["--replication-port", "19100"], None),
     (LIVE + ["--autoscale-mode", "recommend"], None),
     (LIVE + ["--autoscale-mode", "apply"], "kube"),
-    (LIVE + ["--fed-cluster", "east", "--fed-peer", "w=http://w:1"],
-     "federation"),
-    (LIVE + ["--fed-drain", "--fed-cluster", "east"], "federation"),
+    (LIVE + ["--fed-cluster", "east", "--fed-peer", "w=http://w:1"], None),
+    (LIVE + ["--fed-drain", "--fed-cluster", "east"], None),
     (LIVE + ["--kv-events-port", "19300"], None),
     (LIVE + ["--fleet-topk", "2"], "fleet"),
     (LIVE + ["--mesh-devices", "2"], "mesh"),
@@ -315,6 +314,14 @@ def test_runner_refuses_out_of_slice(argv, key, tmp_path):
                     == (opts.replication_port > 0))
             assert ((runner.autoscaler is not None)
                     == (opts.autoscale_mode == "recommend"))
+            fed = bool(opts.fed_peers or opts.fed_drain)
+            assert (runner.federation is not None) == fed
+            assert runner.picker.federation is runner.federation
+            if fed:
+                assert runner.federation.draining == opts.fed_drain
+                assert sorted(runner.fed_exchange.links) == sorted(
+                    p.partition("=")[0] for p in opts.fed_peers)
+                assert runner.fed_exchange.server is None  # no --fed-port
         finally:
             runner.stop()
         return

@@ -190,10 +190,11 @@ def test_pick_service_pulls_in_no_grpc_protobuf_or_prometheus():
 
 
 # (picker keyword, the slice it is refused until, or None where the
-# picker takes it: the resilience state and lattice warming are ported).
+# picker takes it: the resilience state, federation and lattice warming
+# are ported).
 PICKER_ARGS = [
     ({"resilience": "ResilienceState"}, "resilience slice", None),
-    ({"federation": object()}, "federation slice", NotImplementedError),
+    ({"federation": "FederationState"}, "federation slice", None),
     ({"trainer": object()}, "latency-predictor slice", NotImplementedError),
     ({"background_warm": True}, "warm-lattice slice", None),
 ]
@@ -209,10 +210,15 @@ def test_out_of_slice_picker_arg_raises(kwargs, slice_name, raises):
     from gie_tpu_torch.sched.batching import BatchingTPUPicker
 
     if raises is None:
-        kwargs = {k: ResilienceState() if v == "ResilienceState" else v
+        from gie_tpu_torch.federation import FederationState
+
+        sched, ds, ms = Scheduler(device="cpu"), Datastore(), MetricsStore()
+        made = {"ResilienceState": lambda: ResilienceState(),
+                "FederationState": lambda: FederationState(
+                    ds, ms, scheduler=sched, cluster="east")}
+        kwargs = {k: made[v]() if v in made else v
                   for k, v in kwargs.items()}
-        picker = BatchingTPUPicker(Scheduler(device="cpu"), Datastore(),
-                                   MetricsStore(), **kwargs)
+        picker = BatchingTPUPicker(sched, ds, ms, **kwargs)
         assert all(getattr(picker, k) is v for k, v in kwargs.items())
         picker.close()
         return

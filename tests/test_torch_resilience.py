@@ -692,8 +692,9 @@ def test_fieldscan_native_scan_fault_falls_back_to_python():
 
 
 # Points whose subsystem a later slice of the port brings: named here,
-# neither woven in the port nor exercised by its tests yet.
-LATER_POINTS = {"kube.patch", "peer.poll", "peer.publish", "peer.partition"}
+# neither woven in the port nor exercised by its tests yet (the peer.*
+# points came with the federation slice).
+LATER_POINTS = {"kube.patch"}
 
 
 def _literals(path: pathlib.Path) -> set:

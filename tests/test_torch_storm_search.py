@@ -7,7 +7,8 @@
   refusals   each subsystem of a later slice raises the port's
              not-ported error naming that slice — from an EngineConfig
              or a shipped scenario that needs it through run_scenario —
-             before any stub, thread or clock hand-off exists.
+             before any stub, thread or clock hand-off exists. Federation
+             is ported: its EngineConfig runs and its scenarios build.
   device     with no CUDA device and no device argument, run_scenario,
              search and the CLI's main raise (so `python -m` exits
              non-zero); none moves to the CPU on its own.
@@ -24,6 +25,7 @@ import pathlib
 import subprocess
 import sys
 import threading
+import time
 
 import pytest
 import torch
@@ -83,7 +85,6 @@ def _program(shapes=()):
 REFUSALS = {
     "mesh": (EngineConfig(mesh_devices=8), ()),
     "fleet": (EngineConfig(fleet_topk=4), ()),
-    "federation": (EngineConfig(federation=FederationSpec()), ()),
 }
 
 
@@ -106,14 +107,61 @@ def test_later_slice_subsystem_is_refused_at_construction(case):
         case.split("-")[0])
 
 
+def test_federation_engine_config_runs():
+    """The federation slice is ported: a storm with a peer cluster runs
+    under virtual time, imports the peer before its waves and scores the
+    federation block."""
+    prog = S.Program(S.TrafficConfig(base_qps=6.0, duration_s=2.0),
+                     [S.ClusterDrain(at_s=1.0)], seed=5)
+    eng = StormEngine(prog, cfg=EngineConfig(federation=FederationSpec()),
+                      virtual_time=True, device="cpu")
+    try:
+        card = eng.run().scorecard
+    finally:
+        eng.close()
+    SC.validate(card)
+    fed = card["federation"]
+    assert fed["link"]["installs"] >= 1
+    assert fed["matrix"]["west"]["endpoints"] == FederationSpec().n_pods
+    assert [e["event"] for e in fed["events"]] == ["cluster_drain"]
+    assert sum(p["total"] for p in fed["picks"].values()) == card["ok"] \
+        + card["client_5xx"]
+
+
+FED_SCENARIOS = ("storm-fed-drain", "storm-fed-partition",
+                 "storm-fed-spill", "storm-longhorizon")
+
+
+@pytest.mark.parametrize("name", FED_SCENARIOS)
+def test_federation_scenario_builds(name):
+    """Each scenario that waited for federation alone builds its engine
+    (the peer fleet, publisher, exchange and picker) and closes with no
+    thread left behind."""
+    from gie_tpu_torch.storm.engine import engine_from_drive
+
+    before = set(threading.enumerate())
+    scn = scenarios.load(name)
+    eng = engine_from_drive(scn.drive["storm"], seed=scn.seed, name=name,
+                            virtual_time=True, device="cpu")
+    try:
+        assert eng.fed_state is not None and eng.picker.federation is \
+            eng.fed_state
+        assert eng.fed_exchange.links and eng.peer_pub is not None
+    finally:
+        eng.close()
+    deadline = time.monotonic() + 10
+    while (set(threading.enumerate()) - before
+           and time.monotonic() < deadline):
+        time.sleep(0.05)      # the clock's waker ends on its next wake
+    assert set(threading.enumerate()) - before == set()
+
+
 def _needs(name) -> str:
     """The first later slice a shipped scenario's drive asks for, in the
     engine's construction order."""
     storm = scenarios.load(name).drive["storm"]
     if storm.get("fleet_topk", 0) > 0:
         return "fleet"
-    if "federation" in storm:
-        return "federation"
     return ""
 
 
@@ -122,18 +170,18 @@ UNPORTED = [n for n in scenarios.list_scenarios()
 
 
 def test_only_three_storm_scenarios_run_on_this_slice():
-    """Named when three storms ran; since the autoscale loop and the
-    replication standby came, seven run and five wait for federation or
-    the fleet."""
+    """Named when three storms ran; since the autoscale loop, the
+    replication standby and federation came, eleven run and one waits
+    for the fleet."""
     runnable = sorted(n for n in scenarios.list_scenarios()
                       if n.startswith("storm-") and not _needs(n))
     assert runnable == ["storm-capacity", "storm-equivalence",
-                        "storm-flash-upgrade", "storm-learn-judge",
+                        "storm-fed-drain", "storm-fed-partition",
+                        "storm-fed-spill", "storm-flash-upgrade",
+                        "storm-learn-judge", "storm-longhorizon",
                         "storm-noisy-neighbor", "storm-search-smoke",
                         "storm-soak"]
-    assert sorted(UNPORTED) == ["storm-fed-drain", "storm-fed-partition",
-                                "storm-fed-spill", "storm-fleet",
-                                "storm-longhorizon"]
+    assert sorted(UNPORTED) == ["storm-fleet"]
 
 
 @pytest.mark.parametrize("name", UNPORTED)
