@@ -194,9 +194,33 @@ count adds the launches a replay makes:
      on the card and on a CPU engine (phase 10's noise): decisions and
      the federation blocks equal. Prints each state's streams/s and the
      spill, local-only and readmission times;
+ 17. the fleet picker on the card, in both kernel configurations of
+     phases 3-4: (a) FleetPicker(topk 4, cell_cap 256) over phase 3's 5
+     carried waves at 1024 endpoints (the top-K covers the 4 cells)
+     against the dense Scheduler with the same seed: picks and status
+     equal, scores and the float state within 1e-5 (bitwise waves
+     counted), the prefix table exact, one kernel launch a wave; (b)
+     sketch mode at 65,536 endpoints for 5 carried waves and 262,144 for
+     2 (bench.py's fleet-sweep traffic, N=1024, 256 cells of 256 and
+     1024 cells): the lattice warmed first and no inline capture after,
+     each wave replayed on a CPU FleetPicker from the same state with the
+     same noise (the coarse selection and candidate cells exact,
+     primaries as phase 3 compares them, the cell-grain table equal where
+     they agree), one kernel launch a wave; pick_async's host time, wall
+     time per wave beside a dense 1024 x 1024 wave's, the bytes a wave
+     copies up and the graphs' pool bytes; (c) the runner main() builds
+     with --fleet-topk 2 --fleet-cell-cap 64 and phase 6's profile over
+     256 stub pods, a warm-up round and a burst of 1024 streams, all
+     answered, one Sinkhorn launch a wave, /debugz/fleet in exact mode
+     over 4 cells with its top-K histogram summing to the streams, every
+     flight record carrying fleet provenance; (d) storm-fleet under
+     virtual time on the card and on a CPU engine (phase 10's noise):
+     decisions, counts and the fleet and federation blocks equal, and
+     the card's decisions equal to the same storm re-run with the dense
+     Scheduler. Prints each part's wall seconds;
  11. the `kernels` line: launches on the main path (phases 3-6, 8, 9, 12,
-     13, 14, 15 and 16, replays counted; phase 15's promoted server and
-     phase 16's east report their own), error, times, bound.
+     13, 14, 15, 16 and 17, replays counted; phase 15's promoted server
+     and phase 16's east report their own), error, times, bound.
 Then the card's name and power limit (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}. Every listener the script starts takes its
 port from free_port(), which draws below Linux's ephemeral range, so no
@@ -446,29 +470,30 @@ def phase_kernels(dev) -> dict:
     return records
 
 
-def workload(dev):
-    """bench.py's north-star mix: the endpoints, and wave(w) -> wave w."""
+def workload(dev, m=M):
+    """bench.py's north-star mix at `m` endpoints (its fleet sweep's
+    traffic at a fleet width): the endpoints, and wave(w) -> wave w."""
     from gie_tpu_torch.sched.types import chunk_bucket_for
     from gie_tpu_torch.utils.testing import make_endpoints, make_requests
 
     rng = np.random.default_rng(0)
-    eps = make_endpoints(M, queue=rng.integers(0, 50, M).tolist(),
-                         kv=rng.uniform(0, 0.95, M).tolist(), max_lora=8,
-                         m_slots=M, device=dev)
+    eps = make_endpoints(m, queue=rng.integers(0, 50, m).tolist(),
+                         kv=rng.uniform(0, 0.95, m).tolist(), max_lora=8,
+                         m_slots=m, device=dev)
 
     def wave(w):
         prompts = [(BASE % ((i + w) % 16)) * 6 + b"user question %d" % (i + N * w)
                    for i in range(N)]
         reqs = make_requests(N, prompts=prompts,
                              lora_id=rng.integers(-1, 12, N).tolist(),
-                             m_slots=M, device=dev)
+                             m_slots=m, device=dev)
         cb = chunk_bucket_for(int(reqs.n_chunks.max()))
         return reqs.replace(chunk_hashes=reqs.chunk_hashes[:, :cb].contiguous())
 
     return eps, wave
 
 
-def compare_primaries(res, ref, valid, name) -> np.ndarray:
+def compare_primaries(res, ref, valid, name, m=M) -> np.ndarray:
     """A card wave `res` against its CPU replay `ref`: statuses equal, OK
     primaries valid slots with finite scores, and primaries equal wherever
     the CPU's top-two gap is 1e-4 or more. -> the rows whose primaries
@@ -476,7 +501,7 @@ def compare_primaries(res, ref, valid, name) -> np.ndarray:
     check((res.status == ref.status).all(), f"{name}: statuses differ")
     ok = res.status == 0
     prim = res.indices[ok, 0]
-    check(bool(((prim >= 0) & (prim < M)).all()) and bool(valid[prim].all()),
+    check(bool(((prim >= 0) & (prim < m)).all()) and bool(valid[prim].all()),
           f"{name}: an OK pick names an invalid slot")
     check(bool(np.isfinite(res.scores[ok, 0]).all()),
           f"{name}: non-finite score on an OK pick")
@@ -4205,21 +4230,30 @@ def fed_servers(dev, cfg, weights, kernels, tmp) -> dict:
     return rec
 
 
+# Link fields that move after run() releases the clock: the staleness,
+# the counts of polls and installs (after a flipped-era heal the old
+# lineage's answers are rejected ones; a late refresh of the peer moves
+# its epoch), as tests/test_torch_storm_fed.py leaves them out.
+FED_LATE_LINK = ("staleness_s", "rejects", "era_regressions", "installs",
+                 "installed_epoch", "peer_epoch")
+
+
 def fed_without_late_reads(card: dict) -> dict:
     """A storm's federation block without what the scorer reads on the
-    clock after run() released it (the link's staleness; each peer row's
-    staleness and the effective penalty derived from it) and with each
-    era as its sequence number (a flipped era's token is a fresh random
-    draw in every run)."""
+    clock after run() released it (FED_LATE_LINK; each row's queue total,
+    from the last scrape or install; each peer row's staleness and the
+    effective penalty derived from it) and with each era as its sequence
+    number (a flipped era's token is a fresh random draw in every run)."""
     fed = dict(card["federation"])
-    link = {k: v for k, v in fed["link"].items() if k != "staleness_s"}
+    link = {k: v for k, v in fed["link"].items() if k not in FED_LATE_LINK}
     if link.get("installed_era"):
         link["installed_era"] = link["installed_era"][0]
     fed["link"] = link
     fed["peer_era"] = fed["peer_era"][0]
     fed["matrix"] = {
         name: {k: (v[0] if k == "era" and v else v) for k, v in row.items()
-               if row["local"] or k not in ("staleness_s", "penalty")}
+               if k != "queue_total"
+               and (row["local"] or k not in ("staleness_s", "penalty"))}
         for name, row in fed["matrix"].items()}
     return fed
 
@@ -4266,6 +4300,415 @@ def phase_fed(dev, cfg, weights, kernels, tmp) -> dict:
                "readmit_s": servers["readmit_s"],
                "storm_wall_s": {k: v["wall_s"] for k, v in storms.items()
                                 if k != "phase"}}
+    emit(summary)
+    return summary
+
+# -- phase 17: the fleet picker on the card ----------------------------------
+
+FLEET_TOPK, FLEET_CAP = 4, 256         # docs/FLEET.md's scale proof: K x cap
+FLEET_WIDTHS = ((65536, 5), (262144, 2))   # (endpoints, carried waves)
+FLEET_SEED = 17
+FLEET_RUNNER_TOPK, FLEET_RUNNER_CAP = 2, 64   # (c): 4 cells of 256 pods
+
+
+def fleet_exact(dev, name, cfg, weights, kernels, own) -> dict:
+    """(a): FleetPicker(topk 4, cell_cap 256) against the dense Scheduler,
+    both on the card with the same seed, over WAVES carried waves of the
+    north-star mix at 1024 endpoints (the top-K covers all 4 cells): picks
+    and status equal, scores and the carried state equal (bitwise where
+    the card repeats itself; the float state within 1e-5, as the card
+    tests hold a replay), one kernel launch a fleet wave."""
+    from gie_tpu_torch.fleet import FleetPicker
+    from gie_tpu_torch.sched import Scheduler
+
+    m = FLEET_TOPK * FLEET_CAP
+    eps, wave = workload(dev, m)
+    fleet = FleetPicker(cfg, weights, device=dev, seed=FLEET_SEED,
+                        topk=FLEET_TOPK, cell_cap=FLEET_CAP)
+    dense = Scheduler(cfg, weights, device=dev, seed=FLEET_SEED)
+    check(fleet.compressed_width(m) == m, f"{name}: not a covering K")
+    launches = {k: 0 for k in kernels}
+    bitwise = {"scores": 0, "state": 0}
+    for w in range(WAVES):
+        reqs = wave(w)
+        before = {k: fn.launches for k, fn in kernels.items()}
+        a = fleet.pick(reqs, eps)
+        for k, fn in kernels.items():
+            launches[k] += fn.launches - before[k]
+        check(launches[own] == w + 1,
+              f"{name}: {launches[own]} fleet kernel launches after "
+              f"{w + 1} waves")
+        b = dense.pick(reqs, eps)
+        check(np.array_equal(a.indices, b.indices)
+              and np.array_equal(a.status, b.status),
+              f"{name}: fleet wave {w} picks differ from the dense cycle")
+        check(np.allclose(a.scores, b.scores, atol=1e-5, rtol=0),
+              f"{name}: fleet wave {w} scores differ from the dense cycle")
+        bitwise["scores"] += int(np.array_equal(a.scores, b.scores))
+        complete_half(fleet, a, reqs)
+        complete_half(dense, a, reqs)
+        sa, sb = fleet.export_state(), dense.export_state()
+        for k in ("prefix_keys", "prefix_present", "prefix_ages", "rr",
+                  "tick"):
+            check(np.array_equal(sa[k], sb[k]),
+                  f"{name}: fleet wave {w}: {k} differs from the dense state")
+        for k in ("assumed_load", "ot_v"):
+            check(np.allclose(sa[k], sb[k], atol=1e-5, rtol=0),
+                  f"{name}: fleet wave {w}: {k} beyond 1e-5 of the dense")
+        bitwise["state"] += int(all(np.array_equal(sa[k], sb[k])
+                                    for k in ("assumed_load", "ot_v")))
+    rec = {"phase": "fleet-exact", "config": name, "m": m,
+           "topk": FLEET_TOPK, "cell_cap": FLEET_CAP, "waves": WAVES,
+           "launches": launches, "bitwise_waves": bitwise,
+           "ok_rows_last": int((a.status == 0).sum())}
+    emit(rec)
+    return rec
+
+
+def fleet_sketch_width(dev, name, cfg, weights, kernels, own, m, waves_n,
+                       dense_ms) -> dict:
+    """(b) at one width: a FleetPicker on the card in sketch mode, its
+    lattice warmed, over `waves_n` carried waves of the fleet sweep's
+    traffic handed over as CPU tensors, with complete() feedback; each
+    wave replayed on a CPU FleetPicker from the same state with the same
+    noise: the coarse stage's selection and candidate cells exact (the
+    selection recomputed on both from that state), primaries as phase 3
+    compares them, the cell-grain table equal where they agree."""
+    from gie_tpu_torch.fleet import FleetPicker
+    from gie_tpu_torch.fleet.picker import _is_sketch, coarse_stage
+    from gie_tpu_torch.sched.profile import (
+        _batch_to_device, _copy_state, gumbel_noise)
+    from gie_tpu_torch.sched.types import bucket_for, pad_requests
+
+    t_width = time.perf_counter()
+    eps, wave = workload(torch.device("cpu"), m)
+    reqs_list = [wave(w) for w in range(waves_n)]
+    lanes = {int(r.chunk_hashes.shape[1]) for r in reqs_list}
+    check(len(lanes) == 1, f"{name}: the waves span chunk buckets {lanes}")
+    lanes = lanes.pop()
+    valid = eps.valid.numpy()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(FLEET_SEED)
+    drawn = []
+
+    def noise(shape):
+        drawn.append(gumbel_noise(shape, gen, dev))
+        return drawn[-1]
+
+    kw = dict(topk=FLEET_TOPK, cell_cap=FLEET_CAP)
+    gpu = FleetPicker(cfg, weights, device=dev, noise_source=noise, **kw)
+    cpu = FleetPicker(cfg, weights, device="cpu",
+                      noise_source=lambda shape: drawn[-1].cpu(), **kw)
+    t0 = time.perf_counter()
+    thread = gpu.warm_lattice_async(m, lanes)
+    thread.join(900)
+    warm_s = time.perf_counter() - t0
+    check(not thread.is_alive() and not gpu._warm_failures,
+          f"{name}: the fleet lattice at M={m} did not warm: "
+          f"{gpu._warm_failures}")
+    graph = gpu._graphs[(N, m, lanes)]
+    pools = pool_bytes()
+    pool = {f"{n}": pools.get(tuple(g.graph.pool()), 0)
+            for (n, mm, _), g in sorted(gpu._graphs.items()) if mm == m}
+    inline0 = gpu.warm_inline_compiles
+    k_sel = min(FLEET_TOPK, m // FLEET_CAP)
+
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    host_ms, wall_ms, agree, rows, table_equal = [], [], 0, 0, 0
+    for w, reqs in enumerate(reqs_list):
+        # The state both waves start from (the card's, at width m), and
+        # the selection recomputed on both from it.
+        with gpu._lock:
+            gpu._apply_queued()
+            start = _copy_state(gpu._use_bucket(m))
+        cpu.install_state(gpu.export_state())
+        check(_is_sketch(cpu.state) and cpu.state.m == m,
+              f"{name}: the CPU twin's state is not a sketch at {m}")
+        padded = pad_requests(reqs, bucket_for(N))
+        sel = [coarse_stage(st, r, e, gpu.weights, cfg=cfg,
+                            cell_cap=FLEET_CAP, k=k_sel)
+               for st, r, e in ((start, _batch_to_device(padded, dev),
+                                 _batch_to_device(eps, dev)),
+                                (cpu.state, padded, eps))]
+        check(all(torch.equal(x.cpu(), y) for x, y in zip(sel[0], sel[1][:2]))
+              and torch.allclose(sel[0][2].cpu(), sel[1][2], atol=1e-6),
+              f"{name}: M={m} wave {w}: the coarse selection differs")
+        del start
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = gpu.pick_async(reqs, eps)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        res = pending.materialize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        check(kernels[own].launches == w + 1,
+              f"{name}: {kernels[own].launches} kernel launches after "
+              f"{w + 1} fleet waves")
+        ref = cpu.pick(reqs, eps)
+        check(np.array_equal(res.fleet.cells, ref.fleet.cells),
+              f"{name}: M={m} wave {w}: candidate cells differ")
+        differ = compare_primaries(res, ref, valid, f"{name} M={m}", m=m)
+        agree += int((~differ).sum())
+        rows += len(differ)
+        sa, sb = gpu.export_state(), cpu.export_state()
+        same = all(np.array_equal(sa[k], sb[k]) for k in
+                   ("prefix_keys", "prefix_present", "prefix_ages"))
+        check(same or differ.any(),
+              f"{name}: M={m} wave {w}: the cell-grain table differs where "
+              "every primary agrees")
+        table_equal += int(same)
+        complete_half(gpu, res, reqs)
+        emit({"phase": "fleet-wave", "config": name, "m": m, "wave": w,
+              "host_ms": host_ms[-1], "wall_ms": wall_ms[-1],
+              "ok_rows": int((res.status == 0).sum()),
+              "primary_agree": int((~differ).sum())})
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    inline = gpu.warm_inline_compiles - inline0
+    check(inline == 0, f"{name}: {inline} inline captures after the warm")
+    check(agree >= 0.999 * rows, f"{name}: M={m}: primaries agree on only "
+                                 f"{agree}/{rows} rows")
+    rec = {"phase": "fleet-sketch", "config": name, "m": m, "n": N,
+           "topk": FLEET_TOPK, "cell_cap": FLEET_CAP,
+           "cells": m // FLEET_CAP, "m_c": gpu.compressed_width(m),
+           "waves": waves_n, "launches": launches,
+           "lattice_warm_s": warm_s,
+           "pick_async_host_ms_median": statistics.median(host_ms),
+           "wall_ms_per_wave": wall_ms,
+           "dense_1024x1024_wall_ms_per_wave": dense_ms["wall_ms_per_wave"],
+           "dense_1024x1024_host_ms_median":
+               dense_ms["pick_async_host_ms_median"],
+           "h2d_bytes_per_wave": graph.nbytes,
+           "subset_mask_bytes": N * m,
+           "graph_pool_bytes_by_n": pool,
+           "inline_captures_after_warm": inline,
+           "primary_agree": [agree, rows], "table_equal_waves": table_equal,
+           "wall_s": time.perf_counter() - t_width}
+    emit(rec)
+    del gpu, cpu, graph
+    torch.cuda.empty_cache()
+    return rec
+
+
+def fleet_sketch(dev, name, cfg, weights, kernels, own) -> dict:
+    """(b): sketch mode at 65,536 and 262,144 endpoints, beside a dense
+    1024 x 1024 wave of the same configuration."""
+    eps, wave = workload(torch.device("cpu"), FLEET_TOPK * FLEET_CAP)
+    dense_ms = timed_waves(dev, cfg, weights, eps,
+                           [wave(w) for w in range(WAVES)])
+    widths = [fleet_sketch_width(dev, name, cfg, weights, kernels, own, m,
+                                 waves_n, dense_ms)
+              for m, waves_n in FLEET_WIDTHS]
+    return {"launches": {k: sum(r["launches"][k] for r in widths)
+                         for k in kernels},
+            "widths": widths, "dense": dense_ms}
+
+
+def fleet_runner(dev, kernels, tmp) -> dict:
+    """(c): the runner main() builds from argv with --fleet-topk 2
+    --fleet-cell-cap 64 and phase 6's profile (tuned + use_pallas_sinkhorn)
+    over M stub pods (4 cells, 2 of them a wave: not covering; the block
+    of 128 slots pads to the 256 bucket), one burst
+    of N streams after a warm-up round: every stream answered with a
+    ready primary, one Sinkhorn launch a wave, /debugz/fleet in exact
+    mode over 4 cells with a top-K hit histogram whose picks sum to the
+    streams, and the flight records carrying fleet provenance."""
+    need_transport()
+    import multiprocessing
+
+    from gie_tpu_torch import obs
+    from gie_tpu_torch.fleet import FleetPicker
+    from gie_tpu_torch.runtime import metrics as own_metrics
+    from gie_tpu_torch.runtime.runner import ExtProcServerRunner
+    from gie_tpu_torch.sched.config import tuned_profile
+
+    cfg, weights = tuned_profile()
+    cfg = dataclasses.replace(cfg, use_pallas_sinkhorn=True)
+    ctx = multiprocessing.get_context("spawn")
+    stop, ready = ctx.Event(), ctx.Queue()
+    procs = [ctx.Process(target=stub_fleet_process, args=(M, 0, ready, stop),
+                         daemon=True)]
+    procs[0].start()
+    runner = None
+    try:
+        fleet_port = ready.get(timeout=120)
+        mport = free_port()
+        argv = ["--insecure-serving",
+                "--scheduler-config", write_scheduler_config(cfg, weights, tmp),
+                "--fleet-topk", str(FLEET_RUNNER_TOPK),
+                "--fleet-cell-cap", str(FLEET_RUNNER_CAP),
+                "--pool-name", "smoke", "--grpc-port", str(free_port()),
+                "--grpc-health-port", str(free_port()),
+                "--metrics-port", str(mport),
+                "--extproc-workers", str(EXTPROC_WORKERS),
+                "--scrape-interval-ms", str(SCRAPE_INTERVAL_MS)]
+        runner = ExtProcServerRunner(
+            server_options(argv), fleet_cluster("smoke", fleet_ips(M),
+                                                fleet_port))
+        sched = runner.scheduler
+        check(isinstance(sched, FleetPicker) and sched.device.type == "cuda"
+              and sched.fleet_topk == FLEET_RUNNER_TOPK
+              and sched.fleet_cell_cap == FLEET_RUNNER_CAP,
+              f"fleet runner: {type(sched).__name__} on {sched.device}")
+        runner.setup()
+        runner.start()
+        slots = [ep.slot for ep in runner.datastore.endpoints()]
+        check(len(slots) == M, f"fleet runner: {len(slots)} of {M} ready")
+        deadline = time.monotonic() + 60
+        while True:
+            _, ages = runner.metrics_store.pool_rows(slots)
+            if bool(np.isfinite(ages).all()) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        rounds = [-1, 0]                                 # -1: warm-up
+        barrier, results = ctx.Barrier(CLIENTS + 1), ctx.Queue()
+        for k in range(CLIENTS):
+            procs.append(ctx.Process(
+                target=client_process,
+                args=(runner.grpc_server.port, CHANNELS // CLIENTS, rounds, k,
+                      STREAMS_PER_ROUND, barrier, results), daemon=True))
+            procs[-1].start()
+        live = {ep.hostport for ep in runner.datastore.endpoints()}
+        for w in rounds:
+            if w == 0:
+                for t in runner.picker._warm_threads:
+                    t.join(300)
+                torch.cuda.synchronize()
+                for fn in kernels.values():
+                    fn.launches = 0
+                waves0 = own_metrics.PIPELINE_WAVES.value()
+                t0 = time.monotonic()
+            barrier.wait(600)
+            got = [results.get(timeout=900) for _ in range(CLIENTS)]
+            outcomes = [o for g in got for o in g[1]]
+            errs = [o[4] for o in outcomes if o[4]]
+            check(not errs, f"fleet runner: {len(errs)} streams failed, "
+                            f"first: {errs[:1]}")
+        burst_s = time.monotonic() - t0
+        waves = int(own_metrics.PIPELINE_WAVES.value() - waves0)
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        answered = sum(o[1] is not None and o[1].split(",")[0] in live
+                       for o in outcomes)
+        check(answered == STREAMS_PER_ROUND,
+              f"fleet runner: {answered} of {STREAMS_PER_ROUND} answered")
+        check(launches["fused_sinkhorn_plan"] == waves >= 1,
+              f"fleet runner: {launches} launches for {waves} waves")
+        report = json.loads(http_get(mport, "/debugz/fleet"))
+        picks = sum(report.get("topk_hit_histogram", {}).values())
+        check(report.get("mode") == "exact" and report.get("cells") == 4
+              and report.get("fleet_m") == M
+              and picks == len(rounds) * STREAMS_PER_ROUND,
+              f"fleet runner: /debugz/fleet {str(report)[:400]}")
+        records = [r for r in obs.RECORDER.snapshot() if "chosen" in r]
+        with_fleet = [r for r in records if "fleet" in r]
+        check(records and len(with_fleet) == len(records)
+              and all(len(r["fleet"]["cells"]) == FLEET_RUNNER_TOPK
+                      and r["fleet"]["compression"]
+                      == round(sched.compression_ratio(M), 6)
+                      for r in with_fleet),
+              f"fleet runner: {len(with_fleet)} of {len(records)} flight "
+              f"records carry fleet provenance: "
+              f"{[r.get('fleet') for r in records[:2]]}")
+        for t in runner.picker._warm_threads:
+            t.join(300)
+    finally:
+        stop.set()
+        if runner is not None:
+            runner.stop()
+        for proc in procs:
+            proc.join(30)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    rec = {"phase": "fleet-runner", "streams": STREAMS_PER_ROUND,
+           "answered": answered, "waves": waves, "launches": launches,
+           "burst_s": burst_s, "streams_per_s": answered / burst_s,
+           "debugz_fleet": {k: report[k] for k in (
+               "mode", "cells", "fleet_m", "compression_ratio", "waves",
+               "topk_hit_histogram")},
+           "records_with_fleet": len(with_fleet)}
+    emit(rec)
+    return rec
+
+
+def fleet_storms(dev, kernels) -> dict:
+    """(d): storm-fleet under virtual time on the card and on a CPU engine
+    with phase 10's noise (decisions, counts, the fleet block and the
+    federation block equal), and the same storm re-run on the card with
+    the dense Scheduler (the same decision fingerprint)."""
+    from gie_tpu_torch.resilience import scenarios
+    from gie_tpu_torch.storm.engine import engine_from_drive
+
+    name = "storm-fleet"
+    on_card = storm_run(name, dev, kernels)
+    on_cpu = storm_run(name, torch.device("cpu"), kernels)
+    same_storm(on_card, on_cpu)
+    a, b = on_card["scorecard"], on_cpu["scorecard"]
+    check(a["fleet"] == b["fleet"],
+          f"{name}: the fleet block differs: {a['fleet']} {b['fleet']}")
+    fa, fb = fed_without_late_reads(a), fed_without_late_reads(b)
+    differ = sorted(k for k in set(fa) | set(fb) if fa.get(k) != fb.get(k))
+    check(not differ, f"{name}: the card and the CPU differ in federation "
+                      f"{differ}")
+    scn = scenarios.load(name)
+    drive = dict(scn.drive["storm"])
+    drive.pop("fleet_topk")
+    drive.pop("fleet_cell_cap", None)
+    t0 = time.monotonic()
+    eng = engine_from_drive(drive, seed=scn.seed, name=name + "-dense",
+                            virtual_time=True, device=dev,
+                            noise_source=storm_noise(dev))
+    try:
+        dense = eng.run().scorecard
+    finally:
+        eng.close()
+    dense_s = time.monotonic() - t0
+    check(dense["decision_fingerprint"] == a["decision_fingerprint"]
+          and dense["schedule_fingerprint"] == a["schedule_fingerprint"],
+          f"{name}: the dense re-run on the card decided otherwise")
+    rec = {"phase": "fleet-storm", "wall_s": on_card["rec"]["wall_s"],
+           "cpu_wall_s": on_cpu["rec"]["wall_s"], "dense_wall_s": dense_s,
+           "waves": on_card["rec"]["waves"],
+           "inline_captures_after_warmup":
+               on_card["rec"]["inline_captures_after_warmup"],
+           "fleet": {k: a["fleet"][k] for k in (
+               "mode", "cells", "compression_ratio", "waves",
+               "topk_hit_histogram")},
+           "ok": a["ok"], "shed": a["shed"], "client_5xx": a["client_5xx"],
+           "equal_to_cpu": True, "equal_to_dense": True}
+    emit(rec)
+    return rec
+
+
+def phase_fleet(dev, cfg, weights, kernels, tmp) -> dict:
+    """Phase 17: (a) exact mode against the dense cycle, (b) sketch mode
+    at 65,536 and 262,144 endpoints against CPU replays, each in both
+    kernel configurations; (c) the runner under --fleet-topk; (d)
+    storm-fleet, card against CPU and against the dense re-run."""
+    from gie_tpu_torch.sched import ProfileConfig
+
+    t_phase = time.perf_counter()
+    topk_cfg = ProfileConfig(picker="topk", use_pallas_topk=True)
+    parts, walls = [], {}
+    for name, c, w, own in (
+            ("tuned+use_pallas_sinkhorn", cfg, weights, "fused_sinkhorn_plan"),
+            ("topk+use_pallas_topk", topk_cfg, None, "fused_blend_topk")):
+        t0 = time.perf_counter()
+        parts.append(fleet_exact(dev, name, c, w, kernels, own))
+        walls[f"exact {name}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parts.append(fleet_sketch(dev, name, c, w, kernels, own))
+        walls[f"sketch {name}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts.append(fleet_runner(dev, kernels, tmp))
+    walls["runner"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    storm = fleet_storms(dev, kernels)
+    walls["storm"] = time.perf_counter() - t0
+    launches = {k: sum(p["launches"][k] for p in parts) for k in kernels}
+    summary = {"phase": "fleet", "wall_s": time.perf_counter() - t_phase,
+               "part_wall_s": walls, "launches": launches,
+               "storm_equal_to_cpu_and_dense": storm["equal_to_dense"]}
     emit(summary)
     return summary
 
@@ -4354,16 +4797,19 @@ def main() -> int:
         ha = phase_ha(dev, cfg, weights, kernels, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         fed = phase_fed(dev, cfg, weights, kernels, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        fleet = phase_fleet(dev, cfg, weights, kernels, tmp)
 
     line = []
     for rec, phases, source, replaces in (
         (records["fused_sinkhorn_plan"],
          (sink, pick_sink, serve_sink, chaos_sink, warm_sink, pd_sink,
-          learn, ha, fed),
+          learn, ha, fed, fleet),
          "gie_tpu_torch/ops/csrc/fused_sinkhorn.cu",
          "gie_tpu/ops/fused_sinkhorn.py:66"),
         (records["fused_blend_topk"],
-         (topk, pick_topk, serve_topk, chaos_topk, warm_topk, pd_topk, kv),
+         (topk, pick_topk, serve_topk, chaos_topk, warm_topk, pd_topk, kv,
+          fleet),
          "gie_tpu_torch/ops/csrc/fused_topk.cu",
          "gie_tpu/ops/fused_topk.py:80"),
     ):

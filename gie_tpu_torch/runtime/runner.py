@@ -20,13 +20,14 @@ followers install it and promote warm) and the recommend-only autoscale
 loop (--autoscale-mode recommend), and so is multi-cluster federation
 (--fed-cluster, --fed-peer, --fed-port, --fed-drain: the digest exchange
 with every peer, imported peer endpoints in the slot space, the spill
-policy in the picker, /debugz/federation). Subsystems that later slices of
-the port bring are refused at construction with the port's not-ported
-error, never skipped silently (`refuse_out_of_slice`): the fleet picker
-(--fleet-topk), the multi-device mesh (--mesh-devices), the latency
-predictor (--enable-predictor), and the kube slice's actuation
-(--autoscale-mode apply) and Lease elector (--leader-elect over a kube
-cluster client; main refuses --kube itself).
+policy in the picker, /debugz/federation), and so is the fleet picker
+(--fleet-topk, --fleet-cell-cap: the hierarchical two-level pick of
+gie_tpu_torch/fleet, /debugz/fleet). Subsystems that later slices of the
+port bring are refused at construction with the port's not-ported error,
+never skipped silently (`refuse_out_of_slice`): the multi-device mesh
+(--mesh-devices), the latency predictor (--enable-predictor), and the
+kube slice's actuation (--autoscale-mode apply) and Lease elector
+(--leader-elect over a kube cluster client; main refuses --kube itself).
 """
 
 from __future__ import annotations
@@ -99,7 +100,6 @@ def refuse_out_of_slice(opts: Options, cluster=None) -> None:
         (opts.leader_elect and hasattr(cluster, "_json"),
          "--leader-elect on a kube Lease (KubeLeaseElector)", "kube"),
         (opts.autoscale_mode == "apply", "--autoscale-mode apply", "kube"),
-        (opts.fleet_topk > 0, "--fleet-topk", "fleet"),
         (opts.mesh_devices > 1, "--mesh-devices", "mesh"),
         (opts.enable_predictor, "--enable-predictor", "predictor_fn"),
     )
@@ -150,7 +150,21 @@ class ExtProcServerRunner:
                     columns=list(art["feature_schema"]),
                     promoted=bool(
                         (art.get("judgment") or {}).get("promote")))
-            self.scheduler = Scheduler(cfg, weights=weights)
+            if opts.fleet_topk > 0:
+                # Hierarchical two-level pick (gie_tpu_torch/fleet): coarse
+                # cell stage, then the dense cycle over the gathered
+                # candidate block. A drop-in Scheduler facade; with
+                # --fleet-topk 0 the dense path is as if the flag did not
+                # exist.
+                from gie_tpu_torch.fleet import FleetPicker
+
+                self.scheduler = FleetPicker(
+                    cfg, weights=weights, topk=opts.fleet_topk,
+                    cell_cap=opts.fleet_cell_cap)
+                self.log.info("fleet picker armed", topk=opts.fleet_topk,
+                              cell_cap=opts.fleet_cell_cap)
+            else:
+                self.scheduler = Scheduler(cfg, weights=weights)
         self.metrics_store = MetricsStore()
         self.mapping = BY_NAME[opts.model_server_type]
         # gie-obs (obs/, docs/OBSERVABILITY.md): the pick flight recorder
@@ -536,6 +550,13 @@ class ExtProcServerRunner:
             # flag — the full spill-policy explanation.
             providers["federation"] = (
                 lambda q: self.fed_exchange.report())
+        if hasattr(self.scheduler, "fleet_report"):
+            # /debugz/fleet: fleet geometry, compression ratio, the top-K
+            # hit histogram (K-bounded) and the hottest cells
+            # (row-bounded), a bounded page whatever the fleet's size.
+            providers["fleet"] = (
+                lambda q: self.scheduler.fleet_report(
+                    max_cells=int(q.get("cells", "32"))))
         return providers
 
     def _policy_weights(self) -> dict:

@@ -1168,6 +1168,17 @@ class BatchingTPUPicker:
         indices = result.indices
         status = result.status
         prefill = result.prefill   # the dual pick's prefill slots, or None
+        # Hierarchical fleet provenance (gie_tpu_torch/fleet): per-request
+        # candidate cells feed both the flight record and the picker's
+        # /debugz/fleet tallies, so they are read even with obs off.
+        fleet = getattr(result, "fleet", None)
+        fleet_cells = fleet_scores = fleet_ratio = None
+        if fleet is not None:
+            fleet_cells, fleet_scores = fleet.cells, fleet.scores
+            ratio_fn = getattr(self.scheduler, "compression_ratio", None)
+            if ratio_fn is not None:
+                fleet_ratio = round(
+                    ratio_fn(int(wave.eps_metrics.shape[0])), 6)
         # Ranked-fallback-tail hygiene flags, read once per wave: the
         # subset mask constrained the PRIMARY at dispatch, but the ranked
         # tail spans the whole pool, so quarantined or DRAINING endpoints
@@ -1301,10 +1312,23 @@ class BatchingTPUPicker:
                 rec["scorers"] = breakdown
                 rec["queue_depth"] = q
                 rec["kv_util"] = kvu
+                if fleet_cells is not None:
+                    rec["fleet"] = {
+                        "cells": [int(c) for c in fleet_cells[i]],
+                        "cell_scores": [
+                            round(float(v), 5) for v in fleet_scores[i]],
+                        "compression": fleet_ratio,
+                    }
                 if prefill is not None:
                     rec["prefill_slot"] = int(prefill[i])
                 res.record = recorder.append(rec)
             item.result = res
+        if fleet_cells is not None:
+            note = getattr(self.scheduler, "note_fleet_wave", None)
+            if note is not None:
+                # One host-side tally a wave for /debugz/fleet's top-K hit
+                # histogram, from the materialized arrays.
+                note(fleet_cells, indices[:, 0])
         for item in batch:
             if item.result is not None:
                 own_metrics.PICKS.labels(outcome="ok").inc()

@@ -51,6 +51,7 @@ from gie_tpu_torch.sched.types import (
     RequestBatch,
     SchedState,
     Weights,
+    blank_like,
 )
 
 # Host-to-device copies a wave makes: every input field and the weights
@@ -180,8 +181,7 @@ class CycleGraph:
         try:
             with torch.cuda.stream(stream):
                 self.upload(*self.pack(*self._template, weights))
-                throwaway = SchedState.init(m=self.state.m,
-                                            device=self.device)
+                throwaway = blank_like(self.state)
                 with ops.tally(warm):
                     cycle(throwaway, self.reqs, self.eps, self.gumbel,
                           self.wvec)

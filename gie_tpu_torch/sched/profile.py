@@ -56,7 +56,6 @@ _LATER = {
     "predictor_fn": "the latency-predictor slice",
     "mesh": "the multi-device slice",
     "kube": "the kube slice",
-    "fleet": "the fleet slice",
 }
 
 
@@ -529,22 +528,32 @@ def _to_host_async(t: torch.Tensor) -> torch.Tensor:
     return host.copy_(t, non_blocking=True)
 
 
-def check_state_shapes(state: SchedState) -> bool:
+def check_state_shapes(state: SchedState,
+                       cell_cap: Optional[int] = None) -> bool:
     """Cross-field shape consistency of a SchedState built from external
     arrays (digest install): the width is an M bucket shared by load and
     duals, the packed presence matrix matches the table's rows and the
-    bucket's word width, and the counters are scalars."""
+    bucket's word width, and the counters are scalars. With `cell_cap` (a
+    fleet picker's) a width past the largest bucket is accepted too when
+    it is whole 32-cell words of cells, with a presence matrix of one bit
+    per cell (the fleet's sketch table)."""
     try:
         m = int(state.assumed_load.shape[0])
     except (TypeError, IndexError):
         return False
+    if m in C.M_BUCKETS:
+        words = m // 32
+    elif (cell_cap and m > C.M_BUCKETS[-1] and m % cell_cap == 0
+          and (m // cell_cap) % 32 == 0):
+        words = m // cell_cap // 32
+    else:
+        return False
     px = state.prefix
     return (
-        m in C.M_BUCKETS
-        and tuple(state.assumed_load.shape) == (m,)
+        tuple(state.assumed_load.shape) == (m,)
         and tuple(state.ot_v.shape) == (m,)
         and px.keys.dim() == 1
-        and tuple(px.present.shape) == (int(px.keys.shape[0]), m // 32)
+        and tuple(px.present.shape) == (int(px.keys.shape[0]), words)
         and tuple(px.ages.shape) == tuple(px.keys.shape)
         and tuple(state.rr.shape) == ()
         and tuple(state.tick.shape) == ()
@@ -719,20 +728,56 @@ class Scheduler:
                 for m in C.M_BUCKETS:
                     fused_sinkhorn.layout(self.device, n, m)
 
+    # Width-policy hooks: the places the facade assumes "endpoint width =
+    # dense M bucket", kept apart so fleet.FleetPicker (whose widths run
+    # past the buckets, with a cell-grain prefix table there) overrides
+    # policy, not plumbing.
+
+    def _m_ok(self, m: int) -> bool:
+        """Whether a wave may arrive at endpoint width m."""
+        return m in C.M_BUCKETS
+
+    def _width_for(self, count: int) -> int:
+        """The smallest width covering `count` slots (a KV event's grow)."""
+        return m_bucket_for(count)
+
+    def _init_state(self, m: int) -> SchedState:
+        """A fresh state of width m."""
+        return SchedState.init(m=m, device=self.device)
+
+    def _resize_into(self, src: SchedState, dst: SchedState) -> SchedState:
+        """Carry `src` into `dst`'s own tensors (another width or not)."""
+        return resize_into(src, dst)
+
+    def _state_shapes_ok(self, state: SchedState) -> bool:
+        """Whether an installed state has a layout this scheduler runs."""
+        return check_state_shapes(state)
+
+    def _graph_schema(self) -> tuple[str, ...]:
+        """The Weights fields a captured cycle reads from its static
+        weight buffer, in order."""
+        return feature_schema(self.cfg)
+
+    def _run_cycle(self, state, reqs, eps, gumbel, wvec=None):
+        """One cycle over `state`, in place -> (result, state); `wvec` is
+        the static weight buffer of _graph_schema() in a captured cycle."""
+        return scheduling_cycle(state, reqs, eps, self.weights, gumbel,
+                                cfg=self.cfg, wvec=wvec)
+
     def _bucket_state(self, m: int) -> SchedState:
         """Bucket m's state, allocated on first use. Callers hold _lock
         (or own the scheduler, in __init__)."""
         state = self._states.get(m)
         if state is None:
-            state = self._states[m] = SchedState.init(m=m, device=self.device)
+            state = self._states[m] = self._init_state(m)
         return state
 
     def _use_bucket(self, m: int) -> SchedState:
         """Make bucket m's state the live one, carrying the current
-        bucket's over (resize_into). Caller holds
+        bucket's over (_resize_into). Caller holds
         _lock."""
         if self.state.m != m:
-            self.state = resize_into(self.state, self._bucket_state(m))
+            self.state = self._resize_into(self.state, self._bucket_state(m))
         return self.state
 
     def _noise_shape(self, n: int, m: int) -> Optional[tuple]:
@@ -754,8 +799,7 @@ class Scheduler:
 
     def _cycle(self, state, reqs, eps, gumbel, wvec) -> PickResult:
         """The cycle a CycleGraph captures: its weights come in `wvec`."""
-        return scheduling_cycle(state, reqs, eps, self.weights, gumbel,
-                                cfg=self.cfg, wvec=wvec)[0]
+        return self._run_cycle(state, reqs, eps, gumbel, wvec)[0]
 
     def _warm(self, reqs: RequestBatch, eps: EndpointBatch) -> None:
         """Make the wave shape of (reqs, eps), already padded to its N
@@ -771,15 +815,13 @@ class Scheduler:
         if self.device.type != "cuda":
             gumbel = (None if shape is None else torch.zeros(
                 shape, dtype=torch.float32, device=self.device))
-            scheduling_cycle(
-                SchedState.init(m=m, device=self.device),
-                _batch_to_device(reqs, self.device),
-                _batch_to_device(eps, self.device), self.weights, gumbel,
-                cfg=self.cfg)
+            self._run_cycle(
+                self._init_state(m), _batch_to_device(reqs, self.device),
+                _batch_to_device(eps, self.device), gumbel)
             return
         with self._lock:
             state = self._bucket_state(m)
-        graph = CycleGraph(key, state, feature_schema(self.cfg), shape,
+        graph = CycleGraph(key, state, self._graph_schema(), shape,
                            self.device)
         graph.capture(self._cycle, self._capture_stream, self.weights)
         self._graphs[key] = graph
@@ -860,9 +902,10 @@ class Scheduler:
         n = int(reqs.valid.shape[0])
         bucket = bucket_for(n)
         m = int(eps.valid.shape[0])
-        if m not in C.M_BUCKETS:
+        if not self._m_ok(m):
             raise ValueError(
-                f"EndpointBatch width {m} is not an M bucket {C.M_BUCKETS}")
+                f"EndpointBatch width {m} is not an M bucket {C.M_BUCKETS} "
+                f"(or a valid fleet width for this scheduler)")
         if int(reqs.subset_mask.shape[1]) != m:
             raise ValueError(
                 f"subset_mask width {reqs.subset_mask.shape[1]} != "
@@ -877,8 +920,7 @@ class Scheduler:
                 state = self._use_bucket(m)
                 shape = self._noise_shape(bucket, m)
                 gumbel = None if shape is None else self._noise(shape)
-                result, _ = scheduling_cycle(
-                    state, reqs, eps, self.weights, gumbel, cfg=self.cfg)
+                result, _ = self._run_cycle(state, reqs, eps, gumbel)
                 snap = state.assumed_load.clone() if snapshot_load else None
             return PendingWave(result=result, n=n, load_snapshot=snap)
         self._ensure_warm(key, lambda: (
@@ -1063,15 +1105,17 @@ class Scheduler:
         width = self.state.m
         for slot, stored, removed in calls:
             if slot >= width:
-                width = m_bucket_for(slot + 1)
+                width = self._width_for(slot + 1)
                 grows.append((len(hashes), width))
+            target, stored, removed = self._event_lanes(
+                slot, stored, removed, width)
             for batch, remove in ((stored, False), (removed, True)):
                 for start in range(0, len(batch), top):
                     part = batch[start:start + top].astype(np.int64)
                     part = part[part != 0]
                     if len(part):
                         hashes.append(part)
-                        slots.append(slot)
+                        slots.append(target)
                         kinds.append(remove)
         # Groups: runs of parts whose rows no earlier part of the run
         # touched, of at most `top` lanes, split where the state grows.
@@ -1116,6 +1160,12 @@ class Scheduler:
                                     group[2] != 0, self.state.tick)
         for _, m in pending:
             self._use_bucket(m)
+
+    def _event_lanes(self, slot: int, stored: np.ndarray,
+                     removed: np.ndarray, width: int):
+        """-> (table column, stored, removed) of one KV-event call folded
+        into a state of `width`: the endpoint's own column here."""
+        return slot, stored, removed
 
     def _fold_graph(self, size: int) -> FoldGraph:
         """The live bucket's fold graph of `size` lanes, captured on first
@@ -1176,7 +1226,7 @@ class Scheduler:
                         maxlen=self._KV_JOURNAL_MAX)
             if slot >= self.state.m:
                 return  # beyond the live bucket: nothing was ever recorded
-            prefix.clear_endpoint(self.state.prefix, slot)
+            self._clear_prefix(slot)
             self.state.assumed_load[slot] = 0.0
             self.state.ot_v[slot] = 1.0
 
@@ -1291,7 +1341,8 @@ class Scheduler:
             return False
         with self._lock:
             self._apply_queued()           # then overwritten
-            self.state = resize_into(restored, self._bucket_state(restored.m))
+            self.state = self._resize_into(restored,
+                                           self._bucket_state(restored.m))
         return True
 
     # -- replication digest surface ----------------------------------------
@@ -1336,7 +1387,7 @@ class Scheduler:
                 restored = state_from_numpy(arrays, device=self.device)
         except (KeyError, TypeError, ValueError):
             return None
-        if not check_state_shapes(restored):
+        if not self._state_shapes_ok(restored):
             return None
         if restored.prefix.keys.shape != self.state.prefix.keys.shape:
             return None
@@ -1349,7 +1400,7 @@ class Scheduler:
         reallocated, since a captured cycle holds their addresses)."""
         with self._lock, self._state_stream():
             self._apply_queued()           # then overwritten, as before
-            self.state = resize_into(state, self._bucket_state(state.m))
+            self.state = self._resize_into(state, self._bucket_state(state.m))
             # Journaled KV events newer than the TTL fold into the
             # installed state: a follower's locally observed prefix truth
             # survives a digest exported before it.

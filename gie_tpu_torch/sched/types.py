@@ -156,6 +156,29 @@ class PickResult(_Replace):
     scores: torch.Tensor    # f32[N, FALLBACKS]
     prefill: Optional[torch.Tensor] = None   # i32[N] | None
     affinity: Optional[torch.Tensor] = None  # f32[N, 2] | None
+    # The fleet picker's coarse-stage provenance (fleet/picker.py): each
+    # request's candidate cells, best first, and their coarse scores. Two
+    # plain columns, so every field of a result is one tensor that a
+    # wave's host copy slices; `fleet` reads them as the reference's
+    # PickResult.fleet. None on the dense path.
+    fleet_cells: Optional[torch.Tensor] = None   # i32[N, K] | None
+    fleet_scores: Optional[torch.Tensor] = None  # f32[N, K] | None
+
+    @property
+    def fleet(self) -> Optional["FleetAux"]:
+        if self.fleet_cells is None:
+            return None
+        return FleetAux(cells=self.fleet_cells, scores=self.fleet_scores)
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetAux:
+    """Per-request coarse-stage provenance of a fleet pick (the
+    reference's fleet.picker.FleetAux): tensors on the device, numpy
+    arrays in a materialized result."""
+
+    cells: object   # i32[N, K] candidate cells, best first
+    scores: object  # f32[N, K] their coarse scores
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,6 +240,19 @@ def m_bucket_for(count: int) -> int:
             return b
     raise ValueError(
         f"{count} endpoint slots exceed max bucket {C.M_BUCKETS[-1]}")
+
+
+def blank_like(state: SchedState) -> SchedState:
+    """A fresh state laid out as `state` (widths, table rows, device) with
+    SchedState.init's values: an empty table, zero load, cold duals."""
+    px = state.prefix
+    return SchedState(
+        prefix=PrefixTable(keys=torch.zeros_like(px.keys),
+                           present=torch.zeros_like(px.present),
+                           ages=torch.zeros_like(px.ages)),
+        assumed_load=torch.zeros_like(state.assumed_load),
+        rr=torch.zeros_like(state.rr), tick=torch.zeros_like(state.tick),
+        ot_v=torch.ones_like(state.ot_v))
 
 
 def resize_into(src: SchedState, dst: SchedState) -> SchedState:

@@ -8,9 +8,9 @@ virtual time, scored into the reference's JSON scorecard (scorecard.py).
 ``python -m gie_tpu_torch.storm <scenario> [--device cpu]`` replays a
 recorded scenario whose ``drive`` carries a ``storm`` section; the search
 harness is storm/search.py. The autoscale loop, the replication standby
-probe, the learned scorer and federation (a peer cluster's stub fleet
-imported through the real exchange) run as in the reference; subsystems
-of later slices (the fleet picker, a mesh) are refused at engine
+probe, the learned scorer, federation (a peer cluster's stub fleet
+imported through the real exchange) and the fleet picker run as in the
+reference; a mesh, which a later slice brings, is refused at engine
 construction.
 """
 

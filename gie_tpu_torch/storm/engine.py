@@ -44,13 +44,14 @@ pool) and the replication standby probe (``standby`` and the
 decoded the way a follower would), and so does federation (a
 ``federation`` spec: a second stub fleet as the peer cluster, published
 through a real FederationPublisher and imported through a real PeerLink /
-FederationState, with the drain, partition and heal control events).
-Subsystems of later slices are refused at construction, before any stub
-or thread exists: a mesh and the fleet picker (each raises the port's
-not-ported error naming its slice). Their branches of the reference engine
-are not carried; their tallies stay in the scorecard as the values the
-reference records when they are off, so a port fingerprint can equal a
-reference one.
+FederationState, with the drain, partition and heal control events), and
+so does the fleet picker (``fleet_topk``: the hierarchical FleetPicker in
+place of the Scheduler, and the scorecard's ``fleet`` section). A mesh,
+which a later slice brings, is refused at construction, before any stub
+or thread exists, with the port's not-ported error. Its branch of the
+reference engine is not carried; its tallies stay in the scorecard as the
+values the reference records when it is off, so a port fingerprint can
+equal a reference one.
 
 Determinism: the SCHEDULE is bit-identical per seed (shapes.py). Under
 ``virtual_time`` the decision sequence is a pure function of the seed and
@@ -206,8 +207,8 @@ class FederationSpec:
 @dataclasses.dataclass
 class EngineConfig:
     """The reference's fields and defaults (see gie_tpu/storm/engine.py
-    for each knob's rationale). The subsystems of later slices —
-    mesh_devices > 1, fleet_topk > 0 — are refused by StormEngine."""
+    for each knob's rationale). The subsystem of a later slice —
+    mesh_devices > 1 — is refused by StormEngine."""
 
     ttft_slo_s: float = 2.5
     scrape_interval_s: float = 0.025
@@ -264,8 +265,6 @@ def _refuse_later_slices(cfg: EngineConfig) -> None:
     order."""
     if cfg.mesh_devices > 1:
         raise _not_ported("a storm over a scheduling mesh", "mesh")
-    if cfg.fleet_topk > 0:
-        raise _not_ported("the storm's fleet picker (fleet_topk)", "fleet")
 
 
 class _ZombieSnapshot:
@@ -556,8 +555,21 @@ class StormEngine:
                 weights = weights_from_mapping({
                     name: float(float32_from_hex(hexed))
                     for name, hexed in cfg.policy_weights})
-        self.scheduler = Scheduler(prof, weights=weights, device=self.device,
-                                   noise_source=self.noise_source)
+        if cfg.fleet_topk > 0:
+            # gie-fleet: the hierarchical two-level pick cycle (coarse cell
+            # stage, then the unchanged dense cycle over the gathered
+            # candidate block). With a covering top-K the decision
+            # fingerprint equals the dense scheduler's.
+            from gie_tpu_torch.fleet import FleetPicker
+
+            self.scheduler = FleetPicker(
+                prof, weights=weights, device=self.device,
+                noise_source=self.noise_source, topk=cfg.fleet_topk,
+                cell_cap=cfg.fleet_cell_cap)
+        else:
+            self.scheduler = Scheduler(prof, weights=weights,
+                                       device=self.device,
+                                       noise_source=self.noise_source)
         # Virtual mode hands every subsystem the same clock; real mode
         # keeps each subsystem's default (monotonic for the resilience
         # layer, wall time for the store's row stamps).
@@ -1471,6 +1483,10 @@ class StormEngine:
         }
         if self._admission is not None:
             card["extproc"] = self._admission.report()
+        if hasattr(self.scheduler, "fleet_report"):
+            # Hierarchical-picker section: coarse-stage provenance (top-K
+            # hit ranks, hot cells, compression).
+            card["fleet"] = self.scheduler.fleet_report()
         if self.fed_state is not None:
             # Per-cluster federation section: the four pinned
             # properties — spill with CRITICAL locality, drain bleed,

@@ -27,7 +27,11 @@ reaches the decisions of the same storm on the CPU (decision
 fingerprints equal). A digest publisher refreshing every 10 ms beside a
 capture and a stream of waves never makes pick_async wait, and a digest
 installs into the captured buffers across an M-bucket switch with no new
-allocation."""
+allocation. The fleet picker's waves (exact mode under a non-covering K,
+sketch mode past the largest bucket) replay its captured two-level cycle:
+equal to the eager fleet cycle on a copy of the state, their candidate
+cells equal to a CPU FleetPicker's from the same state, and a warmed
+fleet wave makes no synchronizing call."""
 
 import dataclasses
 import threading
@@ -1499,3 +1503,124 @@ def test_digest_install_writes_the_captured_buffers_across_buckets(dev,
     short = {k: (v[:-32] if k.startswith("prefix_") else v)
              for k, v in exported.items()}
     assert sched.prepare_install(short) is None
+
+
+# -- the fleet picker on the card -------------------------------------------
+
+
+def _fleet_pair(config, cap, topk, dev):
+    """A FleetPicker on the card whose noise is kept (`drawn`) and its CPU
+    twin, which takes the same draws."""
+    from gie_tpu_torch.fleet import FleetPicker
+
+    cfg, weights, counter = _config(config)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    drawn = []
+
+    def noise(shape):
+        drawn.append(gumbel_noise(shape, gen, dev))
+        return drawn[-1]
+
+    card = FleetPicker(cfg, weights, noise_source=noise, topk=topk,
+                       cell_cap=cap)
+    cpu = FleetPicker(cfg, weights, device="cpu", topk=topk, cell_cap=cap,
+                      noise_source=lambda shape: drawn[-1].cpu())
+    card.drawn = drawn
+    return card, cpu, counter
+
+
+@pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel", "topk-kernel"])
+@pytest.mark.parametrize("m, cap, topk", [(256, 64, 2), (8192, 256, 4)])
+def test_fleet_replays_match_the_eager_cycle_and_the_cpu_twin(dev, config,
+                                                              m, cap, topk):
+    """3 carried waves of 1024 requests through the captured fleet cycle:
+    each against fleet_cycle run op by op on a copy of the state it
+    started from with its noise (indices, status, candidate cells and the
+    prefix table exact, floats within 1e-5), and against a CPU
+    FleetPicker from the same state (candidate cells and status exact,
+    primaries on 95% of the rows); one kernel launch a wave."""
+    from gie_tpu_torch import ops
+    from gie_tpu_torch.fleet import fleet_cycle
+    from gie_tpu_torch.sched.profile import _batch_to_device, _copy_state
+    from gie_tpu_torch.sched.types import pad_requests
+
+    card, cpu, counter = _fleet_pair(config, cap, topk, dev)
+    before = counter.launches
+    for w in range(3):
+        reqs, eps = _wave_inputs(n=1024, m=m, live=m - 40, seed=w)
+        with card._lock:
+            card._apply_queued()
+            start = _copy_state(card._use_bucket(m))
+        cpu.install_state(card.export_state())
+        res = card.pick(reqs, eps)
+        gumbel = card.drawn[-1] if card.cfg.picker != "topk" else None
+        with ops.tally({}):
+            ref, end = fleet_cycle(
+                start, pad_requests(_batch_to_device(reqs, dev), 1024),
+                _batch_to_device(eps, dev), card.weights, gumbel,
+                cfg=card.cfg, cell_cap=cap, topk=topk)
+        for k in ("indices", "status", "fleet_cells"):
+            np.testing.assert_array_equal(getattr(res, k),
+                                          getattr(ref, k).cpu().numpy())
+        np.testing.assert_allclose(res.scores, ref.scores.cpu().numpy(),
+                                   atol=1e-5, rtol=0)
+        live = card.state
+        for a, b in ((live.prefix.keys, end.prefix.keys),
+                     (live.prefix.present, end.prefix.present),
+                     (live.prefix.ages, end.prefix.ages),
+                     (live.rr, end.rr), (live.tick, end.tick)):
+            assert torch.equal(a, b)
+        torch.testing.assert_close(live.assumed_load, end.assumed_load,
+                                   atol=1e-5, rtol=0)
+        twin = cpu.pick(reqs, eps)
+        np.testing.assert_array_equal(res.fleet.cells, twin.fleet.cells)
+        np.testing.assert_array_equal(res.status, twin.status)
+        assert (res.indices[:, 0] == twin.indices[:, 0]).mean() >= 0.95
+        card.complete(res.indices[:512, 0], np.full(512, 0.5, np.float32))
+    assert counter.launches == before + 3
+    assert card.warm_inline_compiles == 1
+
+
+def test_fleet_wave_makes_no_synchronizing_call(dev):
+    """A warmed sketch-mode wave (8192 endpoints, 32 cells of 256) under
+    set_sync_debug_mode("error"): pick_async, the wave's noise and a
+    queued complete() make no call that waits for the card."""
+    card, _, _ = _fleet_pair("tuned+sinkhorn-kernel", 256, 4, dev)
+    reqs, eps = _wave_inputs(n=1024, m=8192, live=8000, seed=1)
+    res = card.pick(reqs, eps)                    # captures the key
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = card.pick_async(reqs, eps)
+        card.complete(res.indices[:64, 0], np.full(64, 0.5, np.float32))
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+    out = pending.materialize()
+    assert (out.status == 0).mean() > 0.9
+    assert card.fleet_report()["mode"] == "sketch"
+    assert card.warm_inline_compiles == 1
+
+
+def test_sketch_kv_events_fold_on_card_as_on_the_cpu(dev):
+    """KV events into a sketch-mode FleetPicker on the card queue, then
+    fold at cell grain (stored chunks only) through a FoldGraph captured
+    over the cell-bit table: the export equals a CPU FleetPicker's that
+    took the same events from the same state, bit for bit."""
+    card, cpu, _ = _fleet_pair("topk-kernel", 256, 4, dev)
+    reqs, eps = _wave_inputs(n=1024, m=8192, live=8000, seed=2)
+    card.pick(reqs, eps)
+    cpu.install_state(card.export_state())
+    rng = np.random.default_rng(5)
+    for slot in (3, 700, 4100, 8191):
+        stored = rng.integers(1, 2**32, 300, dtype=np.uint64).astype(
+            np.uint32)
+        for sched in (card, cpu):
+            sched.apply_prefix_events(slot, stored, stored[:20])
+    card.clear_prefix_endpoint(700)            # sketch mode: a no-op
+    cpu.clear_prefix_endpoint(700)
+    a, b = card.export_state(), cpu.export_state()
+    assert a["prefix_present"].shape == (a["prefix_keys"].shape[0], 1)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert any(m == 8192 for m, _ in card._fold_graphs)

@@ -255,8 +255,8 @@ LIVE = ["--no-resilience", "--no-obs"]
 # (argv, the _LATER key of the slice it is refused until, or None where
 # the runner builds: the resilience and observability layers, both on by
 # default, --fault arming, the KV-event listener, the learned scorer, the
-# file-lease elector, replication, the recommend-only autoscale loop and
-# federation are ported).
+# file-lease elector, replication, the recommend-only autoscale loop,
+# federation and the fleet picker are ported).
 REFUSED = [
     ([], None),                                 # resilience + obs on
     (["--no-resilience"], None),                # obs on
@@ -267,7 +267,7 @@ REFUSED = [
     (LIVE + ["--fed-cluster", "east", "--fed-peer", "w=http://w:1"], None),
     (LIVE + ["--fed-drain", "--fed-cluster", "east"], None),
     (LIVE + ["--kv-events-port", "19300"], None),
-    (LIVE + ["--fleet-topk", "2"], "fleet"),
+    (LIVE + ["--fleet-topk", "2"], None),
     (LIVE + ["--mesh-devices", "2"], "mesh"),
     # Ported: with a scheduler injected the runner reads no artifact,
     # as the reference's does not.

@@ -50,7 +50,8 @@ def test_import_pulls_in_no_jax_and_no_gie_tpu():
                  "gie_tpu_torch.obs.metricscheck",
                  "gie_tpu_torch.obs.__main__",
                  "gie_tpu_torch.storm.engine", "gie_tpu_torch.storm.search",
-                 "gie_tpu_torch.storm.__main__"):
+                 "gie_tpu_torch.storm.__main__",
+                 "gie_tpu_torch.fleet.picker"):
         assert name in loaded
     forbidden = [
         name for name in loaded
@@ -72,6 +73,9 @@ def _imported_modules(path: pathlib.Path) -> list[str]:
 def test_source_scan_finds_no_jax_or_gie_tpu_import():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 15
+    # Every subpackage is in the scan, the fleet picker's included.
+    assert {f.parent.name for f in files} >= {"fleet", "federation",
+                                              "sched", "storm"}
     bad = [
         (str(f.relative_to(REPO)), name)
         for f in files for name in _imported_modules(f)

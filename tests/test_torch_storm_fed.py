@@ -11,10 +11,25 @@ Queue 3 item 5). The scorecards are compared whole and exactly, the
 federation block included (per-cluster picks and serves, CRITICAL
 crossings, pick times, the local-only timeline, the drain / partition /
 heal events, the link's counters and installed era, the capacity
-matrix), with two readings left out that the scorer takes on the clock
+matrix), with the readings left out that the scorer takes on the clock
 after run() has released it, so they grow with the host's speed on
 either side: the link's staleness and, derived from it, each peer row's
-effective penalty and staleness in the matrix. A partition healed with a
+effective penalty and staleness in the matrix; the link's counts of
+polls and installs (`rejects`, `era_regressions`, `installs`,
+`installed_epoch`, `peer_epoch`); and each matrix row's `queue_total`.
+The link's poller, the peer's publisher and the scrape engine keep
+running after the release (the virtual clock then advances whenever
+every remaining actor parks): after a heal with a flipped era the old
+lineage answers every other poll, each answer a rejected era
+regression; a late refresh of the peer moves its epoch and the link's
+installs; and the local row's queue total is whatever the last scrape
+saw when the scorer reads it. The reference's run() ends its main actor
+before it scores in the same order (gie_tpu/storm/engine.py:1274-1285),
+so the same readings are late there: under six concurrent test
+processes storm-fed-spill's local queue total read 0 in most runs and 1
+in some, on the reference and on the port alike.
+hack/torch_fed_late_reads.py prints the port's readings for a wall delay
+before the scorecard. A partition healed with a
 flipped era mints the new era's token from the module-level `random` of
 each package's exchange; the test gives both the same seeded generator.
 
@@ -60,13 +75,18 @@ def _seed_eras(monkeypatch):
             Random=random.Random, getrandbits=rng.getrandbits))
 
 
+# Link fields that move after run() releases the clock.
+_LATE_LINK = ("staleness_s", "rejects", "era_regressions", "installs",
+              "installed_epoch", "peer_epoch")
+
+
 def _without_late_reads(card):
     fed = dict(card["federation"])
     fed["link"] = {k: v for k, v in fed["link"].items()
-                   if k != "staleness_s"}
+                   if k not in _LATE_LINK}
     fed["matrix"] = {
-        name: {k: v for k, v in row.items()
-               if row["local"] or k not in ("staleness_s", "penalty")}
+        name: {k: v for k, v in row.items() if k != "queue_total"
+               and (row["local"] or k not in ("staleness_s", "penalty"))}
         for name, row in fed["matrix"].items()}
     return {**card, "federation": fed}
 
@@ -106,6 +126,10 @@ def test_fed_storm_reaches_the_reference_decisions(name, monkeypatch):
         assert [e["event"] for e in fed["events"]] == ["partition", "heal"]
         assert 1 in [v for _, v in fed["local_only_trace"]]
         assert fed["link"]["era_flips"] == 1
+        # The zombie lineage was rejected, on both sides.
+        assert fed["link"]["era_regressions"] > 0
+        assert port["federation"]["link"]["era_regressions"] > 0
+
 
 
 def _longhorizon_program(S):

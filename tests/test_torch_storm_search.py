@@ -4,11 +4,11 @@
              device="cpu") gives a leaderboard validate() accepts, and a
              second call the same leaderboard (virtual time: every
              number in it is a function of the seed and the config).
-  refusals   each subsystem of a later slice raises the port's
-             not-ported error naming that slice — from an EngineConfig
-             or a shipped scenario that needs it through run_scenario —
+  refusals   the subsystem of a later slice (a mesh) raises the port's
+             not-ported error naming that slice from an EngineConfig,
              before any stub, thread or clock hand-off exists. Federation
-             is ported: its EngineConfig runs and its scenarios build.
+             and the fleet picker are ported: their EngineConfigs run,
+             their scenarios build, and every shipped storm runs.
   device     with no CUDA device and no device argument, run_scenario,
              search and the CLI's main raise (so `python -m` exits
              non-zero); none moves to the CPU on its own.
@@ -84,7 +84,6 @@ def _program(shapes=()):
 
 REFUSALS = {
     "mesh": (EngineConfig(mesh_devices=8), ()),
-    "fleet": (EngineConfig(fleet_topk=4), ()),
 }
 
 
@@ -128,15 +127,38 @@ def test_federation_engine_config_runs():
         + card["client_5xx"]
 
 
+def test_fleet_engine_config_runs():
+    """The fleet slice is ported: fleet_topk > 0 builds the FleetPicker in
+    place of the Scheduler, a storm runs through it under virtual time, and
+    the scorecard carries the fleet section."""
+    from gie_tpu_torch.fleet import FleetPicker
+
+    eng = StormEngine(_program(), cfg=EngineConfig(fleet_topk=4,
+                                                   fleet_cell_cap=32),
+                      virtual_time=True, device="cpu")
+    try:
+        assert isinstance(eng.scheduler, FleetPicker)
+        card = eng.run().scorecard
+    finally:
+        eng.close()
+    SC.validate(card)
+    fleet = card["fleet"]
+    assert fleet["topk"] == 4 and fleet["cell_cap"] == 32
+    assert fleet["mode"] == "exact" and fleet["waves"] > 0
+    assert sum(fleet["topk_hit_histogram"].values()) == sum(
+        c["picks"] for c in fleet["hot_cells"]) + fleet["other_cell_picks"]
+
+
 FED_SCENARIOS = ("storm-fed-drain", "storm-fed-partition",
-                 "storm-fed-spill", "storm-longhorizon")
+                 "storm-fed-spill", "storm-fleet", "storm-longhorizon")
 
 
 @pytest.mark.parametrize("name", FED_SCENARIOS)
 def test_federation_scenario_builds(name):
-    """Each scenario that waited for federation alone builds its engine
-    (the peer fleet, publisher, exchange and picker) and closes with no
-    thread left behind."""
+    """Each scenario that waited for federation builds its engine (the
+    peer fleet, publisher, exchange and picker; storm-fleet's with the
+    FleetPicker) and closes with no thread left behind."""
+    from gie_tpu_torch.fleet import FleetPicker
     from gie_tpu_torch.storm.engine import engine_from_drive
 
     before = set(threading.enumerate())
@@ -147,6 +169,8 @@ def test_federation_scenario_builds(name):
         assert eng.fed_state is not None and eng.picker.federation is \
             eng.fed_state
         assert eng.fed_exchange.links and eng.peer_pub is not None
+        assert isinstance(eng.scheduler, FleetPicker) == (
+            name == "storm-fleet")
     finally:
         eng.close()
     deadline = time.monotonic() + 10
@@ -156,38 +180,19 @@ def test_federation_scenario_builds(name):
     assert set(threading.enumerate()) - before == set()
 
 
-def _needs(name) -> str:
-    """The first later slice a shipped scenario's drive asks for, in the
-    engine's construction order."""
-    storm = scenarios.load(name).drive["storm"]
-    if storm.get("fleet_topk", 0) > 0:
-        return "fleet"
-    return ""
-
-
-UNPORTED = [n for n in scenarios.list_scenarios()
-            if n.startswith("storm-") and _needs(n)]
-
-
-def test_only_three_storm_scenarios_run_on_this_slice():
-    """Named when three storms ran; since the autoscale loop, the
-    replication standby and federation came, eleven run and one waits
-    for the fleet."""
+def test_all_twelve_storm_scenarios_run_on_the_port():
+    """Named for the three storms that ran first; since the autoscale
+    loop, the replication standby, federation and the fleet picker came,
+    every shipped storm runs on the port and none is refused."""
     runnable = sorted(n for n in scenarios.list_scenarios()
-                      if n.startswith("storm-") and not _needs(n))
+                      if n.startswith("storm-"))
     assert runnable == ["storm-capacity", "storm-equivalence",
                         "storm-fed-drain", "storm-fed-partition",
                         "storm-fed-spill", "storm-flash-upgrade",
-                        "storm-learn-judge", "storm-longhorizon",
-                        "storm-noisy-neighbor", "storm-search-smoke",
-                        "storm-soak"]
-    assert sorted(UNPORTED) == ["storm-fleet"]
-
-
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_scenario_is_refused_by_run_scenario(name):
-    _assert_refused_cleanly(lambda: run_scenario(name, device="cpu"),
-                            _needs(name))
+                        "storm-fleet", "storm-learn-judge",
+                        "storm-longhorizon", "storm-noisy-neighbor",
+                        "storm-search-smoke", "storm-soak"]
+    assert "fleet" not in _LATER
 
 
 def test_twin_and_search_raise_without_a_card(monkeypatch):
