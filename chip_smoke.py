@@ -13,7 +13,8 @@ count adds the launches a replay makes:
   2. kernels vs plain: each CUDA kernel against its plain PyTorch version
      at the main path's shapes (1024 requests x 256 and x 1024 endpoints,
      cold and warm duals) and at edge shapes (Sinkhorn N=1, 7, 8 and
-     1024x64; blend-top-k M=40, 37, 2048 and [3, 9, 64]), with CUDA-event
+     1024x64; blend-top-k M=40, 37, 2048 and [3, 9, 64]; and S = 7 at
+     [7, 1024, 256], the blend with phase 18's latency column), with CUDA-event
      times at the main shapes (median of 5 runs of 20 back-to-back calls,
      after 5 warm-up calls; inputs warm in L2 as the cycle leaves them),
      and each kernel's device time (`device_ms`: the same calls queued
@@ -218,9 +219,36 @@ count adds the launches a replay makes:
      decisions, counts and the fleet and federation blocks equal, and
      the card's decisions equal to the same storm re-run with the dense
      Scheduler. Prints each part's wall seconds;
+ 18. the latency predictor on the card: (a) the MLP's forward,
+     predictor_score_fn at 1024 x 256 and 1024 x 1024 and one AdamW step
+     against the CPU port from the same params and batch (rtol 1e-2 for
+     the column, the step's loss within 1e-3 and its params within
+     2 * lr), the column's device time beside its bound; (b) in both kernel
+     configurations of phases 3-4, at 1024 x 256 and 1024 x 1024, the
+     lattice warmed, then 5 carried waves through the captured cycle with
+     the latency column at weight 1.0 (S = 7 on the blend-top-k path),
+     each replayed on a CPU Scheduler from the same state with the same
+     noise and the card's column as a fixed column (statuses exact,
+     primaries as phase 3 compares them, exact rows counted), one kernel
+     launch a wave, no capture after the warm, set_predictor_params
+     between waves 2 and 3 changing the next replay's column without a
+     capture; pick_async's host time, wall time per wave and graph pool
+     bytes beside the same waves without the column; (c) the trained TPOT
+     head steering every pd decode pick to the fast slot; (d) the runner
+     main() builds with --enable-predictor over 256 stub pods whose
+     clients pace their answers per pod (a quarter 4x slower) and send SSE
+     bodies, one stream in four with an SLO header: every stream answered
+     or SLO-shed with 429, the train loop run, the column phased in, no
+     capture after the warm-up, the load back to 0, the share of picks on
+     slow pods per round, an autoscale probe reading, and a restart
+     resuming the checkpoint's confidence; (e) the predictor section of a
+     digest installed bit-equal between two ReplicationManagers with
+     trainers on the card; (f) the simulator's online-training scenario
+     with the predictor on the card (loss < 1.0, goodput above 1.2x
+     least-kv's). Prints each part's wall seconds;
  11. the `kernels` line: launches on the main path (phases 3-6, 8, 9, 12,
-     13, 14, 15, 16 and 17, replays counted; phase 15's promoted server
-     and phase 16's east report their own), error, times, bound.
+     13, 14, 15, 16, 17 and 18, replays counted; phase 15's promoted
+     server and phase 16's east report their own), error, times, bound.
 Then the card's name and power limit (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}. Every listener the script starts takes its
 port from free_port(), which draws below Linux's ephemeral range, so no
@@ -358,7 +386,7 @@ def topk_inputs(s, n, m, seed, dev):
         mask[5] = False
         mask[6] = False
         mask[6, [3, m - 1]] = True
-    wvec = torch.tensor([2.0, 1.0, 1.5, 4.0, 8.0, 1.0][:s], device=dev)
+    wvec = torch.tensor([2.0, 1.0, 1.5, 4.0, 8.0, 1.0, 1.0][:s], device=dev)
     return (torch.from_numpy(stacked).to(dev), wvec,
             torch.from_numpy(mask).to(dev))
 
@@ -445,8 +473,9 @@ def phase_kernels(dev) -> dict:
         emit({"phase": "kernel", **rec})
         records.setdefault("fused_sinkhorn_plan", rec)
 
-    s = 6
-    for m in (M, 1024):
+    # (6, N, M) and (6, N, 1024): the blend of phase 4's profile; (7, N, M):
+    # the latency predictor's column joins it (phase 18).
+    for s, m in ((6, M), (6, 1024), (7, M)):
         err = check_topk(s, N, m, dev)
         stacked, wvec, mask = topk_inputs(s, N, m, seed=m, dev=dev)
 
@@ -467,6 +496,8 @@ def phase_kernels(dev) -> dict:
                "library_ms": library_ms}
         emit({"phase": "kernel", **rec})
         records.setdefault("fused_blend_topk", rec)
+        if s == 7:
+            records["fused_blend_topk_s7"] = rec
     return records
 
 
@@ -1560,12 +1591,12 @@ def fleet_cluster(pool_name: str, ips, port: int):
     return cluster
 
 
-def stream_frames(w: int, i: int, band: str = ""):
+def stream_frames(w: int, i: int, band: str = "", extra=()):
     """Stream i of round w as Envoy sends it: request headers (the body
     follows; with `band`, the objective header names that criticality
-    band), the JSON body of the north-star mix, and -> the response
-    headers frame echoing the served endpoint. -> (headers, body,
-    response_headers(hostport), prompt)."""
+    band; `extra` adds (name, bytes) headers), the JSON body of the
+    north-star mix, and -> the response headers frame echoing the served
+    endpoint. -> (headers, body, response_headers(hostport), prompt)."""
     from gie_tpu_torch.extproc import envoy, metadata as md, pb
 
     prompt = (BASE % ((i + w) % 16)) * 6 + b"user question %d" % (i + N * w)
@@ -1581,7 +1612,8 @@ def stream_frames(w: int, i: int, band: str = ""):
         pb.HeaderValue(key=md.FLOW_FAIRNESS_ID_KEY,
                        raw_value=b"tenant-%d" % (i % 4))]
         + ([pb.HeaderValue(key=md.OBJECTIVE_KEY, raw_value=band.encode())]
-           if band else []))
+           if band else [])
+        + [pb.HeaderValue(key=k, raw_value=v) for k, v in extra])
     headers = pb.ProcessingRequest(request_headers=pb.HttpHeaders(
         headers=hmap, end_of_stream=False)).SerializeToString()
     body_frame = pb.ProcessingRequest(request_body=pb.HttpBody(
@@ -2428,13 +2460,14 @@ def pd_roles(n: int, seed: int = 12) -> np.ndarray:
                       + [int(Role.BOTH)] * 2, n).astype(np.int32)
 
 
-def timed_waves(dev, cfg, weights, eps, waves) -> dict:
-    """pick_async's host time and the wall time per wave of `cfg` over
-    `waves`, chained, on a fresh Scheduler whose key is captured first."""
+def timed_waves(dev, cfg, weights, eps, waves, **sched_kw) -> dict:
+    """pick_async's host time, the wall time per wave of `cfg` over
+    `waves`, chained, on a fresh Scheduler (built with `sched_kw`) whose
+    key is captured first, and the bytes its graphs' pools hold."""
     from gie_tpu_torch import ops
     from gie_tpu_torch.sched import Scheduler
 
-    sched = Scheduler(cfg, weights, device=dev, seed=12)
+    sched = Scheduler(cfg, weights, device=dev, seed=12, **sched_kw)
     with ops.tally({}):            # timing launches are not the main path's
         sched.pick(waves[0], eps)
 
@@ -2443,8 +2476,11 @@ def timed_waves(dev, cfg, weights, eps, waves) -> dict:
             return pending, pending.event
 
         host, wall, _ = run_waves(dispatch, waves)
+    pools = pool_bytes()
     return {"pick_async_host_ms_median": statistics.median(host),
-            "wall_ms_per_wave": wall}
+            "wall_ms_per_wave": wall,
+            "graph_pool_bytes": sum(pools.get(tuple(g.graph.pool()), 0)
+                                    for g in sched._graphs.values())}
 
 
 def score_tolerance(sinkhorn: bool):
@@ -4713,6 +4749,698 @@ def phase_fleet(dev, cfg, weights, kernels, tmp) -> dict:
     return summary
 
 
+# -- phase 18: the latency predictor on the card ----------------------------
+
+PRED_SEED = 18
+# Card against CPU, the MLP and its column: rtol. Both round to bf16 after
+# each op of the hidden layers, but cuBLAS sums the bf16 products in
+# another order than the CPU's GEMM, so a hidden unit may land one bf16
+# ulp (2**-8 relative) apart and carry that into the output.
+PRED_RTOL = 1e-2
+PRED_LR = 1e-3             # LatencyPredictorConfig's learning rate
+PRED_SLO_MS = 200.0        # (d)'s x-gateway-inference-ttft-slo-ms
+PRED_FRAMES = 6            # (d)'s SSE token frames a stream
+PRED_ROUNDS = (-1, 0, 1)   # (d): warm-up (the column at 0), then two rounds
+
+
+def pred_delays(n: int = M, seed: int = PRED_SEED):
+    """(d)'s per-pod latency table: (seconds to response headers, seconds
+    between token frames) of pod i, a quarter of the pods 4x slower."""
+    rng = np.random.default_rng(seed)
+    slow = np.zeros(n, bool)
+    slow[rng.choice(n, n // 4, replace=False)] = True
+    scale = np.where(slow, 4.0, 1.0)
+    return (rng.uniform(0.05, 0.1, n) * scale,
+            rng.uniform(0.002, 0.004, n) * scale, slow)
+
+
+def pod_index(hostport: str) -> int:
+    """The pod of a fleet_ips address."""
+    a, b = hostport.split(":")[0].split(".")[2:4]
+    return int(a) * 200 + int(b) - 1
+
+
+def pred_has_slo(i: int) -> bool:
+    return i % 4 == 3
+
+
+async def pred_aio_stream(method, w, i):
+    """aio_stream's exchange as a model server paced by pred_delays answers
+    it: one stream in four carries x-gateway-inference-ttft-slo-ms; the
+    response headers follow the served pod's TTFT, then an SSE body of
+    PRED_FRAMES token frames (and the [DONE] sentinel), a frame each TPOT.
+    -> (destination or "<code>", pick s, stream s)."""
+    import asyncio
+
+    import grpc
+
+    from gie_tpu_torch.extproc import metadata as md, pb
+
+    ttft, tpot, _ = pred_delays()
+    extra = ([(md.TTFT_SLO_MS_KEY, b"%d" % PRED_SLO_MS)]
+             if pred_has_slo(i) else [])
+    headers, body, response_headers, _ = stream_frames(w, i, extra=extra)
+    t0 = time.perf_counter()
+    call = method(timeout=STREAM_TIMEOUT_S)
+    await call.write(headers)
+    await call.write(body)
+    first = await call.read()
+    t_pick = time.perf_counter() - t0
+    if first is grpc.aio.EOF:
+        raise RuntimeError(f"stream ended with no response: "
+                           f"{await call.code()}")
+    resp = pb.ProcessingResponse.FromString(first)
+    if resp.WhichOneof("response") == "immediate_response":
+        dest = f"<{resp.immediate_response.status.code}>"
+    else:
+        dest = destination(first)
+        await call.read()                       # the request-body response
+        if dest is not None:
+            pod = pod_index(dest.split(",")[0])
+            await asyncio.sleep(float(ttft[pod]))
+            await call.write(response_headers(dest.split(",")[0]))
+            await call.read()                   # the response-headers response
+            frames = [b'data: {"token": %d}\n\n' % k
+                      for k in range(PRED_FRAMES)] + [b"data: [DONE]\n\n"]
+            for k, data in enumerate(frames):
+                if k:
+                    await asyncio.sleep(float(tpot[pod]))
+                await call.write(pb.ProcessingRequest(
+                    response_body=pb.HttpBody(
+                        body=data, end_of_stream=k == len(frames) - 1)
+                ).SerializeToString())
+                await call.read()
+    await call.done_writing()
+    while await call.read() is not grpc.aio.EOF:
+        pass
+    return dest, t_pick, time.perf_counter() - t0
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(((got.cpu().double() - want.cpu().double()).abs()
+                  / want.cpu().double().abs().clamp(min=1e-30)).max())
+
+
+def pred_column(dev) -> dict:
+    """(a): the MLP forward, predictor_score_fn at N x M and N x 1024 and
+    one train step on the card against the CPU port from the same params
+    and batch; the column's device time beside its bound and the plain
+    version's (the same torch ops on the CPU)."""
+    from gie_tpu_torch import convert
+    from gie_tpu_torch.models.latency import (
+        LatencyPredictor, make_optimizer, make_train_step, predictor_score_fn)
+    from gie_tpu_torch.sched import constants as C
+    from gie_tpu_torch.sched.types import RequestBatch
+
+    p = LatencyPredictor()
+    params_cpu = p.init(seed=PRED_SEED)
+    params = {k: v.to(dev) for k, v in params_cpu.items()}
+    rng = np.random.default_rng(PRED_SEED)
+    feats = rng.uniform(size=(N, M, 8)).astype(np.float32)
+    slots = rng.integers(0, C.M_MAX + 1, (N, M))
+    fwd = rel_err(p.predict(params, feats, slots),
+                  p.predict(params_cpu, feats, slots))
+    check(fwd <= PRED_RTOL, f"predictor forward: rel err {fwd} > {PRED_RTOL}")
+    fn = predictor_score_fn(p)
+    columns = {}
+    for m in (M, 1024):
+        eps, wave = workload(dev, m)
+        reqs = wave(0)
+        load = torch.from_numpy(rng.uniform(0, 40, m).astype(np.float32))
+        eps_cpu = convert.endpoints_from_numpy(
+            convert.endpoints_to_numpy(eps), device="cpu")
+        reqs_cpu = RequestBatch(**{f.name: getattr(reqs, f.name).cpu()
+                                   for f in dataclasses.fields(RequestBatch)})
+        load_dev = load.to(dev)
+        col = fn(params, reqs, eps, load_dev)
+        t0 = time.perf_counter()
+        col_cpu = fn(params_cpu, reqs_cpu, eps_cpu, load)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        err = rel_err(col, col_cpu)
+        check(err <= PRED_RTOL and bool(torch.isfinite(col).all()),
+              f"predictor column {N}x{m}: rel err {err} > {PRED_RTOL}")
+        rows = N * m
+        flops = 2 * rows * (16 * 128 + 128 * 128 + 128 * 2)
+        # Operations at the bf16 tensor-core peak (the hidden layers run
+        # in bf16); bytes: the inputs read once (the grid's features come
+        # from [N] + [M] rows) and the column written once.
+        t_ops = flops / 989e12 * 1e3
+        t_bytes = (N * 16 + m * 32 + rows * 4) / HBM_BYTES_PER_S * 1e3
+        columns[f"{N}x{m}"] = {
+            "max_rel_err": err, "ms": cuda_ms(
+                lambda: fn(params, reqs, eps, load_dev), reps=5, trials=3),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "gflop": flops / 1e9, "cpu_plain_ms_one_run": cpu_ms}
+    step = make_train_step(p)
+    batch = [torch.from_numpy(a) for a in (
+        rng.uniform(size=(256, 8)).astype(np.float32),
+        rng.integers(0, C.M_MAX + 1, 256),
+        rng.uniform(0, 2, (256, 2)).astype(np.float32),
+        (rng.uniform(size=(256, 2)) < 0.7).astype(np.float32))]
+    out = []
+    for where in (dev, torch.device("cpu")):
+        module = p.module(PRED_SEED).to(where)
+        loss = step(module, make_optimizer(module, p.cfg),
+                    *[t.to(where) for t in batch])
+        out.append((float(loss), {k: v.cpu() for k, v in
+                                  module.state_dict().items()}))
+    (l_dev, p_dev), (l_cpu, p_cpu) = out
+    loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
+    diffs = torch.cat([(p_dev[k] - p_cpu[k]).abs().reshape(-1)
+                       for k in p_cpu])
+    close = float((diffs <= 1e-5).double().mean())
+    check(loss_err <= 1e-3 and float(diffs.max()) <= 2 * PRED_LR + 1e-5
+          and close >= 0.99,
+          f"predictor train step: loss err {loss_err}, max param diff "
+          f"{float(diffs.max())}, {close} within 1e-5")
+    rec = {"phase": "predictor-column", "rtol": PRED_RTOL,
+           "forward_max_rel_err": fwd, "columns": columns,
+           "train_step": {"loss_rel_err": loss_err,
+                          "param_max_abs_diff": float(diffs.max()),
+                          "param_share_within_1e-5": close}}
+    emit(rec)
+    return rec
+
+
+def pred_cycle(dev, name, cfg, weights, kernels, own, m) -> dict:
+    """(b) at N x m: the lattice warmed, then WAVES carried waves through
+    the captured cycle with the latency column at weight 1.0, each replayed
+    on a CPU Scheduler from the same state with the same noise and the
+    card's column (read from the replay's static output) as a fixed
+    column: statuses exact, primaries as phase 3 compares them, the exact
+    rows counted; set_predictor_params between waves 2 and 3 changes the
+    next replay's column and captures nothing; then pick_async's host
+    time, the wall time per wave and the graphs' pool bytes beside the
+    same waves without the column."""
+    from gie_tpu_torch import convert
+    from gie_tpu_torch.models.latency import LatencyPredictor, predictor_score_fn
+    from gie_tpu_torch.sched import Scheduler
+    from gie_tpu_torch.sched.profile import _batch_to_device, gumbel_noise
+    from gie_tpu_torch.sched.types import RequestBatch, Weights, pad_requests
+
+    p = LatencyPredictor()
+    column = predictor_score_fn(p)
+    probe = {}
+
+    def fn(params, reqs, eps, load):
+        col = column(params, reqs, eps, load)
+        probe[tuple(col.shape)] = col     # in a capture: the static output
+        return col
+
+    fixed = {}
+    w_lat = (weights or Weights.default()).replace(latency=1.0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(PRED_SEED)
+    drawn = []
+
+    def noise(shape):
+        drawn.append(gumbel_noise(shape, gen, dev))
+        return drawn[-1]
+
+    gpu = Scheduler(cfg, w_lat, device=dev, noise_source=noise,
+                    predictor_fn=fn, predictor_params=p.init(PRED_SEED))
+    cpu = Scheduler(cfg, w_lat, device="cpu",
+                    noise_source=lambda shape: drawn[-1].cpu(),
+                    predictor_fn=lambda *a: fixed["col"])
+    for s in (gpu, cpu):
+        check(s.gate_latency_column(1.0) == 1.0,
+              f"predictor {name}: the gate did not open")
+    eps, wave = workload(dev, m)
+    eps_cpu = convert.endpoints_from_numpy(convert.endpoints_to_numpy(eps),
+                                           device="cpu")
+    valid = eps.valid.cpu().numpy()
+    waves = [wave(w) for w in range(WAVES + PD_TIMED_WAVES)]
+    lanes = int(waves[0].chunk_hashes.shape[1])
+    t0 = time.perf_counter()
+    thread = gpu.warm_lattice_async(m, lanes)
+    thread.join(600)
+    warm_s = time.perf_counter() - t0
+    check(not thread.is_alive() and not gpu._warm_failures,
+          f"predictor {name} m={m}: the lattice did not warm: "
+          f"{gpu._warm_failures}")
+    graphs, inline = len(gpu._graphs), gpu.warm_inline_compiles
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    exact = rows = allowed = 0
+    handoff = None
+    for w in range(WAVES):
+        reqs = waves[w]
+        if w == 3:
+            new = p.init(PRED_SEED + 1)
+            gpu.set_predictor_params(new)
+            check(len(gpu._graphs) == graphs,
+                  f"predictor {name}: the handoff captured a graph")
+        start = gpu.export_state()
+        cpu.install_state(start)
+        res = gpu.pick(reqs, eps)
+        col = probe[(N, m)].cpu()
+        if w == 3:
+            load = torch.from_numpy(start["assumed_load"]).to(dev)
+            dreqs = pad_requests(_batch_to_device(reqs, dev), N)
+            want = column({k: v.to(dev) for k, v in new.items()}, dreqs,
+                          eps, load)
+            old = column({k: v.to(dev) for k, v in
+                          p.init(PRED_SEED).items()}, dreqs, eps, load)
+            handoff = {"new_params_rel_err": rel_err(col, want),
+                       "old_params_max_abs_diff": float(
+                           (col - old.cpu()).abs().max())}
+            check(handoff["new_params_rel_err"] <= 1e-3
+                  and handoff["old_params_max_abs_diff"] > 1e-2,
+                  f"predictor {name}: the replay after the handoff did not "
+                  f"read the new params: {handoff}")
+        fixed["col"] = col
+        ref = cpu.pick(RequestBatch(**{
+            f.name: getattr(reqs, f.name).cpu()
+            for f in dataclasses.fields(RequestBatch)}), eps_cpu)
+        check(kernels[own].launches == w + 1,
+              f"predictor {name}: {kernels[own].launches} launches after "
+              f"{w + 1} waves")
+        differ = compare_primaries(res, ref, valid, f"predictor {name}", m=m)
+        exact += int((res.indices == ref.indices).all(axis=1).sum())
+        allowed += int(differ.sum())
+        rows += len(differ)
+        complete_half(gpu, res, reqs)
+    launches = {k: fn_.launches for k, fn_ in kernels.items()}
+    check(len(gpu._graphs) == graphs and gpu.warm_inline_compiles == inline,
+          f"predictor {name}: a wave captured after the lattice warm")
+    timed = waves[WAVES:]
+    timing = {
+        "column": timed_waves(dev, cfg, w_lat, eps, timed, predictor_fn=column,
+                              predictor_params=p.init(PRED_SEED)),
+        "no_column": timed_waves(dev, cfg, weights, eps, timed)}
+    rec = {"phase": "predictor-cycle", "config": name, "shape": [N, m],
+           "waves": WAVES, "lattice_warm_s": warm_s, "launches": launches,
+           "launches_per_wave": launches[own] / WAVES,
+           "rows_exact": exact, "rows": rows, "differ_within_gap": allowed,
+           "inline_after_warm": gpu.warm_inline_compiles - inline,
+           "handoff": handoff, "timing": timing}
+    emit(rec)
+    return rec
+
+
+def pred_pd(dev, kernels) -> dict:
+    """(c): tests/test_tpot_training.py's pd case on the card: a trainer on
+    the card learns that slot 0 decodes fast and slot 1 slowly (equal
+    metrics, only the slot embedding tells them apart), and every decode
+    pick of the captured pd cycle (topk + use_pallas_topk, the prefill
+    pick's blend-top-k with the column at S = 5) goes to slot 0."""
+    from gie_tpu_torch.models.latency import (
+        NUM_FEATURES, LatencyPredictor, OnlineTrainer, predictor_score_fn)
+    from gie_tpu_torch.sched import ProfileConfig, Scheduler
+    from gie_tpu_torch.sched import constants as C
+    from gie_tpu_torch.sched.types import Weights
+    from gie_tpu_torch.utils.testing import make_endpoints, make_requests
+
+    predictor = LatencyPredictor()
+    trainer = OnlineTrainer(predictor, batch_size=64, device=dev)
+    feats = np.zeros((NUM_FEATURES,), np.float32)
+    rng = np.random.default_rng(0)
+    for _ in range(256):
+        trainer.observe(feats, 0.1, 0.01 + rng.normal(0, 1e-4), slot=0)
+        trainer.observe(feats, 0.1, 0.20 + rng.normal(0, 1e-4), slot=1)
+    t0 = time.perf_counter()
+    for _ in range(60):
+        trainer.train(steps=5)
+    train_s = time.perf_counter() - t0
+    pred = predictor.predict(trainer.params, np.stack([feats, feats]),
+                             np.asarray([0, 1])).cpu().numpy()
+    check(pred[0, 1] < pred[1, 1], f"pd: TPOT head did not separate: {pred}")
+    cfg = ProfileConfig(pd_disaggregation=True, enable_prefix=False,
+                        enable_session=False, picker="topk",
+                        use_pallas_topk=True)
+    sched = Scheduler(cfg, Weights.default().replace(latency=2.0),
+                      device=dev, predictor_fn=predictor_score_fn(predictor),
+                      predictor_params=trainer.params)
+    sched.gate_latency_column(1.0)
+    eps = make_endpoints(4, queue=[0] * 4, kv=[0.1] * 4,
+                         role=[int(C.Role.DECODE)] * 2
+                         + [int(C.Role.PREFILL)] * 2, m_slots=64)
+    reqs = make_requests(8, prompt_len=[2048.0] * 8, m_slots=64)
+    reqs = reqs.replace(decode_len=torch.full((8,), 4096.0))
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    res = sched.pick(reqs, eps)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    check(bool((res.indices[:, 0] == 0).all()),
+          f"pd: decode picks ignored the trained TPOT column: "
+          f"{res.indices[:, 0]}")
+    check(launches["fused_blend_topk"] == 1,
+          f"pd: {launches} launches for one wave")
+    rec = {"phase": "predictor-pd", "tpot_pred_s": pred[:, 1].tolist(),
+           "train_300_steps_s": train_s, "decode_picks": res.indices[:, 0]
+           .tolist(), "launches": launches}
+    emit(rec)
+    return rec
+
+
+def pred_runner(dev, kernels, tmp) -> dict:
+    """(d): the runner main() builds from argv with --enable-predictor
+    --predictor-train-interval-s 1 --predictor-checkpoint-dir, phase 6's
+    profile (tuned + use_pallas_sinkhorn) at weights.latency 1.0,
+    --autoscale-mode recommend --autoscale-ttft-slo-ms 500, over M stub
+    pods, whose clients answer as pred_delays paces them (a quarter of the
+    pods 4x slower) with an SSE body, one stream in four carrying
+    x-gateway-inference-ttft-slo-ms. A warm-up round (the column at 0),
+    then rounds after the latency weight rose: every stream answered on a
+    ready pod or SLO-shed with 429, observed_total grown by at least the
+    streams served, the train loop run, no inline capture after the warm,
+    one Sinkhorn launch a wave, the assumed load back to 0, the share of
+    picks on slow pods per round, a probe reading, and a second start from
+    the checkpoint resuming its confidence; and the trained heads'
+    predictions for the fast and the slow pods."""
+    need_transport()
+    import multiprocessing
+
+    from gie_tpu_torch.runtime import metrics as own_metrics
+    from gie_tpu_torch.runtime.runner import ExtProcServerRunner
+    from gie_tpu_torch.sched.config import tuned_profile
+
+    cfg, weights = tuned_profile()
+    cfg = dataclasses.replace(cfg, use_pallas_sinkhorn=True)
+    weights = weights.replace(latency=1.0)
+    _, _, slow = pred_delays()
+    ckpt = f"{tmp}/predictor"
+    ctx = multiprocessing.get_context("spawn")
+    stop, ready = ctx.Event(), ctx.Queue()
+    procs = [ctx.Process(target=stub_fleet_process, args=(M, 0, ready, stop),
+                         daemon=True)]
+    procs[0].start()
+    runner = again = None
+    per_round = {}
+    try:
+        fleet_port = ready.get(timeout=120)
+        argv = ["--insecure-serving",
+                "--scheduler-config", write_scheduler_config(cfg, weights, tmp),
+                "--enable-predictor", "--predictor-train-interval-s", "1",
+                "--predictor-checkpoint-dir", ckpt,
+                "--autoscale-mode", "recommend",
+                "--autoscale-ttft-slo-ms", "500",
+                "--pool-name", "smoke", "--grpc-port", str(free_port()),
+                "--grpc-health-port", str(free_port()),
+                "--metrics-port", str(free_port()),
+                "--extproc-workers", str(EXTPROC_WORKERS),
+                "--scrape-interval-ms", str(SCRAPE_INTERVAL_MS)]
+        cluster = fleet_cluster("smoke", fleet_ips(M), fleet_port)
+        runner = ExtProcServerRunner(server_options(argv), cluster)
+        sched, trainer = runner.scheduler, runner.trainer
+        check(trainer is not None and trainer.device.type == "cuda"
+              and sched.device.type == "cuda"
+              and sched.predictor_fn is not None
+              and sched.base_latency_weight == 1.0
+              and sched.weights.latency == 0.0,
+              f"predictor runner: trainer {trainer}, column "
+              f"{sched.predictor_fn}, weights {sched.weights}")
+        runner.setup()
+        runner.start()
+        slots = [ep.slot for ep in runner.datastore.endpoints()]
+        check(len(slots) == M, f"predictor runner: {len(slots)} of {M}")
+        deadline = time.monotonic() + 60
+        while True:
+            _, ages = runner.metrics_store.pool_rows(slots)
+            if bool(np.isfinite(ages).all()) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        barrier, results = ctx.Barrier(CLIENTS + 1), ctx.Queue()
+        for k in range(CLIENTS):
+            procs.append(ctx.Process(
+                target=client_process,
+                args=(runner.grpc_server.port, CHANNELS // CLIENTS,
+                      list(PRED_ROUNDS), k, STREAMS_PER_ROUND, barrier,
+                      results, pred_aio_stream), daemon=True))
+            procs[-1].start()
+        live = {ep.hostport for ep in runner.datastore.endpoints()}
+        served = 0
+        for w in PRED_ROUNDS:
+            weight_at_start = sched.weights.latency
+            if w == 0:
+                for t in runner.picker._warm_threads:
+                    t.join(300)
+                # The column phases in once the trainer has trained.
+                deadline = time.monotonic() + 60
+                while (sched.weights.latency == 0.0
+                       and time.monotonic() < deadline):
+                    time.sleep(0.1)
+                weight_before = sched.weights.latency
+                check(trainer.last_loss is not None and weight_before > 0.0,
+                      f"predictor runner: the latency weight stayed at 0 "
+                      f"(last loss {trainer.last_loss})")
+                inline = sched.warm_inline_compiles
+                observed0 = trainer._observed_total
+                torch.cuda.synchronize()
+                for fn in kernels.values():
+                    fn.launches = 0
+                waves0 = own_metrics.PIPELINE_WAVES.value()
+            t0 = time.monotonic()
+            barrier.wait(600)
+            got = [results.get(timeout=900) for _ in range(CLIENTS)]
+            outcomes = [o for g in got for o in g[1]]
+            errs = [o[4] for o in outcomes if o[4]]
+            check(not errs, f"predictor runner round {w}: {len(errs)} "
+                            f"streams failed, first: {errs[:1]}")
+            dests = [o[1].split(",")[0] for o in outcomes
+                     if o[1] is not None and not o[1].startswith("<")]
+            shed = [o for o in outcomes if o[1] == "<429>"]
+            check(len(dests) + len(shed) == STREAMS_PER_ROUND
+                  and all(d in live for d in dests)
+                  and all(pred_has_slo(o[0]) for o in shed),
+                  f"predictor runner round {w}: {len(dests)} answered, "
+                  f"{len(shed)} shed of {STREAMS_PER_ROUND}")
+            if w >= 0:
+                served += len(dests)
+            per_round[str(w)] = {
+                "answered": len(dests), "slo_shed": len(shed),
+                "slow_pod_share": float(np.mean(
+                    [slow[pod_index(d)] for d in dests])),
+                "latency_weight_at_start": weight_at_start,
+                "latency_weight_at_end": sched.weights.latency,
+                "wall_s": time.monotonic() - t0}
+        waves = int(own_metrics.PIPELINE_WAVES.value() - waves0)
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        check(launches["fused_sinkhorn_plan"] == waves >= 1,
+              f"predictor runner: {launches} launches for {waves} waves")
+        check(sched.warm_inline_compiles == inline,
+              f"predictor runner: {sched.warm_inline_compiles - inline} "
+              "inline captures after the warm-up round")
+        grown = trainer._observed_total - observed0
+        check(grown >= served,
+              f"predictor runner: observed_total grew by {grown} for "
+              f"{served} served streams")
+        deadline = time.monotonic() + 10
+        while True:
+            load = sched.snapshot_assumed_load()
+            if float(np.abs(load).max()) <= 1e-5 or (
+                    time.monotonic() > deadline):
+                break
+            time.sleep(0.1)
+        check(float(np.abs(load).max()) <= 1e-5,
+              f"predictor runner: assumed load {float(load.max())} left "
+              "after the bursts")
+        probe = runner._autoscale_ttft_probe()
+        check(probe is not None and np.isfinite(probe[0]) and probe[1] == 0.5,
+              f"predictor runner: the autoscale probe read {probe}")
+        heads = pred_heads(runner, slow)
+        for t in runner.picker._warm_threads:
+            t.join(300)
+        runner.stop()
+        confidence = trainer.confidence()
+        again = ExtProcServerRunner(server_options(argv), cluster)
+        resumed = again.trainer.confidence()
+        check(resumed > 0.0 and again.scheduler.weights.latency > 0.0,
+              f"predictor runner: the restart resumed confidence {resumed}")
+    finally:
+        stop.set()
+        for r in (runner, again):
+            if r is not None:
+                r.stop()
+        for proc in procs:
+            proc.join(30)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    rec = {"phase": "predictor-runner", "rounds": per_round, "waves": waves,
+           "launches": launches, "observed_growth": grown,
+           "served": served, "last_loss": trainer.last_loss,
+           "latency_weight_at_phase_in": weight_before,
+           "confidence_at_stop": confidence,
+           "confidence_after_restart": resumed,
+           "autoscale_probe": list(probe), "predicted_heads": heads}
+    emit(rec)
+    return rec
+
+
+def pred_heads(runner, slow) -> dict:
+    """The trained heads on the runner's live rows: mean predicted TTFT,
+    TPOT and request latency (at the streams' 128-token decode hint) of
+    the fast and of the slow pods."""
+    from gie_tpu_torch.models.latency import host_features
+    from gie_tpu_torch.sched import constants as C
+
+    eps = runner.datastore.local_endpoints()
+    slots = np.asarray([ep.slot for ep in eps])
+    is_slow = np.asarray([slow[pod_index(ep.hostport)] for ep in eps])
+    rows, ages = runner.metrics_store.pool_rows(slots.tolist())
+    rows[:, C.Metric.METRICS_AGE_S] = np.clip(
+        np.nan_to_num(ages, posinf=1e6), 0.0, 1e6)
+    load = runner.scheduler.snapshot_assumed_load()
+    decode = 128.0 * C.CHARS_PER_TOKEN
+    feats = np.stack([host_features(rows[i], float(load[s]), 1024.0,
+                                    decode, False)
+                      for i, s in enumerate(slots)])
+    trainer = runner.trainer
+    pred = trainer.predictor.predict(trainer.params, feats,
+                                     slots).cpu().numpy()
+    out = {}
+    for label, sel in (("fast", ~is_slow), ("slow", is_slow)):
+        ttft, tpot = pred[sel, 0], pred[sel, 1]
+        out[label] = {"ttft_s": float(ttft.mean()),
+                      "tpot_s": float(tpot.mean()),
+                      "latency_s": float((ttft + tpot * decode).mean())}
+    return out
+
+
+def pred_ha(dev) -> dict:
+    """(e): two ReplicationManagers with trainers on the card over loopback:
+    the leader's trainer trained, the follower (its elector names the
+    leader) syncs: its predictor params bit-equal to the leader's, the
+    same confidence(), and its Scheduler's column handed the params."""
+    from gie_tpu_torch.models.latency import (
+        LatencyPredictor, OnlineTrainer, predictor_score_fn)
+    from gie_tpu_torch.replication import (
+        ReplicationManager, follower as follower_mod, replication_identity)
+    from gie_tpu_torch.sched import Scheduler
+    from gie_tpu_torch.sched.types import Weights
+
+    p = LatencyPredictor()
+    leader_t = OnlineTrainer(p, seed=1, batch_size=64, device=dev)
+    follower_t = OnlineTrainer(p, seed=2, device=dev)
+    rng = np.random.default_rng(PRED_SEED)
+    for _ in range(600):
+        f = rng.uniform(size=8).astype(np.float32)
+        leader_t.observe(f, 0.1 + f[3], 0.01 + 0.05 * f[4],
+                         slot=int(rng.integers(0, 256)))
+    for _ in range(5):
+        leader_t.train(steps=5)
+    weights = Weights.default().replace(latency=1.0)
+    leader = ReplicationManager(
+        scheduler=Scheduler(device=dev), trainer=leader_t, era="leader")
+    sched = Scheduler(weights=weights, device=dev,
+                      predictor_fn=predictor_score_fn(p),
+                      predictor_params=follower_t.params)
+    follower = ReplicationManager(scheduler=sched, trainer=follower_t,
+                                  era="follower")
+    follower.attach_elector(SimpleNamespace(
+        identity="follower", is_leader=lambda: False,
+        holder_identity=lambda: replication_identity(leader.advertise,
+                                                     "leader")))
+    try:
+        now = time.monotonic()
+        check(leader.step(now) == "published", "predictor ha: no publish")
+        outcome = follower.step(now)
+        check(outcome == follower_mod.INSTALLED,
+              f"predictor ha: the follower's sync ended {outcome}")
+        same_export(follower_t.export_state(), leader_t.export_state(),
+                    "predictor ha follower")
+        # The digest carries the loss EMA as f32, as the reference's does.
+        check(abs(follower_t.confidence() - leader_t.confidence())
+              <= 1e-6 * leader_t.confidence() and leader_t.confidence() > 0,
+              f"predictor ha: confidence {follower_t.confidence()} vs "
+              f"{leader_t.confidence()}")
+        check(all(torch.equal(sched.predictor_params[k], leader_t.params[k])
+                  for k in leader_t.params),
+              "predictor ha: the follower's column holds other params")
+    finally:
+        leader.stop()
+        follower.stop()
+    rec = {"phase": "predictor-ha", "confidence": leader_t.confidence(),
+           "install_ms": follower.follower.last_install_s * 1e3,
+           "digest_bytes": leader.publisher.digest_bytes}
+    emit(rec)
+    return rec
+
+
+def pred_sim(dev) -> dict:
+    """(f): tests/test_goodput.py's online-training scenario with the
+    Scheduler and the trainer on the card: last_loss < 1.0 and goodput
+    above 1.2x least-kv's."""
+    from gie_tpu_torch.models.latency import (
+        LatencyPredictor, OnlineTrainer, predictor_score_fn)
+    from gie_tpu_torch.sched import ProfileConfig, Scheduler, Weights
+    from gie_tpu_torch.simulator import StubConfig
+    from gie_tpu_torch.simulator.cluster import SimCluster, WorkloadConfig
+
+    wl = WorkloadConfig(arrival_qps=75.0, n_sessions=64,
+                        system_prompt_bytes=8192, user_suffix_bytes=128,
+                        decode_tokens_mean=32.0, ttft_slo_s=2.5)
+    stub = StubConfig(max_running=8, prefill_tokens_per_s=4000.0,
+                      decode_tokens_per_s=50.0, prefix_cache_chunks=2048)
+    p = LatencyPredictor()
+    trainer = OnlineTrainer(p, batch_size=64, device=dev)
+    sched = Scheduler(
+        ProfileConfig(load_decay=0.95, load_norm=8, queue_norm=16,
+                      picker="sinkhorn"),
+        weights=Weights(queue=2.0, kv_cache=1.0, prefix=4.0, lora=1.0,
+                        assumed_load=1.5, latency=1.0),
+        device=dev, predictor_fn=predictor_score_fn(p),
+        predictor_params=trainer.params)
+    base = SimCluster(n_pods=8, stub_cfg=stub, seed=0).run(
+        "least-kv", wl, duration_s=12.0)
+    t0 = time.perf_counter()
+    stats = SimCluster(n_pods=8, stub_cfg=stub, seed=0).run(
+        "tpu", wl, duration_s=12.0, scheduler=sched, trainer=trainer)
+    wall = time.perf_counter() - t0
+    check(trainer.last_loss is not None and trainer.last_loss < 1.0,
+          f"predictor sim: last loss {trainer.last_loss}")
+    check(stats.goodput_tokens_per_s > base.goodput_tokens_per_s * 1.2,
+          f"predictor sim: goodput {stats.goodput_tokens_per_s} vs "
+          f"least-kv {base.goodput_tokens_per_s}")
+    rec = {"phase": "predictor-sim", "last_loss": trainer.last_loss,
+           "goodput_tokens_per_s": stats.goodput_tokens_per_s,
+           "least_kv_goodput_tokens_per_s": base.goodput_tokens_per_s,
+           "latency_weight": sched.weights.latency, "wall_s": wall}
+    emit(rec)
+    return rec
+
+
+def phase_predictor(dev, cfg, weights, kernels, tmp) -> dict:
+    """Phase 18: (a) the column and a train step card against CPU, (b) the
+    captured cycle with the column in both kernel configurations at 1024 x
+    256 and 1024 x 1024, (c) the pd decode pick steered by the trained
+    TPOT head, (d) the runner under --enable-predictor, (e) HA replication
+    of the predictor, (f) the simulator's online training."""
+    from gie_tpu_torch.sched import ProfileConfig
+
+    t_phase = time.perf_counter()
+    walls, parts = {}, []
+    t0 = time.perf_counter()
+    pred_column(dev)
+    walls["column"] = time.perf_counter() - t0
+    topk_cfg = ProfileConfig(picker="topk", use_pallas_topk=True)
+    for name, c, w, own in (
+            ("tuned+use_pallas_sinkhorn", cfg, weights, "fused_sinkhorn_plan"),
+            ("topk+use_pallas_topk", topk_cfg, None, "fused_blend_topk")):
+        for m in (M, 1024):
+            t0 = time.perf_counter()
+            parts.append(pred_cycle(dev, name, c, w, kernels, own, m))
+            walls[f"cycle {name} {m}"] = time.perf_counter() - t0
+    for label, part in (("pd", lambda: pred_pd(dev, kernels)),
+                        ("runner", lambda: pred_runner(dev, kernels, tmp))):
+        t0 = time.perf_counter()
+        parts.append(part())
+        walls[label] = time.perf_counter() - t0
+    for label, part in (("ha", pred_ha), ("sim", pred_sim)):
+        t0 = time.perf_counter()
+        part(dev)
+        walls[label] = time.perf_counter() - t0
+    launches = {k: sum(p["launches"][k] for p in parts) for k in kernels}
+    summary = {"phase": "predictor", "wall_s": time.perf_counter() - t_phase,
+               "part_wall_s": walls, "launches": launches}
+    emit(summary)
+    return summary
+
+
 def tail(path: str, n: int = 4000) -> str:
     with open(path, errors="replace") as f:
         return f.read()[-n:]
@@ -4799,17 +5527,19 @@ def main() -> int:
         fed = phase_fed(dev, cfg, weights, kernels, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         fleet = phase_fleet(dev, cfg, weights, kernels, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        pred = phase_predictor(dev, cfg, weights, kernels, tmp)
 
     line = []
     for rec, phases, source, replaces in (
         (records["fused_sinkhorn_plan"],
          (sink, pick_sink, serve_sink, chaos_sink, warm_sink, pd_sink,
-          learn, ha, fed, fleet),
+          learn, ha, fed, fleet, pred),
          "gie_tpu_torch/ops/csrc/fused_sinkhorn.cu",
          "gie_tpu/ops/fused_sinkhorn.py:66"),
         (records["fused_blend_topk"],
          (topk, pick_topk, serve_topk, chaos_topk, warm_topk, pd_topk, kv,
-          fleet),
+          fleet, pred),
          "gie_tpu_torch/ops/csrc/fused_topk.cu",
          "gie_tpu/ops/fused_topk.py:80"),
     ):

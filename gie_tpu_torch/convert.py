@@ -126,3 +126,84 @@ def state_to_numpy(state: SchedState) -> dict:
         "rr": _host(state.rr, np.uint32),
         "tick": _host(state.tick, np.uint32),
     }
+
+
+# -- the latency predictor's params ------------------------------------------
+# The reference's flax tree is {"params": {"Embed_0": {"embedding"},
+# "Dense_i": {"kernel" [in, out], "bias"}}}; the port's params are the
+# LatencyMLP state_dict ("Embed_0.weight", "Dense_i.weight" [out, in],
+# "Dense_i.bias").
+
+_FLAX_LEAF = {"weight": "kernel", "bias": "bias"}
+
+
+def _flax_name(name: str) -> tuple[str, str]:
+    module, leaf = name.split(".")
+    return module, ("embedding" if module.startswith("Embed")
+                    else _FLAX_LEAF[leaf])
+
+
+def _port_value(module: str, arr: np.ndarray) -> np.ndarray:
+    """A flax leaf in the port's layout (a Dense kernel transposed)."""
+    return arr.T if module.startswith("Dense") and arr.ndim == 2 else arr
+
+
+def predictor_params_to_numpy(params: Mapping) -> dict:
+    """Port params (tensors or arrays) -> the reference's flax tree of f32
+    numpy arrays, which `LatencyPredictor.predict` of gie_tpu takes."""
+    tree: dict = {}
+    for name, value in params.items():
+        module, leaf = _flax_name(name)
+        arr = (_host(value, np.float32) if torch.is_tensor(value)
+               else np.asarray(value, np.float32))
+        tree.setdefault(module, {})[leaf] = np.ascontiguousarray(
+            _port_value(module, arr))
+    return {"params": tree}
+
+
+def predictor_params_from_numpy(tree: Mapping, *, device) -> dict:
+    """The reference's flax tree (numpy or jax leaves) -> port params, f32
+    tensors on `device`."""
+    out = {}
+    for module, leaves in tree["params"].items():
+        for leaf, value in leaves.items():
+            name = f"{module}.{'bias' if leaf == 'bias' else 'weight'}"
+            arr = _port_value(module, np.asarray(value, np.float32))
+            out[name] = torch.from_numpy(
+                np.array(arr, np.float32, copy=True, order="C")).to(device)
+    return out
+
+
+def flatten_predictor_tree(tree: Mapping, prefix: str) -> dict:
+    """A flax params tree -> {prefix + "['params']['Dense_0']['kernel']":
+    array}, the key strings jax.tree_util.keystr gives its leaves, in
+    jax's (sorted) leaf order."""
+    flat = {}
+    for top in sorted(tree):
+        for module in sorted(tree[top]):
+            for leaf in sorted(tree[top][module]):
+                flat[f"{prefix}['{top}']['{module}']['{leaf}']"] = np.asarray(
+                    tree[top][module][leaf])
+    return flat
+
+
+def predictor_leaves_from_flat(arrays: Mapping, prefix: str,
+                               cfg) -> "dict | None":
+    """Port-layout f32 host params of the MLP `cfg` (a
+    LatencyPredictorConfig) read from flat keys as flatten_predictor_tree
+    writes them; None when a leaf is missing or has another shape (a
+    partly transplanted MLP would predict garbage). Extra keys are
+    ignored."""
+    from gie_tpu_torch.models.latency import param_shapes
+
+    out = {}
+    for name, shape in param_shapes(cfg).items():
+        module, leaf = _flax_name(name)
+        got = arrays.get(f"{prefix}['params']['{module}']['{leaf}']")
+        if got is None:
+            return None
+        arr = _port_value(module, np.asarray(got))
+        if tuple(arr.shape) != shape:
+            return None
+        out[name] = np.ascontiguousarray(arr, np.float32)
+    return out

@@ -56,7 +56,6 @@ from gie_tpu_torch.sched.profile import (
     ProfileConfig,
     Scheduler,
     check_state_shapes,
-    feature_schema,
     scheduling_cycle,
 )
 from gie_tpu_torch.sched.types import (
@@ -135,13 +134,18 @@ def fleet_cycle(
     topk: int,
     wvec: Optional[torch.Tensor] = None,
     coarse_weights=None,
+    predictor_fn=None,
+    predictor_params=None,
 ) -> tuple[PickResult, SchedState]:
     """One hierarchical pick cycle over `state`, updated IN PLACE.
 
     `gumbel` is the dense stage's noise at (N, m_c) ([2, N, m_c] for a
     dual pick); `wvec` the dense blend's weights as the cycle's static
     buffer and `coarse_weights` the COARSE_WEIGHTS fields as 0-d tensors
-    of it, in a captured cycle; both default to `weights`. The cycle makes
+    of it, in a captured cycle; both default to `weights`. A latency
+    column (`predictor_fn`, `predictor_params`) is the dense stage's, over
+    the compressed block with its own lane ids as slot ids, as the
+    reference computes it. The cycle makes
     no call that waits for the device, so it can be captured."""
     fleet_m = int(eps.valid.shape[0])
     k_sel = min(topk, fleet_m // cell_cap)
@@ -178,7 +182,9 @@ def fleet_cycle(
 
     # ---- Dense stage: the UNCHANGED cycle over the block --------------
     res_c, new_c = scheduling_cycle(state_c, reqs_c, eps_c, weights, gumbel,
-                                    cfg=cfg, wvec=wvec)
+                                    cfg=cfg, wvec=wvec,
+                                    predictor_fn=predictor_fn,
+                                    predictor_params=predictor_params)
 
     # ---- Scatter back + remap to global slots -------------------------
     gslots_l = gslots.long()
@@ -295,6 +301,7 @@ class FleetPicker(Scheduler):
         device=None,
         noise_source=None,
         predictor_fn=None,
+        predictor_params=None,
         mesh=None,
         topk: int = 4,
         cell_cap: int = 64,
@@ -315,7 +322,8 @@ class FleetPicker(Scheduler):
         self.fleet_cell_cap = int(cell_cap)
         super().__init__(cfg, weights, seed=seed, device=device,
                          noise_source=noise_source,
-                         predictor_fn=predictor_fn, mesh=mesh)
+                         predictor_fn=predictor_fn,
+                         predictor_params=predictor_params, mesh=mesh)
         # /debugz/fleet counters, fed by the batching completer (host
         # arrays, never under the pick lock): where the final pick landed
         # in its request's candidate list, and per-cell pick tallies.
@@ -353,19 +361,21 @@ class FleetPicker(Scheduler):
         return check_state_shapes(state, cell_cap=self.fleet_cell_cap)
 
     def _graph_schema(self) -> tuple[str, ...]:
-        return feature_schema(self.cfg) + COARSE_WEIGHTS
+        return super()._graph_schema() + COARSE_WEIGHTS
 
     def _run_cycle(self, state, reqs, eps, gumbel, wvec=None):
         dense_w = coarse_w = None
         if wvec is not None:
-            s = len(feature_schema(self.cfg))
+            s = len(super()._graph_schema())
             dense_w = wvec[:s]
             coarse_w = types.SimpleNamespace(**{
                 k: wvec[s + i] for i, k in enumerate(COARSE_WEIGHTS)})
         return fleet_cycle(
             state, reqs, eps, self.weights, gumbel, cfg=self.cfg,
             cell_cap=self.fleet_cell_cap, topk=self.fleet_topk,
-            wvec=dense_w, coarse_weights=coarse_w)
+            wvec=dense_w, coarse_weights=coarse_w,
+            predictor_fn=self.predictor_fn,
+            predictor_params=self.predictor_params)
 
     def _noise_shape(self, n: int, m: int) -> Optional[tuple]:
         # The dense stage draws the wave's noise at its own width.

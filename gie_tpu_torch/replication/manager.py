@@ -22,9 +22,12 @@ the elector's holder identity with the advertised digest address
 the follower side. A deployment that disables replication keeps the plain
 identity and nothing changes on the wire.
 
-The port has no latency predictor yet (its trainer comes with the
-latency-predictor slice): a manager takes no trainer, and a leader's
-"predictor" section is skipped on install as any unknown section is.
+With a trainer (models.latency.OnlineTrainer) the digest carries its
+"predictor" section in the reference's keys (every param leaf of the
+flax tree plus the loss EMA and observed count), so a port follower
+installs a reference leader's section and the reverse; an installed
+section is handed to the scheduler's static param buffers and gates its
+column with the replicated confidence.
 """
 
 from __future__ import annotations
@@ -40,7 +43,6 @@ from gie_tpu_torch.replication.follower import FollowerSync
 from gie_tpu_torch.replication.publisher import ReplicationHTTPServer, StatePublisher
 from gie_tpu_torch.runtime import metrics as own_metrics
 from gie_tpu_torch.runtime.logging import get_logger
-from gie_tpu_torch.sched.profile import _not_ported
 
 _ADDR_SEP = "|"
 
@@ -78,11 +80,8 @@ class ReplicationManager:
         stale_after_s: float = 10.0,
         era: Optional[str] = None,
     ):
-        if trainer is not None:
-            raise _not_ported("replicating a latency-predictor trainer",
-                              "predictor_fn")
         self.scheduler = scheduler
-        self.trainer = None
+        self.trainer = trainer
         self.capacity_model = capacity_model
         self.elector = elector
         self.interval_s = interval_s
@@ -90,6 +89,8 @@ class ReplicationManager:
         self.log = get_logger("replication")
 
         exporters = {"sched": scheduler.export_state}
+        if trainer is not None:
+            exporters["predictor"] = trainer.export_state
         if capacity_model is not None:
             exporters["autoscale"] = capacity_model.export_state
         self.publisher = StatePublisher(exporters, era=era)
@@ -156,12 +157,15 @@ class ReplicationManager:
         scheduler already swapped to the new epoch — a mixed-epoch state
         would be exactly what a promotion then serves. Unknown sections
         are skipped (forward compat: a newer leader may ship state this
-        build has no home for; so is a reference leader's 'predictor'
-        section here)."""
+        build has no home for, as a leader's 'predictor' section is for a
+        follower without a trainer)."""
         handlers = {
             "sched": (self.scheduler.prepare_install,
                       self.scheduler.commit_install),
         }
+        if self.trainer is not None:
+            handlers["predictor"] = (
+                self.trainer.prepare_install, self._commit_predictor)
         if self.capacity_model is not None:
             handlers["autoscale"] = (
                 self.capacity_model.prepare_install,
@@ -181,6 +185,14 @@ class ReplicationManager:
         for commit, prepared in staged:
             commit(prepared)
         return True
+
+    def _commit_predictor(self, staged) -> None:
+        self.trainer.commit_install(staged)
+        # A cycle that binds the column must see the replicated weights,
+        # gated by the replicated confidence.
+        if getattr(self.scheduler, "predictor_fn", None) is not None:
+            self.scheduler.set_predictor_params(self.trainer.params)
+            self.scheduler.gate_latency_column(self.trainer.confidence())
 
     # -- health ------------------------------------------------------------ #
 

@@ -22,10 +22,16 @@ loop (--autoscale-mode recommend), and so is multi-cluster federation
 with every peer, imported peer endpoints in the slot space, the spill
 policy in the picker, /debugz/federation), and so is the fleet picker
 (--fleet-topk, --fleet-cell-cap: the hierarchical two-level pick of
-gie_tpu_torch/fleet, /debugz/fleet). Subsystems that later slices of the
-port bring are refused at construction with the port's not-ported error,
-never skipped silently (`refuse_out_of_slice`): the multi-device mesh
-(--mesh-devices), the latency predictor (--enable-predictor), and the
+gie_tpu_torch/fleet, /debugz/fleet), and so is the latency predictor
+(--enable-predictor: an OnlineTrainer on the scheduler's device fed by
+served and response-complete feedback, SLO admission in the picker, a
+train thread that hands its params to the scheduler and phases the
+column in, --predictor-checkpoint-dir, the autoscale loop's TTFT probe
+and the replication digest's "predictor" section; the cycle binds the
+column only when --scheduler-config gives weights.latency > 0).
+Subsystems that later slices of the port bring are refused at
+construction with the port's not-ported error, never skipped silently
+(`refuse_out_of_slice`): the multi-device mesh (--mesh-devices), and the
 kube slice's actuation (--autoscale-mode apply) and Lease elector
 (--leader-elect over a kube cluster client; main refuses --kube itself).
 """
@@ -101,7 +107,6 @@ def refuse_out_of_slice(opts: Options, cluster=None) -> None:
          "--leader-elect on a kube Lease (KubeLeaseElector)", "kube"),
         (opts.autoscale_mode == "apply", "--autoscale-mode apply", "kube"),
         (opts.mesh_devices > 1, "--mesh-devices", "mesh"),
-        (opts.enable_predictor, "--enable-predictor", "predictor_fn"),
     )
     for refused, what, key in refusals:
         if refused:
@@ -120,6 +125,9 @@ class ExtProcServerRunner:
         self.log = get_logger("runner")
         self.cluster = cluster
         self.lora_registry = LoraRegistry()
+        # The latency predictor's online trainer (--enable-predictor);
+        # None with an injected scheduler, as in the reference.
+        self.trainer = None
         # gie-learn: the loaded policy artifact (--scorer learned), for
         # /debugz/policy and gie_policy_info.
         self.policy_artifact = None
@@ -139,7 +147,8 @@ class ExtProcServerRunner:
                 # exponents replace the weights wholesale (absent columns
                 # at 0.0, the multiplicative no-op).
                 art = artifact_mod.load_artifact(opts.policy_artifact)
-                artifact_mod.validate_feature_schema(art, feature_schema(cfg))
+                artifact_mod.validate_feature_schema(art, feature_schema(
+                    cfg, has_predictor=opts.enable_predictor))
                 cfg = dataclasses.replace(cfg, scorer="learned")
                 weights = weights_from_mapping(
                     artifact_mod.artifact_weight_values(art))
@@ -150,6 +159,33 @@ class ExtProcServerRunner:
                     columns=list(art["feature_schema"]),
                     promoted=bool(
                         (art.get("judgment") or {}).get("promote")))
+            predictor_fn = predictor_params = None
+            if opts.enable_predictor:
+                # The learned TTFT/TPOT column with online training; it
+                # composes with --scheduler-config. The trainer runs on
+                # the card, as the scheduler does.
+                from gie_tpu_torch.models.latency import (
+                    LatencyPredictor,
+                    OnlineTrainer,
+                    predictor_score_fn,
+                )
+
+                predictor = LatencyPredictor()
+                self.trainer = OnlineTrainer(predictor)
+                if opts.predictor_checkpoint_dir:
+                    if self.trainer.restore(opts.predictor_checkpoint_dir):
+                        self.log.info("predictor checkpoint restored",
+                                      dir=opts.predictor_checkpoint_dir)
+                # Bind the column into the cycle ONLY when a weight
+                # ceiling is configured: SLO admission runs its own
+                # forward (OnlineTrainer.predict_ttft), and with ceiling 0
+                # every wave would pay the [N, M] MLP for a column
+                # multiplied by zero. The ceiling is not a live weight:
+                # the Scheduler starts the column at 0 and _train_loop
+                # phases it in as OnlineTrainer.confidence converges.
+                if float(weights.latency) > 0.0:
+                    predictor_fn = predictor_score_fn(predictor)
+                    predictor_params = self.trainer.params
             if opts.fleet_topk > 0:
                 # Hierarchical two-level pick (gie_tpu_torch/fleet): coarse
                 # cell stage, then the dense cycle over the gathered
@@ -160,11 +196,19 @@ class ExtProcServerRunner:
 
                 self.scheduler = FleetPicker(
                     cfg, weights=weights, topk=opts.fleet_topk,
-                    cell_cap=opts.fleet_cell_cap)
+                    cell_cap=opts.fleet_cell_cap, predictor_fn=predictor_fn,
+                    predictor_params=predictor_params)
                 self.log.info("fleet picker armed", topk=opts.fleet_topk,
                               cell_cap=opts.fleet_cell_cap)
             else:
-                self.scheduler = Scheduler(cfg, weights=weights)
+                self.scheduler = Scheduler(cfg, weights=weights,
+                                           predictor_fn=predictor_fn,
+                                           predictor_params=predictor_params)
+            if self.trainer is not None:
+                # A restored checkpoint carries its confidence state:
+                # apply it now, or a converged column would sit at weight
+                # 0 until the first train tick.
+                self.scheduler.gate_latency_column(self.trainer.confidence())
         self.metrics_store = MetricsStore()
         self.mapping = BY_NAME[opts.model_server_type]
         # gie-obs (obs/, docs/OBSERVABILITY.md): the pick flight recorder
@@ -291,6 +335,7 @@ class ExtProcServerRunner:
             self.metrics_store,
             max_wait_s=opts.batch_window_ms / 1000.0,
             lora_registry=self.lora_registry,
+            trainer=self.trainer,
             queue_bound=opts.queue_bound,
             queue_max_age_s=opts.queue_max_age_s,
             pd_budget_floor_s=opts.pd_budget_floor_ms / 1000.0,
@@ -301,6 +346,8 @@ class ExtProcServerRunner:
             fairness=self.fairness,
             federation=self.federation,
         )
+        self._train_stop = threading.Event()
+        self._train_thread: Optional[threading.Thread] = None
         self._dump_thread: Optional[threading.Thread] = None
         own_metrics.register_pool_aggregates(self._pool_snapshot)
         # Objective registry (proposal 1199): named objectives -> bands,
@@ -392,13 +439,14 @@ class ExtProcServerRunner:
             actuator = ReplicaActuator(
                 None, opts.pool_namespace, opts.autoscale_target,
                 dry_run=True, is_leader=is_leader)
-            # No TTFT probe: it reads the latency predictor's trainer,
-            # which comes with the latency-predictor slice (the
-            # reference's `self.trainer is not None` guard).
+            # The TTFT probe reads the latency predictor's trainer: the
+            # capacity model's SLO cross-check.
             self.autoscaler = AutoscaleController(
                 collector, recommender, actuator,
                 interval_s=opts.autoscale_interval_s,
-                ttft_probe=None,
+                ttft_probe=(self._autoscale_ttft_probe
+                            if self.trainer is not None
+                            and opts.autoscale_ttft_slo_ms > 0 else None),
                 # Followers sample but never recommend: their pick
                 # counters are zero by construction (NOT_SERVING).
                 is_leader=is_leader,
@@ -411,6 +459,7 @@ class ExtProcServerRunner:
         if opts.replication_port > 0:
             self.replication = ReplicationManager(
                 scheduler=self.scheduler,
+                trainer=self.trainer,
                 capacity_model=self.capacity_model,
                 elector=self.elector,
                 port=opts.replication_port,
@@ -589,6 +638,39 @@ class ExtProcServerRunner:
             }
         return report
 
+    def _autoscale_ttft_probe(self):
+        """-> (predicted_ttft_s, ttft_slo_s) for the autoscale capacity
+        model's SLO cross-check, or None while unusable: the median
+        predicted TTFT of a pool-typical request (nominal prompt and
+        decode, no LoRA) on every ready local endpoint under the live
+        metrics and assumed load."""
+        import numpy as np
+
+        from gie_tpu_torch.models.latency import host_features
+
+        if getattr(self.trainer, "last_loss", None) is None:
+            return None  # untrained predictor: forecasts are noise
+        slots = [ep.slot for ep in self.datastore.local_endpoints()
+                 if 0 <= ep.slot < C.M_MAX]
+        if not slots:
+            return None
+        rows, ages = self.metrics_store.pool_rows(slots)
+        rows[:, C.Metric.METRICS_AGE_S] = np.clip(
+            np.nan_to_num(ages, posinf=1e6), 0.0, 1e6)
+        load = self.scheduler.snapshot_assumed_load()
+        nominal_prompt = 2048.0                       # chars
+        nominal_decode = 128.0 * C.CHARS_PER_TOKEN
+        feats = np.stack([
+            host_features(
+                rows[i],
+                float(load[s]) if s < load.shape[0] else 0.0,
+                nominal_prompt, nominal_decode, False)
+            for i, s in enumerate(slots)
+        ])
+        pred = self.trainer.predict_ttft(feats, np.asarray(slots, np.int32))
+        return (float(np.median(pred)),
+                self.opts.autoscale_ttft_slo_ms / 1000.0)
+
     # -- scrape lifecycle follows endpoint lifecycle -----------------------
 
     def _slot_reclaimed(self, slot: int) -> None:
@@ -738,6 +820,10 @@ class ExtProcServerRunner:
         self.grpc_server = pool
         if self.opts.kv_events_port > 0:
             self._start_kv_events()
+        if self.trainer is not None:
+            self._train_thread = threading.Thread(
+                target=self._train_loop, name="predictor-train", daemon=True)
+            self._train_thread.start()
         if self.opts.obs_dump_interval_s > 0 and self._obs_installed:
             # Periodic flight-recorder harvesting (--obs-dump-interval-s):
             # the rotator bounds the file count itself; the thread holds
@@ -795,6 +881,28 @@ class ExtProcServerRunner:
                       bind=self.opts.kv_events_bind,
                       auth=self.opts.kv_events_token is not None)
 
+    def _train_loop(self) -> None:
+        """Periodic online training, the params handoff, the column's
+        phase-in and the checkpoint."""
+        while not self._train_stop.wait(self.opts.predictor_train_interval_s):
+            try:
+                loss = self.trainer.train(steps=10)
+                if loss is None:
+                    continue
+                if self.scheduler.predictor_fn is not None:
+                    # Only a cycle that binds the column takes params.
+                    self.scheduler.set_predictor_params(self.trainer.params)
+                    live_w = self.scheduler.gate_latency_column(
+                        self.trainer.confidence())
+                else:
+                    live_w = 0.0
+                self.log.v(3).info("predictor trained", loss=loss,
+                                   latency_weight=live_w)
+                if self.opts.predictor_checkpoint_dir:
+                    self.trainer.save(self.opts.predictor_checkpoint_dir)
+            except Exception as e:  # training must never take the EPP down
+                self.log.error("predictor training failed", err=e)
+
     def wait(self) -> None:
         if self.grpc_server is not None:
             self.grpc_server.wait_for_termination()
@@ -821,6 +929,9 @@ class ExtProcServerRunner:
                 self.capacity_model.save(self.opts.autoscale_state_dir)
             except Exception as e:  # shutdown must finish regardless
                 self.log.error("capacity checkpoint failed", err=e)
+        self._train_stop.set()
+        if self._train_thread is not None:
+            self._train_thread.join(timeout=5)
         if self._dump_thread is not None:
             # _stopped is already set; the wait()-gated loop exits on its
             # next wake.

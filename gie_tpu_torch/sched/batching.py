@@ -42,8 +42,13 @@ imported peer endpoints, and under a whole-cluster drain its candidates
 become the peers'. Imported endpoints are slots of the same slot space,
 so the wave goes through the same captured cycle and kernels.
 
-Not carried by this slice, and refused at construction: the latency
-predictor and SLO admission (`trainer=`).
+With `trainer=` (a models.latency.OnlineTrainer) each dispatch also
+copies the post-cycle assumed load, the completer records each pick's
+feature row (`PickResult.feedback`), served feedback trains the TTFT head
+and response completion the TPOT head, and SLO admission sheds picks
+whose predicted TTFT misses their x-gateway-inference-ttft-slo-ms bound
+before the waiters wake (the predictor's forward runs on the trainer's
+own stream, never behind the queued waves).
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ from gie_tpu_torch.extproc.pick import (
     ShedError,
 )
 from gie_tpu_torch.fairness import FairnessState
+from gie_tpu_torch.models.latency import host_features
 from gie_tpu_torch.ops import KernelUnavailable
 from gie_tpu_torch.resilience import deadline as deadline_mod
 from gie_tpu_torch.resilience import faults
@@ -80,7 +86,6 @@ from gie_tpu_torch.sched.filters import drain_filter
 from gie_tpu_torch.sched.hashing import batch_chunk_hashes
 from gie_tpu_torch.sched.profile import (
     Scheduler,
-    _not_ported,
     pd_costs_host,
     request_cost_host,
 )
@@ -237,17 +242,20 @@ class _Wave:
     """One dispatched wave in flight between dispatcher and completer."""
 
     __slots__ = ("batch", "pending", "endpoints", "eps_metrics", "plen",
-                 "dlen")
+                 "dlen", "lora")
 
-    def __init__(self, batch, pending, endpoints, eps_metrics, plen, dlen):
+    def __init__(self, batch, pending, endpoints, eps_metrics, plen, dlen,
+                 lora):
         self.batch = batch            # list[_Pending], waiters to wake
         self.pending = pending        # profile.PendingWave
         self.endpoints = endpoints    # datastore endpoints at dispatch time
         # The wave's metrics rows as the CPU EndpointBatch holds them (the
-        # flight recorder's scorer breakdown; never the device copy).
+        # flight recorder's scorer breakdown and the trainer's feature
+        # rows; never the device copy).
         self.eps_metrics = eps_metrics
         self.plen = plen
         self.dlen = dlen
+        self.lora = lora
 
 
 # Sentinel the dispatcher pushes on close(): the completer drains every
@@ -322,9 +330,6 @@ class BatchingTPUPicker:
         federation=None,
         clock: Clock = MONOTONIC,
     ):
-        if trainer is not None:
-            raise _not_ported("a latency-predictor trainer (and the SLO "
-                              "admission it drives)", "predictor_fn")
         # Clock seam: every BEHAVIORAL read of time in the pick path goes
         # through this clock. Pipeline stage times stay on the real clock
         # (they are observability, not behavior).
@@ -338,6 +343,10 @@ class BatchingTPUPicker:
         # names through, or affinity compares ids from two unrelated spaces.
         self.lora_registry = (lora_registry if lora_registry is not None
                               else LoraRegistry())
+        # Online latency-predictor training (models.latency.OnlineTrainer):
+        # picks carry their feature rows, recorded and completed by served
+        # feedback; None = no predictor.
+        self.trainer = trainer
         # Optional objective registry resolving named InferenceObjectives
         # to criticality bands (proposal 1199): anything with resolve_band.
         self.objective_registry = None
@@ -549,7 +558,8 @@ class BatchingTPUPicker:
 
     def observe_served(self, served_hostport: str, ctx) -> None:
         """Served-endpoint feedback -> assumed-load release + data-plane
-        serve outcome (breaker, ladder, metrics and the tenant ledger)."""
+        serve outcome (breaker, ladder, metrics and the tenant ledger) +
+        the latency predictor's TTFT training signal."""
         pick_result = getattr(ctx, "pick_result", None)
         self._release_charge(pick_result, served_hostport)
         status = int(getattr(ctx, "resp_status", 0) or 0)
@@ -585,6 +595,24 @@ class BatchingTPUPicker:
                 cls=f"{status // 100}xx", latency_s=latency_s,
                 trace=getattr(ctx, "trace", None),
                 tenant=_ctx_tenant(ctx))
+            if status >= 500:
+                # An errored serve trains nothing: a fast local-reply 503
+                # would teach the predictor that the sick endpoint is the
+                # most attractive one in the pool.
+                return
+        feedback = getattr(pick_result, "feedback", None)
+        if self.trainer is not None and feedback is not None:
+            features, slot, picked_at, picked_hostport = feedback
+            if served_hostport != picked_hostport:
+                # Failover to a fallback: the recorded features describe
+                # the PRIMARY endpoint, so this latency would mislabel it.
+                return
+            elapsed = max(self._clock.now() - picked_at, 1e-4)
+            # Response headers arrive about at the first token: elapsed
+            # approximates TTFT; TPOT is unobservable at this hop (its
+            # head is masked) and arrives with observe_response_complete.
+            self.trainer.observe(features, ttft_s=elapsed, tpot_s=None,
+                                 slot=slot)
 
     def _release_charge(self, pick_result, served_hostport: str = "") -> None:
         """Release the assumed load the cycle CHARGED (the primary pick,
@@ -678,10 +706,35 @@ class BatchingTPUPicker:
         rs.ladder.note_serve_outcome(ok)
 
     def observe_response_complete(self, ctx) -> None:
-        """Response-stream-complete feedback. In the reference it trains
-        the latency predictor's TPOT head; the predictor comes with the
-        latency-predictor slice, so there is nothing to train here."""
-        del ctx
+        """Response-stream-complete feedback -> the TPOT training signal:
+        the response-body hop harvests the output token count and the
+        first and last body-chunk times, whose quotient is the measured
+        per-token latency. Trains the TPOT head only (the TTFT half was
+        observed at the response-headers hop)."""
+        if self.trainer is None:
+            return
+        if (getattr(ctx, "aborted", False)
+                or int(getattr(ctx, "resp_status", 0) or 0) >= 500):
+            return   # a reset or errored stream's timing is the failure's
+        pick_result = getattr(ctx, "pick_result", None)
+        feedback = getattr(pick_result, "feedback", None)
+        if feedback is None:
+            return
+        features, slot, _picked_at, picked_hostport = feedback
+        served = getattr(ctx, "served_hostport", "")
+        if served and served != picked_hostport:
+            return   # failover: the features describe the primary
+        if not getattr(ctx, "timing_is_generation", False):
+            # Buffered JSON split across network flushes: chunk spacing
+            # measures the proxy's write cadence, not token generation.
+            return
+        tokens = int(getattr(ctx, "resp_tokens", 0))
+        t0 = getattr(ctx, "resp_first_at", 0.0)
+        t1 = getattr(ctx, "resp_last_at", 0.0)
+        if tokens < 2 or t1 <= t0:
+            return   # a single chunk: no inter-token interval exists
+        tpot = (t1 - t0) / (tokens - 1)
+        self.trainer.observe(features, ttft_s=None, tpot_s=tpot, slot=slot)
 
     def queue_report(self) -> dict:
         """Flow-queue zpage: live depth, per-band composition, and the
@@ -1047,7 +1100,7 @@ class BatchingTPUPicker:
         endpoints = self.datastore.endpoints()
         mb = self._pick_m_bucket(endpoints)
         own_metrics.BATCH_SIZE.observe(n)
-        reqs, plen, dlen, _lora = assemble_wave(batch, mb, self.lora_registry)
+        reqs, plen, dlen, lora = assemble_wave(batch, mb, self.lora_registry)
         eps = self.metrics_store.endpoint_batch(endpoints, m_slots=mb)
         # Async dispatch: the cycle is queued on the card and the host
         # returns. A failure here fails this wave's waiters, or, with a
@@ -1055,7 +1108,11 @@ class BatchingTPUPicker:
         try:
             if faults.ENABLED:
                 faults.check("device.dispatch")
-            pending = self.scheduler.pick_async(reqs, eps)
+            # With a trainer the post-cycle load is copied too: the
+            # completer's feature rows read the load the wave left, as the
+            # reference's (and the simulator's feature twin) do.
+            pending = self.scheduler.pick_async(
+                reqs, eps, snapshot_load=self.trainer is not None)
         except KernelUnavailable:
             raise  # a kernel that cannot run here is no sick device
         except Exception:
@@ -1090,7 +1147,7 @@ class BatchingTPUPicker:
         own_metrics.PIPELINE_DEPTH.inc()
         own_metrics.PIPELINE_WAVES.inc()
         self._waves.put(
-            _Wave(batch, pending, endpoints, eps.metrics, plen, dlen))
+            _Wave(batch, pending, endpoints, eps.metrics, plen, dlen, lora))
         return held
 
     # -- completer (pipeline stage 2) --------------------------------------
@@ -1137,7 +1194,7 @@ class BatchingTPUPicker:
     def _complete_wave(self, wave: _Wave) -> None:
         """Materialize one wave's results (waiting on its own event only)
         and fan them out."""
-        batch, plen, dlen = wave.batch, wave.plen, wave.dlen
+        batch, plen, dlen, lora = wave.batch, wave.plen, wave.dlen, wave.lora
         rs = self.resilience
         t0 = time.perf_counter()
         try:
@@ -1164,6 +1221,13 @@ class BatchingTPUPicker:
         if self._depth_auto:
             self._cycle_ewma = (wait_s if self._cycle_ewma == 0.0
                                 else 0.9 * self._cycle_ewma + 0.1 * wait_s)
+        # The load the cycle left, copied with the wave's results. Guarded
+        # on the snapshot, not self.trainer: a trainer attached between
+        # dispatch and completion must not make this index a snapshot the
+        # dispatcher never requested.
+        load_snapshot = wave.pending.materialize_load()
+        metrics_np = (wave.eps_metrics.numpy() if load_snapshot is not None
+                      else None)
         by_slot = {ep.slot: ep for ep in wave.endpoints}
         indices = result.indices
         status = result.status
@@ -1280,6 +1344,16 @@ class BatchingTPUPicker:
             if prefill is not None:
                 self._charge_pd(res, item, int(prefill[i]), by_slot,
                                 float(plen[i]), float(dlen[i]), now_mono)
+            if load_snapshot is not None:
+                slot = int(indices[i][0])
+                res.feedback = (
+                    host_features(metrics_np[slot], float(load_snapshot[slot]),
+                                  float(plen[i]), float(dlen[i]),
+                                  bool(lora[i] >= 0)),
+                    slot,         # feeds the per-endpoint embedding
+                    self._clock.now(),
+                    picked[0],    # the primary hostport the row describes
+                )
             if recorder is not None:
                 rec = _rec_base(item)
                 rec["outcome"] = "picked"
@@ -1329,10 +1403,66 @@ class BatchingTPUPicker:
                 # One host-side tally a wave for /debugz/fleet's top-K hit
                 # histogram, from the materialized arrays.
                 note(fleet_cells, indices[:, 0])
+        # Admission runs BEFORE the waiters wake: a shed decision replaces
+        # the result, never races the caller reading it.
+        self._slo_admission(batch)
         for item in batch:
             if item.result is not None:
                 own_metrics.PICKS.labels(outcome="ok").inc()
             self._clock.set_event(item.event)
+
+    def _slo_admission(self, batch: list[_Pending]) -> None:
+        """Predictive SLO shedding: after the cycle picked, non-critical
+        requests carrying an x-gateway-inference-ttft-slo-ms header whose
+        PREDICTED TTFT on the picked endpoint already misses the bound are
+        shed with 429, and the charge the cycle added for them is released
+        at once. Admits everything until the predictor has trained once
+        (shedding on a random init would starve the trainer)."""
+        if self.trainer is None:
+            return
+        if getattr(self.trainer, "last_loss", None) is None:
+            return
+        rows, slots, slos, items = [], [], [], []
+        for item in batch:
+            if item.result is None or item.result.feedback is None:
+                continue
+            raw = item.req.headers.get(mdkeys.TTFT_SLO_MS_KEY, [""])[0]
+            try:
+                slo_s = float(raw) / 1000.0
+            except (TypeError, ValueError):
+                continue
+            if slo_s <= 0 or item.band == C.Criticality.CRITICAL:
+                continue
+            features, slot, _, _ = item.result.feedback
+            rows.append(features)
+            slots.append(slot)
+            slos.append(slo_s)
+            items.append(item)
+        if not items:
+            return
+        pred = self.trainer.predict_ttft(np.stack(rows), np.asarray(slots))
+        for j, item in enumerate(items):
+            if pred[j] <= slos[j]:
+                continue
+            res = item.result
+            item.result = None
+            item.error = ShedError(band=item.band, tenant=item.tenant)
+            self.fairness.note_shed(
+                item.tenant, _BAND_NAMES.get(item.band, "standard"))
+            if res.record is not None:
+                # The decision record outlives the reversal: picked, then
+                # SLO-shed after the pick.
+                res.record["outcome"] = "shed_slo"
+            # The cycle charged the pick; the request will not run.
+            if res.charged:
+                self.scheduler.complete(
+                    np.asarray([s for s, _, _ in res.charged], np.int32),
+                    np.asarray([c for _, c, _ in res.charged], np.float32))
+            elif res.charged_slot is not None and res.charged_slot >= 0:
+                self.scheduler.complete(
+                    np.asarray([res.charged_slot], np.int32),
+                    np.asarray([res.assumed_cost], np.float32))
+            own_metrics.PICKS.labels(outcome="shed").inc()
 
     def _charge_pd(self, res: PickResult, item: _Pending, p_slot: int,
                    by_slot: dict, plen: float, dlen: float,

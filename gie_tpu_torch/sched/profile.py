@@ -53,7 +53,6 @@ log = logging.getLogger(__name__)
 # Later slices of the port (ROADMAP.md, Queue 1) that bring what this one
 # rejects at construction.
 _LATER = {
-    "predictor_fn": "the latency-predictor slice",
     "mesh": "the multi-device slice",
     "kube": "the kube slice",
 }
@@ -174,8 +173,11 @@ def pd_costs_host(prompt_len: float, decode_len: float) -> tuple[float, float]:
     )
 
 
-def feature_schema(cfg: ProfileConfig) -> tuple[str, ...]:
-    """Ordered names of the scorer columns build_stages stacks."""
+def feature_schema(cfg: ProfileConfig, *,
+                   has_predictor: bool = False) -> tuple[str, ...]:
+    """Ordered names of the scorer columns build_stages stacks (the one
+    source of truth a learned policy artifact is validated against); the
+    latency predictor's column, when bound, comes last."""
     cols = ["queue", "kv_cache", "assumed_load"]
     if cfg.enable_prefix:
         cols.append("prefix")
@@ -183,6 +185,8 @@ def feature_schema(cfg: ProfileConfig) -> tuple[str, ...]:
         cols.append("session")
     if cfg.enable_lora:
         cols.append("lora")
+    if has_predictor:
+        cols.append("latency")
     return tuple(cols)
 
 
@@ -204,6 +208,8 @@ def build_stages(
     *,
     cfg: ProfileConfig,
     wvec: Optional[torch.Tensor] = None,
+    predictor_fn: Optional[Callable] = None,
+    predictor_params=None,
 ):
     """Filter + score stages -> (mask, shed, named column dict,
     stacked [S,N,M], wvec [S], blended total [N,M]). `total` is None on
@@ -212,7 +218,9 @@ def build_stages(
     unless the profile is disaggregated: the decode pick de-blends it.
     `wvec`, when given, is the blend weights of feature_schema(cfg) as a
     tensor the caller fills (a captured cycle's static buffer); otherwise
-    they come from `weights`.
+    they come from `weights`. `predictor_fn(predictor_params, reqs, eps,
+    assumed_load) -> f32[N, M]`, when given, adds the "latency" column
+    last (models.latency.predictor_score_fn builds it).
 
     Saturation is a soft filter: unsaturated candidates are preferred;
     when all are saturated SHEDDABLE traffic is shed (429) and STANDARD
@@ -256,6 +264,9 @@ def build_stages(
             reqs, eps, key_chunks=cfg.session_key_chunks)
     if cfg.enable_lora:
         named["lora"] = scorers.lora_affinity_score(reqs, eps, membership)
+    if predictor_fn is not None:
+        named["latency"] = predictor_fn(predictor_params, reqs, eps,
+                                        state.assumed_load)
 
     stacked = torch.stack(list(named.values()))               # [S, N, M]
     if wvec is None:
@@ -333,6 +344,8 @@ def scheduling_cycle(
     *,
     cfg: ProfileConfig,
     wvec: Optional[torch.Tensor] = None,
+    predictor_fn: Optional[Callable] = None,
+    predictor_params=None,
 ) -> tuple[PickResult, SchedState]:
     """One full scheduling cycle. Updates `state`'s tensors IN PLACE (the
     role of the reference's donated buffers) and returns (result, state).
@@ -342,12 +355,14 @@ def scheduling_cycle(
     from its PRNG key inside the cycle), f32[2, N, M] under
     pd_disaggregation (plane 0 for the prefill pick, plane 1 for the
     decode pick: the reference's split of the wave's key); the top-k
-    picker ignores it and takes None. `wvec`: see
-    build_stages. The cycle makes no call that waits for the device, so
-    it can be captured into a CUDA graph (sched/graphs.py).
+    picker ignores it and takes None. `wvec`, `predictor_fn` and
+    `predictor_params`: see build_stages. The cycle makes no call that
+    waits for the device, so it can be captured into a CUDA graph
+    (sched/graphs.py).
     """
     mask, shed, named, stacked, wvec, total = build_stages(
-        state, reqs, eps, weights, cfg=cfg, wvec=wvec)
+        state, reqs, eps, weights, cfg=cfg, wvec=wvec,
+        predictor_fn=predictor_fn, predictor_params=predictor_params)
 
     if cfg.pd_disaggregation:
         return _pd_cycle(state, reqs, eps, gumbel, cfg, mask=mask, shed=shed,
@@ -638,6 +653,14 @@ class Scheduler:
     CUDA graph, and every wave of that key replays it; a wave of a cold key
     captures it inline first and counts `warm_inline_compiles`. On the CPU
     warming runs the eager cycle once on a throwaway state.
+
+    The latency column (`predictor_fn`, models.latency.predictor_score_fn):
+    the configured latency weight is the ceiling gate_latency_column
+    scales toward, and the live blend starts at 0. `predictor_params` are
+    copied once into static buffers on the scheduler's device, made before
+    any capture and never reallocated: set_predictor_params copies new
+    params into them, so a captured cycle reads them at the addresses it
+    holds and a handoff never recaptures.
     """
 
     def __init__(
@@ -649,15 +672,22 @@ class Scheduler:
         device=None,
         noise_source: Optional[Callable[[tuple], object]] = None,
         predictor_fn=None,
+        predictor_params=None,
         mesh=None,
     ):
-        if predictor_fn is not None:
-            raise _not_ported("a predictor_fn", "predictor_fn")
         if mesh is not None:
             raise _not_ported("a mesh", "mesh")
         self.cfg = cfg
         self.weights = weights if weights is not None else Weights.default()
         self.device = resolve_device(device)
+        # The configured latency weight is the CEILING the phase-in gate
+        # scales toward; with a predictor column the live blend starts at
+        # 0, so an untrained model never dilutes the heuristics.
+        self.base_latency_weight = float(self.weights.latency)
+        if predictor_fn is not None and self.base_latency_weight > 0.0:
+            self.weights = self.weights.replace(latency=0.0)
+        self.predictor_fn = predictor_fn
+        self.predictor_params = _static_params(predictor_params, self.device)
         self.noise_source = noise_source
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
@@ -756,13 +786,16 @@ class Scheduler:
     def _graph_schema(self) -> tuple[str, ...]:
         """The Weights fields a captured cycle reads from its static
         weight buffer, in order."""
-        return feature_schema(self.cfg)
+        return feature_schema(self.cfg,
+                              has_predictor=self.predictor_fn is not None)
 
     def _run_cycle(self, state, reqs, eps, gumbel, wvec=None):
         """One cycle over `state`, in place -> (result, state); `wvec` is
         the static weight buffer of _graph_schema() in a captured cycle."""
         return scheduling_cycle(state, reqs, eps, self.weights, gumbel,
-                                cfg=self.cfg, wvec=wvec)
+                                cfg=self.cfg, wvec=wvec,
+                                predictor_fn=self.predictor_fn,
+                                predictor_params=self.predictor_params)
 
     def _bucket_state(self, m: int) -> SchedState:
         """Bucket m's state, allocated on first use. Callers hold _lock
@@ -1239,6 +1272,28 @@ class Scheduler:
         with self._lock:
             self._clear_prefix(slot)
 
+    def set_predictor_params(self, params) -> None:
+        """Install retrained predictor params (the online-training
+        handoff): copied under the lock into the static buffers the
+        captured cycles read, on the stream the waves run on, so the copy
+        lands between two waves and the next replay reads the new column.
+        Nothing is recaptured or rebound. Raises ValueError when `params`
+        do not match the buffers' names and shapes."""
+        with self._lock, self._state_stream():
+            _copy_params_into(self.predictor_params, params)
+
+    def gate_latency_column(self, confidence: float) -> float:
+        """Phase the latency column into the blend as the predictor earns
+        trust: live weight = configured weight x confidence in [0, 1]
+        (OnlineTrainer.confidence). The weights travel with every wave's
+        inputs (CycleGraph.pack), so this never recaptures. Returns the
+        live weight."""
+        w = self.base_latency_weight * float(np.clip(confidence, 0.0, 1.0))
+        with self._lock:
+            self.weights = self.weights.replace(
+                latency=float(np.float32(w)))
+        return w
+
     def explain(self, reqs: RequestBatch,
                 eps: EndpointBatch) -> dict[str, np.ndarray]:
         """Debug surface: each scorer column, the blended total, the
@@ -1256,8 +1311,10 @@ class Scheduler:
                      else resize_into(self.state, SchedState.init(
                          m=m, device=self.device)))
             weights = self.weights
+            params = _clone_params(self.predictor_params)
         mask, shed, named, stacked, wvec, total = build_stages(
-            state, reqs, eps, weights, cfg=self.cfg)
+            state, reqs, eps, weights, cfg=self.cfg,
+            predictor_fn=self.predictor_fn, predictor_params=params)
         if total is None:        # the fused top-k path blends in its kernel
             total = blend(wvec, stacked)
         out = {name: col[:n].cpu().numpy() for name, col in named.items()}
@@ -1279,6 +1336,7 @@ class Scheduler:
                 f.name: round(float(getattr(self.weights, f.name)), 5)
                 for f in dataclasses.fields(Weights)
             },
+            "latency_weight_ceiling": self.base_latency_weight,
             "device": str(self.device),
             "warm_buckets": sorted(self._warm_buckets),
             "warm_inline_compiles": self.warm_inline_compiles,
@@ -1419,6 +1477,48 @@ class Scheduler:
             return False
         self.commit_install(prepared)
         return True
+
+
+def _static_params(params, device: torch.device):
+    """The scheduler's own copy of predictor params on `device`: a dict of
+    fresh tensors (arrays and tensors on any device accepted), or None."""
+    if params is None:
+        return None
+    return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
+                               else v).to(device=device, copy=True)
+            for k, v in params.items()}
+
+
+def _clone_params(params):
+    return None if params is None else {k: v.clone()
+                                        for k, v in params.items()}
+
+
+def _copy_params_into(dst, src) -> None:
+    """Copy predictor params `src` into the static buffers `dst`, in
+    place, on the current stream. A source tensor on another device's or
+    stream's memory is marked used by this stream, so its owner freeing it
+    cannot recycle it under the queued copy."""
+    if dst is None or src is None:
+        if dst is None and src is None:
+            return
+        raise ValueError("predictor params must match the scheduler's: "
+                         "it was built with "
+                         f"{'no' if dst is None else 'a'} params tree")
+    if set(dst) != set(src):
+        raise ValueError(f"predictor params {sorted(src)} do not match the "
+                         f"scheduler's {sorted(dst)}")
+    for k, buf in dst.items():
+        v = src[k]
+        v = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+        if tuple(v.shape) != tuple(buf.shape):
+            raise ValueError(f"predictor param {k}: shape {tuple(v.shape)} "
+                             f"!= {tuple(buf.shape)}")
+        if buf.device.type == "cuda" and v.device.type == "cpu":
+            v = v.pin_memory()
+        buf.copy_(v, non_blocking=True)
+        if v.device.type == "cuda":
+            v.record_stream(torch.cuda.current_stream(v.device))
 
 
 def _copy_state(state: SchedState) -> SchedState:

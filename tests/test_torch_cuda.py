@@ -31,7 +31,11 @@ allocation. The fleet picker's waves (exact mode under a non-covering K,
 sketch mode past the largest bucket) replay its captured two-level cycle:
 equal to the eager fleet cycle on a copy of the state, their candidate
 cells equal to a CPU FleetPicker's from the same state, and a warmed
-fleet wave makes no synchronizing call."""
+fleet wave makes no synchronizing call. With the latency predictor's
+column, a warmed wave makes no synchronizing call, a parameter handoff
+reaches the next replay without a capture, predict_ttft does not wait
+behind a queued wave, and a train step on the card is within the stated
+tolerance of the CPU's."""
 
 import dataclasses
 import threading
@@ -1624,3 +1628,149 @@ def test_sketch_kv_events_fold_on_card_as_on_the_cpu(dev):
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     assert any(m == 8192 for m, _ in card._fold_graphs)
+
+
+# -- the latency predictor on the card ------------------------------------
+
+
+def _predictor_scheduler(config, dev, probe=None):
+    """The configuration's Scheduler on the card with the latency column
+    bound at weight ceiling 1.0 and gated in full; `probe`, a dict, gets
+    each column the cycle computes under its shape (in a captured cycle:
+    the static output every replay rewrites)."""
+    from gie_tpu_torch.models.latency import LatencyPredictor, predictor_score_fn
+    from gie_tpu_torch.sched.types import Weights
+
+    cfg, weights, _ = _config(config)
+    predictor = LatencyPredictor()
+    column = predictor_score_fn(predictor)
+
+    def fn(params, reqs, eps, load):
+        col = column(params, reqs, eps, load)
+        if probe is not None:
+            probe[tuple(col.shape)] = col
+        return col
+
+    weights = (weights or Weights.default()).replace(latency=1.0)
+    sched = Scheduler(cfg, weights, predictor_fn=fn,
+                      predictor_params=predictor.init(seed=1))
+    sched.gate_latency_column(1.0)
+    return sched, predictor, column
+
+
+@pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel", "topk-kernel"])
+def test_predictor_wave_makes_no_synchronizing_call(dev, config):
+    """A warmed wave with the latency column under
+    set_sync_debug_mode("error"): pick_async and a queued complete() make
+    no call that waits for the card, and the wave is one graph replay."""
+    sched, _, _ = _predictor_scheduler(config, dev)
+    reqs, eps = _wave_inputs(n=1024, m=256, live=200)
+    res = sched.pick(reqs, eps)                      # captures the key
+    graphs = len(sched._graphs)
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = sched.pick_async(reqs, eps)
+        sched.complete(res.indices[:64, 0], np.full(64, 0.5, np.float32))
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+    out = pending.materialize()
+    assert (out.status == 0).mean() > 0.9
+    assert len(sched._graphs) == graphs and sched.warm_inline_compiles == 1
+
+
+@pytest.mark.parametrize("config", ["tuned+sinkhorn-kernel", "topk-kernel"])
+def test_set_predictor_params_takes_effect_on_the_next_replay(dev, config):
+    """A parameter handoff copies into the static buffers: the next
+    replay's column is the new params' (against the eager column from the
+    same inputs and load), and nothing is recaptured."""
+    from gie_tpu_torch.sched.profile import _batch_to_device
+    from gie_tpu_torch.sched.types import pad_requests
+
+    probe = {}
+    sched, predictor, column = _predictor_scheduler(config, dev, probe)
+    reqs, eps = _wave_inputs(n=1024, m=256, live=200)
+    sched.pick(reqs, eps)
+    buffers = dict(sched.predictor_params)
+    graphs, inline = len(sched._graphs), sched.warm_inline_compiles
+    new = predictor.init(seed=2)
+    sched.set_predictor_params(new)
+    load = torch.from_numpy(sched.export_state()["assumed_load"]).to(dev)
+    sched.pick(reqs, eps)
+    torch.cuda.synchronize()
+    got = probe[(1024, 256)].clone()
+    dreqs = pad_requests(_batch_to_device(reqs, dev), 1024)
+    deps = _batch_to_device(eps, dev)
+    want_new = column({k: v.to(dev) for k, v in new.items()}, dreqs, deps,
+                      load)
+    want_old = column({k: v.to(dev) for k, v in predictor.init(seed=1).items()},
+                      dreqs, deps, load)
+    assert torch.allclose(got, want_new, rtol=1e-3, atol=0)
+    assert float((got - want_old).abs().max()) > 1e-2
+    assert all(sched.predictor_params[k] is buffers[k] for k in buffers)
+    assert len(sched._graphs) == graphs
+    assert sched.warm_inline_compiles == inline
+
+
+def test_predict_ttft_does_not_wait_behind_a_queued_wave(dev):
+    """predict_ttft runs on the trainer's own stream: with a wave queued
+    behind a long spin on the waves' stream, it returns while that wave is
+    still pending."""
+    from gie_tpu_torch.models.latency import LatencyPredictor, OnlineTrainer
+
+    sched, _, _ = _predictor_scheduler("tuned+sinkhorn-kernel", dev)
+    trainer = OnlineTrainer(LatencyPredictor(), device=dev)
+    feats = np.random.default_rng(0).uniform(size=(100, 8)).astype(np.float32)
+    slots = np.arange(100)
+    trainer.predict_ttft(feats, slots)                # loads its kernels
+    reqs, eps = _wave_inputs(n=1024, m=256, live=200)
+    sched.pick(reqs, eps)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)                   # ~0.2 s on an H100
+    pending = sched.pick_async(reqs, eps)
+    t0 = time.perf_counter()
+    pred = trainer.predict_ttft(feats, slots)
+    took = time.perf_counter() - t0
+    assert not pending.event.query(), "predict_ttft waited for the wave"
+    assert pred.shape == (100,) and np.isfinite(pred).all()
+    assert took < 0.1, took
+    pending.materialize()
+
+
+def test_train_step_on_card_within_cpu_tolerance(dev):
+    """One AdamW step of the same module on the card and on the CPU from
+    the same batch: the loss within rtol 1e-3, every param within
+    2 * lr + 1e-5 and 99% within 1e-5 (Adam moves an element by about lr
+    times the sign of its gradient, which bf16 rounding may flip where the
+    gradient is near zero)."""
+    from gie_tpu_torch.models.latency import (
+        LatencyPredictor,
+        make_optimizer,
+        make_train_step,
+    )
+
+    predictor = LatencyPredictor()
+    step = make_train_step(predictor)
+    rng = np.random.default_rng(5)
+    batch = [torch.from_numpy(a) for a in (
+        rng.uniform(size=(256, 8)).astype(np.float32),
+        rng.integers(0, 1025, 256).astype(np.int64),
+        rng.uniform(0, 2, (256, 2)).astype(np.float32),
+        (rng.uniform(size=(256, 2)) < 0.7).astype(np.float32))]
+    out = {}
+    for where in ("cpu", dev):
+        module = predictor.module(seed=3).to(where)
+        loss = step(module, make_optimizer(module, predictor.cfg),
+                    *[t.to(where) for t in batch])
+        out[str(where)] = (float(loss), {k: v.cpu() for k, v in
+                                          module.state_dict().items()})
+    (l_cpu, p_cpu), (l_dev, p_dev) = out["cpu"], out[str(dev)]
+    assert abs(l_dev - l_cpu) <= 1e-3 * abs(l_cpu)
+    close = total = 0
+    for k in p_cpu:
+        diff = (p_dev[k] - p_cpu[k]).abs()
+        assert float(diff.max()) <= 2e-3 + 1e-5, k
+        close += int((diff <= 1e-5).sum())
+        total += diff.numel()
+    assert close >= 0.99 * total

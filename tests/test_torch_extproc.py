@@ -272,7 +272,9 @@ REFUSED = [
     # Ported: with a scheduler injected the runner reads no artifact,
     # as the reference's does not.
     (LIVE + ["--scorer", "learned", "--policy-artifact", "x.json"], None),
-    (LIVE + ["--enable-predictor"], "predictor_fn"),
+    # Ported: with a scheduler injected the runner builds no trainer, as
+    # the reference's does not.
+    (LIVE + ["--enable-predictor"], None),
     (LIVE + ["--fault", "scrape.fetch=error:0.5"], None),
 ]
 
@@ -298,6 +300,8 @@ def test_runner_refuses_out_of_slice(argv, key, tmp_path):
             assert (runner.resilience is not None) == opts.resilience
             assert runner.picker.resilience is runner.resilience
             assert runner._obs_installed == opts.obs
+            # An injected scheduler: no trainer, --enable-predictor or not.
+            assert runner.trainer is None and runner.picker.trainer is None
             if opts.kv_events_port:
                 # start() builds the listener after the ext-proc pool.
                 runner._start_kv_events()

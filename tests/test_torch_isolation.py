@@ -51,7 +51,9 @@ def test_import_pulls_in_no_jax_and_no_gie_tpu():
                  "gie_tpu_torch.obs.__main__",
                  "gie_tpu_torch.storm.engine", "gie_tpu_torch.storm.search",
                  "gie_tpu_torch.storm.__main__",
-                 "gie_tpu_torch.fleet.picker"):
+                 "gie_tpu_torch.fleet.picker",
+                 "gie_tpu_torch.models.latency",
+                 "gie_tpu_torch.simulator.cluster"):
         assert name in loaded
     forbidden = [
         name for name in loaded
@@ -73,9 +75,13 @@ def _imported_modules(path: pathlib.Path) -> list[str]:
 def test_source_scan_finds_no_jax_or_gie_tpu_import():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 15
-    # Every subpackage is in the scan, the fleet picker's included.
+    # Every subpackage is in the scan, the fleet picker's, the latency
+    # predictor's and the simulator's included.
     assert {f.parent.name for f in files} >= {"fleet", "federation",
-                                              "sched", "storm"}
+                                              "sched", "storm", "models",
+                                              "simulator"}
+    assert {PKG / "models" / "latency.py",
+            PKG / "simulator" / "cluster.py"} <= set(files)
     bad = [
         (str(f.relative_to(REPO)), name)
         for f in files for name in _imported_modules(f)
@@ -131,12 +137,32 @@ def test_formerly_refused_config_builds(kwargs):
     JaxProfileConfig(**kwargs)
 
 
-@pytest.mark.parametrize("kwargs, slice_name", [
-    ({"predictor_fn": lambda *a: None}, "latency-predictor"),
-    ({"mesh": object()}, "multi-device"),
-])
-def test_out_of_slice_scheduler_arg_raises(kwargs, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
+# (Scheduler keyword, the slice that brings it, the error it raises or
+# None where the Scheduler takes it: the latency predictor is ported).
+SCHEDULER_ARGS = [
+    ({"predictor_fn": "predictor_score_fn"}, "latency-predictor", None),
+    ({"mesh": object()}, "multi-device", NotImplementedError),
+]
+
+
+@pytest.mark.parametrize(
+    "kwargs, slice_name, raises", SCHEDULER_ARGS,
+    ids=[f"kwargs{i}-{name}" for i, (_, name, _) in enumerate(SCHEDULER_ARGS)])
+def test_out_of_slice_scheduler_arg_raises(kwargs, slice_name, raises):
+    if raises is None:
+        from gie_tpu_torch.models.latency import (
+            LatencyPredictor,
+            predictor_score_fn,
+        )
+
+        predictor = LatencyPredictor()
+        fn = predictor_score_fn(predictor)
+        sched = Scheduler(device="cpu", predictor_fn=fn,
+                          predictor_params=predictor.init())
+        assert sched.predictor_fn is fn
+        assert sched._graph_schema()[-1] == "latency"
+        return
+    with pytest.raises(raises, match=slice_name):
         Scheduler(device="cpu", **kwargs)
 
 
@@ -194,12 +220,12 @@ def test_pick_service_pulls_in_no_grpc_protobuf_or_prometheus():
 
 
 # (picker keyword, the slice it is refused until, or None where the
-# picker takes it: the resilience state, federation and lattice warming
-# are ported).
+# picker takes it: the resilience state, federation, lattice warming and
+# the latency predictor's trainer are ported).
 PICKER_ARGS = [
     ({"resilience": "ResilienceState"}, "resilience slice", None),
     ({"federation": "FederationState"}, "federation slice", None),
-    ({"trainer": object()}, "latency-predictor slice", NotImplementedError),
+    ({"trainer": "OnlineTrainer"}, "latency-predictor slice", None),
     ({"background_warm": True}, "warm-lattice slice", None),
 ]
 
@@ -215,11 +241,17 @@ def test_out_of_slice_picker_arg_raises(kwargs, slice_name, raises):
 
     if raises is None:
         from gie_tpu_torch.federation import FederationState
+        from gie_tpu_torch.models.latency import (
+            LatencyPredictor,
+            OnlineTrainer,
+        )
 
         sched, ds, ms = Scheduler(device="cpu"), Datastore(), MetricsStore()
         made = {"ResilienceState": lambda: ResilienceState(),
                 "FederationState": lambda: FederationState(
-                    ds, ms, scheduler=sched, cluster="east")}
+                    ds, ms, scheduler=sched, cluster="east"),
+                "OnlineTrainer": lambda: OnlineTrainer(
+                    LatencyPredictor(), device="cpu")}
         kwargs = {k: made[v]() if v in made else v
                   for k, v in kwargs.items()}
         picker = BatchingTPUPicker(sched, ds, ms, **kwargs)

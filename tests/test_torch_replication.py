@@ -339,8 +339,9 @@ def test_manager_fails_over_warm_and_the_old_leader_resyncs_in_full(
 
 def test_install_is_two_phase_and_skips_unknown_sections(ref_state):
     """A digest whose autoscale section is malformed commits nothing (the
-    scheduler keeps its state); a reference leader's predictor section,
-    which the port has no home for yet, is skipped."""
+    scheduler keeps its state); a reference leader's predictor section is
+    skipped by a manager without a trainer and installed by one with a
+    port trainer."""
     _, exported = ref_state
     cap = CapacityModel()
     mgr = manager_mod.ReplicationManager(scheduler=_port_sched(),
@@ -362,10 +363,33 @@ def test_install_is_two_phase_and_skips_unknown_sections(ref_state):
                      prefix_present=exported["prefix_present"][:-32],
                      prefix_ages=exported["prefix_ages"][:-32])
         assert not mgr._install({"sched": short}, delta=False)
-        with pytest.raises(NotImplementedError,
-                           match="the latency-predictor slice"):
-            manager_mod.ReplicationManager(scheduler=_port_sched(),
-                                           trainer=object())
+    finally:
+        mgr.stop()
+    from gie_tpu.models.latency import LatencyPredictor as JaxPredictor
+    from gie_tpu.models.latency import OnlineTrainer as JaxTrainer
+
+    from gie_tpu_torch.models.latency import LatencyPredictor, OnlineTrainer
+
+    leader = JaxTrainer(JaxPredictor(), seed=4)
+    leader._loss_ema, leader._observed_total = 0.02, 900
+    section = leader.export_state()
+    trainer = OnlineTrainer(LatencyPredictor(), device="cpu")
+    mgr = manager_mod.ReplicationManager(scheduler=_port_sched(),
+                                         trainer=trainer)
+    try:
+        bad = dict(section)
+        del bad["observed_total"]
+        assert not mgr._install({"sched": exported, "predictor": bad},
+                                delta=False)
+        assert trainer.confidence() == 0.0           # nothing committed
+        assert mgr._install({"sched": exported, "predictor": section},
+                            delta=False)
+        _assert_bit_equal(mgr.scheduler.export_state(), exported)
+        got = trainer.export_state()
+        assert list(got) == list(section)
+        for k, v in section.items():
+            assert np.array_equal(np.asarray(v), got[k], equal_nan=True), k
+        assert trainer.confidence() == leader.confidence()
     finally:
         mgr.stop()
 
