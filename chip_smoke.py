@@ -14,7 +14,8 @@ count adds the launches a replay makes:
      at the main path's shapes (1024 requests x 256 and x 1024 endpoints,
      cold and warm duals) and at edge shapes (Sinkhorn N=1, 7, 8 and
      1024x64; blend-top-k M=40, 37, 2048 and [3, 9, 64]; and S = 7 at
-     [7, 1024, 256], the blend with phase 18's latency column), with CUDA-event
+     [7, 1024, 256] and [7, 1024, 1024], the blend with phase 18's latency
+     column), with CUDA-event
      times at the main shapes (median of 5 runs of 20 back-to-back calls,
      after 5 warm-up calls; inputs warm in L2 as the cycle leaves them),
      and each kernel's device time (`device_ms`: the same calls queued
@@ -246,9 +247,38 @@ count adds the launches a replay makes:
      trainers on the card; (f) the simulator's online-training scenario
      with the predictor on the card (loss < 1.0, goodput above 1.2x
      least-kv's). Prints each part's wall seconds;
+ 19. the kube slice on the card: tests/fakeapi.py's apiserver in this
+     process holding the pool (targetPorts: the stub fleet's port,
+     endpointPickerRef: a Service that exists), its Gateway, a Deployment
+     and M ready pods on the stub pods' addresses, each watch ended after
+     2 s; (a) `main --kube --kubeconfig --publish-status-parents gw
+     --leader-elect --scheduler-config <tuned + use_pallas_sinkhorn>`
+     with --autoscale-mode apply as a process of its own (kube_main: a
+     reporter beside main() reads its datastore): all M pods in its
+     datastore from the watch alone, the Lease naming it, readiness
+     SERVING, a status patch with Accepted and ResolvedRefs True for gw;
+     (b) phase 6's client processes: a warm-up round and a burst of 1024
+     streams all answered with pods of the pool and phase 6's
+     server-round readings; 32 pods set not-Ready and 32 deleted, the
+     time until the datastore drops them, a burst with no pick on them;
+     the event log compacted around their return, so the watches get 410
+     Gone and relist, the time until the datastore equals the
+     apiserver's pods again, and a burst; (c) the Deployment's
+     spec.replicas SSA-patched from 1 into [2, 8], the rest of its spec
+     kept; SIGTERM, exit 0, the Lease released, one Sinkhorn launch a
+     wave; then the same main with topk + use_pallas_topk: bring-up, a
+     warm-up round and a burst, one blend-top-k launch a wave; (d) the
+     port's conformance suite (gie_tpu_torch/conformance) in "rr" mode
+     and in "tpu" mode with the Scheduler on the card under
+     ProfileConfig(picker="sinkhorn", use_pallas_sinkhorn=True) and
+     ProfileConfig(use_pallas_topk=True): every case passed, one kernel
+     launch a wave; the routing case on the card and on a CPU Scheduler
+     with the same Gumbel draws, every response equal; (e) both kernels'
+     launches of the phase. Prints its wall seconds;
  11. the `kernels` line: launches on the main path (phases 3-6, 8, 9, 12,
-     13, 14, 15, 16, 17 and 18, replays counted; phase 15's promoted
-     server and phase 16's east report their own), error, times, bound.
+     13, 14, 15, 16, 17, 18 and 19, replays counted; phase 15's promoted
+     server, phase 16's east and phase 19's servers report their own),
+     error, times, bound.
 Then the card's name and power limit (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}. Every listener the script starts takes its
 port from free_port(), which draws below Linux's ephemeral range, so no
@@ -473,9 +503,9 @@ def phase_kernels(dev) -> dict:
         emit({"phase": "kernel", **rec})
         records.setdefault("fused_sinkhorn_plan", rec)
 
-    # (6, N, M) and (6, N, 1024): the blend of phase 4's profile; (7, N, M):
-    # the latency predictor's column joins it (phase 18).
-    for s, m in ((6, M), (6, 1024), (7, M)):
+    # (6, N, M) and (6, N, 1024): the blend of phase 4's profile; (7, N, M)
+    # and (7, N, 1024): the latency predictor's column joins it (phase 18).
+    for s, m in ((6, M), (6, 1024), (7, M), (7, 1024)):
         err = check_topk(s, N, m, dev)
         stacked, wvec, mask = topk_inputs(s, N, m, seed=m, dev=dev)
 
@@ -497,7 +527,7 @@ def phase_kernels(dev) -> dict:
         emit({"phase": "kernel", **rec})
         records.setdefault("fused_blend_topk", rec)
         if s == 7:
-            records["fused_blend_topk_s7"] = rec
+            records.setdefault("fused_blend_topk_s7", rec)
     return records
 
 
@@ -5441,6 +5471,580 @@ def phase_predictor(dev, cfg, weights, kernels, tmp) -> dict:
     return summary
 
 
+# -- phase 19: the kube slice on the card ------------------------------------
+
+KUBE_POOL = "kube-pool"
+KUBE_CHURN = 32            # (b): pods set not-Ready, and as many deleted
+KUBE_WATCH_TIMEOUT_S = 2   # the fake apiserver ends each watch this soon
+KUBE_REPLICAS = 1          # the Deployment's spec.replicas before (c)
+KUBE_AUTOSCALE = ("--autoscale-mode", "apply", "--autoscale-target", "vllm",
+                  "--autoscale-min", "2", "--autoscale-max", "8",
+                  "--autoscale-interval-s", "1.0")
+KUBE_ROUNDS = (-1, 0, 1, 2)      # warm-up, burst, after churn, after relist
+
+
+def kube_until(pred, timeout: float, what: str) -> float:
+    """Seconds until `pred()` holds; fails naming `what` after `timeout`."""
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 >= timeout:
+            raise RuntimeError(f"kube: {what} not within {timeout} s")
+        time.sleep(0.1)
+    return time.monotonic() - t0
+
+
+def kube_report(obj: dict) -> None:
+    """One line of kube_main's report on its standard output."""
+    print(json.dumps({"kube_report": obj}), flush=True)
+
+
+def kube_main(argv) -> int:
+    """The port's main() in this process, as phase 19 runs it (`python -c
+    "import chip_smoke; chip_smoke.kube_main(argv)"`), with a reporter
+    beside it that only reads: every change of the runner's datastore (its
+    endpoints and pick candidates, stamped with time.monotonic(), polled
+    every 10 ms), process_readings() plus the ladder's moves and the
+    scrape staleness on each "readings" line of standard input, and after
+    main() returns the kernels' launches and the dispatched waves."""
+    from gie_tpu_torch.ops.fused_sinkhorn import fused_sinkhorn_plan
+    from gie_tpu_torch.ops.fused_topk import fused_blend_topk
+    from gie_tpu_torch.runtime import main as main_mod
+    from gie_tpu_torch.runtime import metrics as own_metrics
+    from gie_tpu_torch.runtime import runner as runner_mod
+
+    built = []
+
+    class Runner(runner_mod.ExtProcServerRunner):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+
+    runner_mod.ExtProcServerRunner = Runner
+
+    def watch_datastore():
+        last = None
+        while True:
+            if built:
+                ds = built[0].datastore
+                state = (sorted(ep.hostport for ep in ds.endpoints()),
+                         sorted(ep.hostport for ep in ds.pick_candidates()))
+                if state != last:
+                    kube_report({"t": time.monotonic(), "endpoints": state[0],
+                                 "candidates": state[1]})
+                    last = state
+            time.sleep(0.01)
+
+    def answer_stdin():
+        for line in sys.stdin:
+            if line.strip() == "readings" and built:
+                rs = built[0].resilience
+                kube_report({"readings": process_readings(),
+                             "ladder_moves": len(rs.ladder.transitions),
+                             "staleness_s":
+                                 built[0].scraper.staleness_seconds()})
+
+    for target in (watch_datastore, answer_stdin):
+        threading.Thread(target=target, daemon=True).start()
+    rc = main_mod.main(argv)
+    kube_report({"launches": {"fused_sinkhorn_plan":
+                              fused_sinkhorn_plan.launches,
+                              "fused_blend_topk": fused_blend_topk.launches},
+                 "waves": int(own_metrics.PIPELINE_WAVES.value()),
+                 "rc": rc})
+    return rc
+
+
+class KubeServer:
+    """A kube_main process and what its report said: `states` (datastore
+    changes), `readings`, and `final` (launches, waves) once it exits."""
+
+    def __init__(self, argv, log_path):
+        import queue as _queue
+
+        self.log_path = log_path
+        self.log = open(log_path, "w")
+        code = ("import sys, chip_smoke; "
+                "sys.exit(chip_smoke.kube_main(sys.argv[1:]))")
+        self.t_start = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", code] + list(argv),
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self.log,
+            text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.states, self.final = [], None
+        self._readings = _queue.Queue()
+        self._cond = threading.Condition()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            try:
+                obj = json.loads(line)["kube_report"]
+            except (ValueError, KeyError, TypeError):
+                continue
+            with self._cond:
+                if "readings" in obj:
+                    self._readings.put(obj)
+                elif "launches" in obj:
+                    self.final = obj
+                else:
+                    self.states.append(obj)
+                self._cond.notify_all()
+
+    def until(self, pred, timeout: float, what: str) -> dict:
+        """The first datastore state (from now on, or the newest) for
+        which pred(state) holds; fails with the log's tail after
+        `timeout` seconds."""
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while True:
+                for state in self.states[-1:]:
+                    if pred(state):
+                        return state
+                left = deadline - time.monotonic()
+                if left <= 0 or self.proc.poll() is not None:
+                    raise RuntimeError(
+                        f"kube: {what} not reached in {timeout} s (last "
+                        f"state: {self.states[-1:]}); log:\n"
+                        f"{tail(self.log_path)}")
+                self._cond.wait(min(left, 0.5))
+
+    def first_since(self, t0: float, pred):
+        """The first state stamped after t0 for which pred holds."""
+        with self._cond:
+            return next((s for s in self.states
+                         if s["t"] >= t0 and pred(s)), None)
+
+    def readings(self) -> dict:
+        self.proc.stdin.write("readings\n")
+        self.proc.stdin.flush()
+        return self._readings.get(timeout=60)
+
+    def stop(self) -> float:
+        """SIGTERM; -> seconds to exit (0 required within MAIN_EXIT_S)."""
+        import signal
+
+        t0 = time.monotonic()
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(MAIN_EXIT_S)
+        self._reader.join(30)
+        check(rc == 0 and self.final is not None,
+              f"kube: main exited {rc}; log:\n{tail(self.log_path)}")
+        return time.monotonic() - t0
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+        self.log.close()
+
+
+def kube_pod(name: str, ip: str, ready: bool = True) -> dict:
+    return {"kind": "Pod",
+            "metadata": {"name": name, "namespace": "default",
+                         "labels": {"app": "vllm"}},
+            "status": {"podIP": ip, "conditions": [
+                {"type": "Ready", "status": "True" if ready else "False"}]}}
+
+
+def kube_apiserver(fleet_port: int):
+    """tests/fakeapi.py's apiserver on a port of this run, holding the
+    pool (targetPorts: the stub fleet's port; endpointPickerRef: a Service
+    that exists), its Gateway, the model servers' Deployment and M ready
+    pods on the stub pods' addresses. Each watch it serves ends after
+    KUBE_WATCH_TIMEOUT_S (a real apiserver ends watches at its own
+    timeout), and watches refused with 410 Gone are counted in `gone`."""
+    import importlib.util
+
+    # By its path: a `tests` package installed on the machine would shadow
+    # the repo's tests/ directory (it has no __init__.py).
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "fakeapi.py")
+    spec = importlib.util.spec_from_file_location("fakeapi", path)
+    fakeapi = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fakeapi)
+    srv = fakeapi.FakeKubeApiServer(port=free_port())
+    serve_watch, srv.gone = srv._handle_watch, []
+
+    def handle_watch(handler, resource, ns, q):
+        if int(q.get("resourceVersion", "0") or 0) < srv._oldest_rv:
+            srv.gone.append(resource)
+        serve_watch(handler, resource, ns,
+                    {**q, "timeoutSeconds": str(KUBE_WATCH_TIMEOUT_S)})
+
+    srv._handle_watch = handle_watch
+    srv.apply("pools", {
+        "kind": "InferencePool",
+        "metadata": {"name": KUBE_POOL, "namespace": "default"},
+        "spec": {"selector": {"matchLabels": {"app": "vllm"}},
+                 "targetPorts": [{"number": fleet_port}],
+                 "endpointPickerRef": {"name": "epp",
+                                       "port": {"number": 9002}}}})
+    srv.apply("services", {"kind": "Service", "metadata": {
+        "name": "epp", "namespace": "default"}})
+    srv.apply("gateways", {"kind": "Gateway", "metadata": {
+        "name": "gw", "namespace": "default"}})
+    srv.deployment_spec = {
+        "replicas": KUBE_REPLICAS,
+        "selector": {"matchLabels": {"app": "vllm"}},
+        "template": {"metadata": {"labels": {"app": "vllm"}},
+                     "spec": {"containers": [{"name": "vllm",
+                                              "image": "vllm:stub"}]}}}
+    srv.apply("deployments", {
+        "kind": "Deployment",
+        "metadata": {"name": "vllm", "namespace": "default"},
+        "spec": json.loads(json.dumps(srv.deployment_spec))})
+    for i, ip in enumerate(fleet_ips(M)):
+        srv.apply("pods", kube_pod(f"vllm-{i}", ip))
+    return srv
+
+
+def kube_status_accepted(srv) -> bool:
+    """A status patch of the pool with Accepted and ResolvedRefs True for
+    the Gateway "gw"."""
+    for _ns, name, patch in list(srv.status_patches):
+        for parent in patch.get("status", {}).get("parents", []):
+            conds = {c["type"]: c["status"] for c in parent["conditions"]}
+            if (name == KUBE_POOL and parent["parentRef"]["name"] == "gw"
+                    and conds == {"Accepted": "True",
+                                  "ResolvedRefs": "True"}):
+                return True
+    return False
+
+
+def kube_round(server, name, w, barrier, results, readings=True) -> list:
+    """Release round w of the client processes; -> their outcomes, every
+    stream answered. Prints phase 6's server-round readings."""
+    before = server.readings() if readings else None
+    barrier.wait(600)
+    got = [results.get(timeout=900) for _ in range(CLIENTS)]
+    after = server.readings() if readings else None
+    check(all(g[0] == w for g in got), "kube: rounds out of step")
+    emit({"phase": "server-round", "config": name, "round": w,
+          "wall_s": max(g[3] for g in got) - min(g[2] for g in got),
+          "client_cpu_s": sum(g[4] for g in got),
+          "ladder_moves": after and after["ladder_moves"]
+          - before["ladder_moves"],
+          "staleness_s": after and after["staleness_s"],
+          "before": before and before["readings"],
+          "after": after and after["readings"]})
+    outcomes = [o for g in got for o in g[1]]
+    errs = [o[4] for o in outcomes if o[4]]
+    check(not errs and len(outcomes) == STREAMS_PER_ROUND,
+          f"kube {name} round {w}: {len(errs)} streams failed, first: "
+          f"{errs[:1]}")
+    for _, dest, _, _, _ in outcomes:
+        check(dest is not None and not dest.startswith("<"),
+              f"kube {name} round {w}: a stream got {dest}")
+    return outcomes
+
+
+def kube_servers(cfg, weights, tmp) -> dict:
+    """(a)-(c) and the main path of (e): the port's main --kube over the
+    fake apiserver and M stub pods, from phase 6's client processes."""
+    need_transport()
+    import multiprocessing
+
+    from gie_tpu_torch.runtime.health import SERVING
+    from gie_tpu_torch.sched import ProfileConfig
+
+    ctx = multiprocessing.get_context("spawn")
+    stop_fleet, ready = ctx.Event(), ctx.Queue()
+    procs = [ctx.Process(target=stub_fleet_process,
+                         args=(M, 19, ready, stop_fleet), daemon=True)]
+    procs[0].start()
+    srv, server, out = None, None, {}
+    try:
+        fleet_port = ready.get(timeout=120)
+        srv = kube_apiserver(fleet_port)
+        kubeconfig = f"{tmp}/kubeconfig.yaml"
+        with open(kubeconfig, "w") as f:
+            json.dump({"apiVersion": "v1", "kind": "Config",
+                       "current-context": "smoke",
+                       "contexts": [{"name": "smoke", "context": {
+                           "cluster": "fake", "user": "epp"}}],
+                       "clusters": [{"name": "fake",
+                                     "cluster": {"server": srv.url}}],
+                       "users": [{"name": "epp",
+                                  "user": {"token": "smoke-token"}}]}, f)
+        gport, hport, mport = free_port(), free_port(), free_port()
+
+        def clients(rounds):
+            """CLIENTS client processes for `rounds` against gport (a new
+            set per server: a channel whose server went away backs off)."""
+            barrier, results = ctx.Barrier(CLIENTS + 1), ctx.Queue()
+            for k in range(CLIENTS):
+                procs.append(ctx.Process(
+                    target=client_process,
+                    args=(gport, CHANNELS // CLIENTS, rounds, k,
+                          STREAMS_PER_ROUND, barrier, results), daemon=True))
+                procs[-1].start()
+            return barrier, results
+
+        barrier, results = clients(KUBE_ROUNDS)
+        hostports = {ip: f"{ip}:{fleet_port}" for ip in fleet_ips(M)}
+        everyone = sorted(hostports.values())
+        lease = ("leases", "default", f"{KUBE_POOL}-epp-leader")
+
+        def argv(config):
+            return ["--kube", "--kubeconfig", kubeconfig,
+                    "--pool-name", KUBE_POOL,
+                    "--publish-status-parents", "gw", "--leader-elect",
+                    "--scheduler-config", config, "--insecure-serving",
+                    "--grpc-port", str(gport), "--grpc-health-port",
+                    str(hport), "--metrics-port", str(mport),
+                    "--extproc-workers", str(EXTPROC_WORKERS),
+                    "--scrape-interval-ms", str(SCRAPE_INTERVAL_MS),
+                    *KUBE_AUTOSCALE]
+
+        def holder():
+            obj = srv._objects.get(lease)
+            return obj and obj["spec"].get("holderIdentity")
+
+        def serving():
+            try:
+                return health_status(hport, "readiness") == SERVING
+            except Exception:           # not listening yet
+                return False
+
+        def bring_up(name, config):
+            """(a): the pods from the watch alone, the Lease, readiness.
+            -> the server and its seconds from start to each."""
+            server = KubeServer(argv(config), f"{tmp}/kube-{name}.log")
+            filled = server.until(lambda s: s["candidates"] == everyone,
+                                  300, f"{name}: {M} ready pods")
+            kube_until(lambda: str(holder() or "").startswith(
+                f"{server.proc.pid}-"), 60, f"{name}: the Lease")
+            t_lease = time.monotonic() - server.t_start
+            kube_until(serving, 60, f"{name}: readiness SERVING")
+            return server, {"pods_in_s": filled["t"] - server.t_start,
+                            "lease_s": t_lease,
+                            "ready_s": time.monotonic() - server.t_start}
+
+        # -- (a) bring-up, tuned + use_pallas_sinkhorn ------------------
+        server, up = bring_up("sinkhorn", write_scheduler_config(
+            cfg, weights, tmp))
+        kube_until(lambda: kube_status_accepted(srv), 60,
+                   "an Accepted/ResolvedRefs status patch for gw")
+        up["status_s"] = time.monotonic() - server.t_start
+
+        # -- (c) --autoscale-mode apply --------------------------------
+        def deployment():
+            return srv._objects[("deployments", "default", "vllm")]["spec"]
+
+        kube_until(lambda: deployment()["replicas"] != KUBE_REPLICAS, 30,
+                   "the Deployment's replicas patch")
+        up["replicas_s"] = time.monotonic() - server.t_start
+        emit({"phase": "kube-up", "config": "tuned+use_pallas_sinkhorn",
+              **up, "status_patches": len(srv.status_patches),
+              "replicas": deployment()["replicas"]})
+
+        # -- (b) traffic, churn, relist --------------------------------
+        kube_round(server, "sinkhorn", -1, barrier, results)
+        burst = kube_round(server, "sinkhorn", 0, barrier, results)
+        check(all(o[1].split(",")[0] in everyone for o in burst),
+              "kube: a pick outside the pool's pods")
+        rng = np.random.default_rng(19)
+        churn = [int(i) for i in rng.permutation(M)[:2 * KUBE_CHURN]]
+        unready, deleted = churn[:KUBE_CHURN], churn[KUBE_CHURN:]
+        ips = fleet_ips(M)
+        gone = {hostports[ips[i]] for i in churn}
+        t0 = time.monotonic()
+        for i in unready:
+            srv.apply("pods", kube_pod(f"vllm-{i}", ips[i], ready=False))
+        for i in deleted:
+            srv.delete("pods", "default", f"vllm-{i}")
+        t_written = time.monotonic()
+        effect = server.until(lambda s: not gone & set(s["candidates"]), 60,
+                              "the churn applied")
+        first = server.first_since(t0, lambda s: gone & (
+            set(everyone) - set(s["candidates"])))
+        churned = kube_round(server, "sinkhorn", 1, barrier, results)
+        landed = [o[1] for o in churned
+                  if gone & set(o[1].split(","))]
+        check(not landed, f"kube: {len(landed)} picks on churned pods, "
+                          f"first {landed[:1]}")
+        deleted_hp = {hostports[ips[i]] for i in deleted}
+        check(not deleted_hp & set(effect["endpoints"]),
+              "kube: a deleted pod is still an endpoint")
+        # The relist: a window no watch streams (the lock keeps every
+        # watcher asleep) brings every churned pod back, then each
+        # watch's resume gets 410 Gone.
+        gone_before = len(srv.gone)
+        with srv._lock:
+            srv.compact()
+            for i in churn:
+                srv.apply("pods", kube_pod(f"vllm-{i}", ips[i]))
+            srv.compact()
+            t_compact = time.monotonic()
+        relisted = server.until(lambda s: s["candidates"] == everyone, 60,
+                                "the relist")
+        want = sorted(hostports[obj["status"]["podIP"]]
+                      for (r, _ns, _n), obj in list(srv._objects.items())
+                      if r == "pods")
+        check(relisted["candidates"] == want == everyone,
+              "kube: the relisted datastore differs from the apiserver's pods")
+        check(len(srv.gone) > gone_before and "pods" in srv.gone[gone_before:],
+              f"kube: no watch got 410 Gone: {srv.gone}")
+        after = kube_round(server, "sinkhorn", 2, barrier, results)
+        check(all(o[1].split(",")[0] in everyone for o in after),
+              "kube: a pick outside the pool's pods after the relist")
+        churn_rec = {
+            "churned": len(churn),
+            "first_effect_s": first and first["t"] - t0,
+            "event_to_effect_s": effect["t"] - t0,
+            "write_s": t_written - t0,
+            "picks_on_churned_after": len(landed),
+            "relist_s": relisted["t"] - t_compact,
+            "watch_410s": srv.gone[gone_before:],
+            "streams_per_round": STREAMS_PER_ROUND}
+        emit({"phase": "kube-churn", **churn_rec})
+
+        spec = deployment()
+        check(2 <= spec["replicas"] <= 8,
+              f"kube: the Deployment's replicas were not patched: {spec}")
+        check({k: v for k, v in spec.items() if k != "replicas"}
+              == {k: v for k, v in srv.deployment_spec.items()
+                  if k != "replicas"},
+              f"kube: the SSA patch changed more than replicas: {spec}")
+        exit_s = server.stop()
+        final = server.final
+        check(holder() == "", f"kube: the Lease was not released: {holder()}")
+        check(final["launches"]["fused_sinkhorn_plan"] == final["waves"] >= 1
+              and final["launches"]["fused_blend_topk"] == 0,
+              f"kube: launches {final['launches']} for {final['waves']} waves")
+        out["sinkhorn"] = {"launches": final["launches"],
+                           "waves": final["waves"], "exit_s": exit_s,
+                           "replicas": spec["replicas"], **up, **churn_rec}
+        server.close()
+
+        # -- the second server: topk + use_pallas_topk ------------------
+        barrier, results = clients((-1, 0))
+        topk = ProfileConfig(picker="topk", use_pallas_topk=True)
+        server, up = bring_up("topk", write_scheduler_config(topk, None,
+                                                             tmp))
+        kube_round(server, "topk", -1, barrier, results)
+        kube_round(server, "topk", 0, barrier, results)
+        exit_s = server.stop()
+        final = server.final
+        check(final["launches"]["fused_blend_topk"] == final["waves"] >= 1
+              and final["launches"]["fused_sinkhorn_plan"] == 0,
+              f"kube topk: launches {final['launches']} for "
+              f"{final['waves']} waves")
+        out["topk"] = {"launches": final["launches"], "waves": final["waves"],
+                       "exit_s": exit_s, **up}
+        server.close()
+        server = None
+    finally:
+        if server is not None:
+            server.close()
+        stop_fleet.set()
+        for proc in procs:
+            proc.join(30)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+        if srv is not None:
+            srv.close()
+    return out
+
+
+def kube_conformance(dev) -> dict:
+    """(d): the port's conformance suite in "rr" mode and in "tpu" mode
+    with the Scheduler on the card in both kernel configurations, each
+    case passing, the launches of each configuration's kernel counted;
+    then the routing case on the card against the same case on a CPU
+    Scheduler taking the same Gumbel draws: every response equal."""
+    from gie_tpu_torch.conformance import ConformanceEnv, suite
+    from gie_tpu_torch.ops.fused_sinkhorn import fused_sinkhorn_plan
+    from gie_tpu_torch.ops.fused_topk import fused_blend_topk
+    from gie_tpu_torch.runtime import metrics as own_metrics
+    from gie_tpu_torch.sched import ProfileConfig
+
+    configs = {
+        "rr": (None, None),
+        "sinkhorn": (ProfileConfig(picker="sinkhorn",
+                                   use_pallas_sinkhorn=True),
+                     fused_sinkhorn_plan),
+        "topk": (ProfileConfig(use_pallas_topk=True), fused_blend_topk),
+    }
+    out = {}
+    for name, (profile, kernel) in configs.items():
+        kwargs = ({"picker_mode": "rr"} if profile is None else
+                  {"picker_mode": "tpu", "device": dev, "profile": profile})
+        for fn in (fused_sinkhorn_plan, fused_blend_topk):
+            fn.launches = 0
+        waves0 = own_metrics.PIPELINE_WAVES.value()
+        t0 = time.monotonic()
+        report, errors = suite.run(**kwargs)
+        launches = {fn.__name__: fn.launches
+                    for fn in (fused_sinkhorn_plan, fused_blend_topk)}
+        waves = int(own_metrics.PIPELINE_WAVES.value() - waves0)
+        passed = [r.short_name for r in report.results if r.passed]
+        emit({"phase": "kube-conformance", "mode": kwargs["picker_mode"],
+              "config": name, "passed": len(passed),
+              "cases": len(report.results), "waves": waves,
+              "launches": launches, "seconds": time.monotonic() - t0})
+        check(not errors and len(passed) == len(suite.BASE_CASES)
+              + len(suite.OWN_CASES),
+              f"kube conformance {name}: failed {sorted(errors)}: "
+              + "".join(list(errors.values())[:1]))
+        if kernel is not None:
+            check(launches[kernel.__name__] == waves >= 1
+                  and sum(launches.values()) == waves,
+                  f"kube conformance {name}: launches {launches} for "
+                  f"{waves} waves")
+        out[name] = {"launches": launches, "waves": waves}
+
+    # The routing case on the card and on a CPU Scheduler, one seeded
+    # generator's Gumbel draws each.
+    replay = {}
+    for where in (dev, torch.device("cpu")):
+        env = ConformanceEnv(picker_mode="tpu", device=where,
+                             profile=configs["sinkhorn"][0],
+                             noise_source=storm_noise(where))
+        try:
+            for fn in (fused_sinkhorn_plan, fused_blend_topk):
+                fn.launches = 0
+            responses = suite.routing_conformance(env)
+            sched = env.epps[("default", "pool-tpu")].server.picker.scheduler
+            check(sched.device.type == where.type,
+                  f"kube routing: the Scheduler ran on {sched.device}")
+            replay[where.type] = [(r.status, r.backend_pod, r.headers)
+                                  for r in responses]
+            if where.type == "cuda":
+                routing_launches = fused_sinkhorn_plan.launches
+        finally:
+            env.close()
+    differ = sum(a != b for a, b in zip(replay["cuda"], replay["cpu"]))
+    emit({"phase": "kube-routing-replay", "responses": len(replay["cuda"]),
+          "differ": differ, "launches": routing_launches})
+    check(differ == 0 and len(replay["cuda"]) == len(replay["cpu"]),
+          f"kube routing: {differ} of {len(replay['cuda'])} responses "
+          "differ between the card and the CPU")
+    out["sinkhorn"]["launches"]["fused_sinkhorn_plan"] += routing_launches
+    return out
+
+
+def phase_kube(dev, cfg, weights, kernels, tmp) -> dict:
+    """Phase 19: (a)-(c) through the port's main --kube, (d) the
+    conformance suite, (e) the launches of both kernels."""
+    t0 = time.monotonic()
+    servers = kube_servers(cfg, weights, tmp)
+    conformance = kube_conformance(dev)
+    launches = {k: servers["sinkhorn"]["launches"][k]
+                + servers["topk"]["launches"][k]
+                + conformance["sinkhorn"]["launches"][k]
+                + conformance["topk"]["launches"][k] for k in kernels}
+    summary = {"phase": "kube", "seconds": time.monotonic() - t0,
+               "launches": launches, "servers": servers,
+               "conformance": conformance}
+    emit(summary)
+    for k in kernels:
+        check(launches[k] >= 1, f"kube: {k} not launched in phase 19")
+    return summary
+
+
 def tail(path: str, n: int = 4000) -> str:
     with open(path, errors="replace") as f:
         return f.read()[-n:]
@@ -5529,17 +6133,19 @@ def main() -> int:
         fleet = phase_fleet(dev, cfg, weights, kernels, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         pred = phase_predictor(dev, cfg, weights, kernels, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        kube = phase_kube(dev, cfg, weights, kernels, tmp)
 
     line = []
     for rec, phases, source, replaces in (
         (records["fused_sinkhorn_plan"],
          (sink, pick_sink, serve_sink, chaos_sink, warm_sink, pd_sink,
-          learn, ha, fed, fleet, pred),
+          learn, ha, fed, fleet, pred, kube),
          "gie_tpu_torch/ops/csrc/fused_sinkhorn.cu",
          "gie_tpu/ops/fused_sinkhorn.py:66"),
         (records["fused_blend_topk"],
          (topk, pick_topk, serve_topk, chaos_topk, warm_topk, pd_topk, kv,
-          fleet, pred),
+          fleet, pred, kube),
          "gie_tpu_torch/ops/csrc/fused_topk.cu",
          "gie_tpu/ops/fused_topk.py:80"),
     ):

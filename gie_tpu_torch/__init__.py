@@ -12,6 +12,13 @@ Package map (mirrors gie_tpu's names):
   convert.py  carries inputs and state across from/to the JAX package's
               numpy arrays
   utils/      test fixtures
+  api/, controller/, bbr/, conformance/
+              the kube slice: CRD types, CEL and CRDs, the kube watch
+              adapter and pool status, body-based routing, and the
+              conformance harness and suite over the port
+(and the host layers of the other slices: extproc/, runtime/,
+datastore/, metricsio/, resilience/, obs/, storm/, learn/,
+replication/, autoscale/, federation/, fleet/, models/, simulator/)
 
 Importing the package builds nothing: the kernels compile on first use on
 a CUDA tensor (gie_tpu_torch/ops/build.py).

@@ -4,7 +4,8 @@ reference CRDs): the pool's spec and status (parent conditions, the
 Exported condition), the import types the multi-cluster controller
 materializes, their manifest (de)serializers, and the literal band names
 of the objective header (which gie_tpu keeps in api/objectives.py). The
-gateway-route types come with the kube slice of the port.
+Gateway API types the conformance harness routes with are in
+api/gateway.py.
 """
 
 from __future__ import annotations

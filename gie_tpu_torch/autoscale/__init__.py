@@ -9,9 +9,8 @@ scheduler signals (port of gie_tpu/autoscale/).
   recommender.py — hysteresis-bounded replica recommendations (fast
                    scale-up on sustained shed, slow cooldown-gated
                    scale-down, min/max bounds, flap damping)
-  actuator.py    — the recommend-only (dry-run) actuator; writing the
-                   Deployment's replicas needs a kube client, which comes
-                   with the kube slice
+  actuator.py    — the leader-gated SSA patch of the Deployment's
+                   spec.replicas through the kube client, or a dry run
   controller.py  — the loop gluing the four together for the runner
 """
 

@@ -9,13 +9,6 @@ InferencePoolImport in every OTHER member cluster, recording the exporting
 cluster(s) in status.controllers, and maintains the pool's Exported
 condition (Exported / NotRequested / NotSupported,
 reference api/v1/inferencepool_types.go:352-379).
-
-The apiserver client (the reference's controller/kube.py
-KubeClusterClient) comes with the kube slice of the port: the controller
-takes any client with its surface (``_json``, ``subscribe``/``start``/
-``stop``, ``get_pool``, ``patch_pool_status``) whose errors carry the HTTP
-``status``, and keeps its own copy of the status patch body
-(``pool_status_to_dict``).
 """
 
 from __future__ import annotations
@@ -26,36 +19,6 @@ from typing import Optional
 
 from gie_tpu_torch.api import types as api
 from gie_tpu_torch.runtime.logging import get_logger
-
-def pool_status_to_dict(status: api.InferencePoolStatus) -> dict:
-    """InferencePoolStatus -> the status-subresource patch body's `status`
-    value (copy of gie_tpu/controller/kube.py's): manifest-shaped, empties
-    pruned, conditions without a lastTransitionTime stamped now."""
-    import dataclasses as _dc
-    import datetime as _dt
-
-    now = (
-        _dt.datetime.now(_dt.timezone.utc)
-        .replace(microsecond=0)
-        .isoformat()
-        .replace("+00:00", "Z")
-    )
-    parents = []
-    for p in status.parents:
-        d = _dc.asdict(p)
-        for cond in d.get("conditions", []):
-            if not cond.get("lastTransitionTime"):
-                cond["lastTransitionTime"] = now
-        parents.append(d)
-    return api.clean_manifest({"parents": parents})
-
-
-def _api_status(e: Exception):
-    """The HTTP status of an apiserver error response (the kube client's
-    ApiError), else None."""
-    status = getattr(e, "status", None)
-    return status if isinstance(status, int) else None
-
 
 CONTROLLER_NAME = "gie-tpu.inference.networking.k8s.io/multicluster"
 
@@ -249,6 +212,8 @@ class MultiClusterController:
                                cluster=cluster, err=e)
 
     def _handle(self, cluster: str, ev) -> None:
+        from gie_tpu_torch.controller.kube import ApiError, pool_status_to_dict
+
         cs = self.cluster_set
         if ev.type == "DELETED":
             cs.delete_pool(cluster, ev.namespace, ev.name)
@@ -270,8 +235,8 @@ class MultiClusterController:
                     try:
                         self.clients[cluster].patch_pool_status(
                             ev.namespace, ev.name, pool.status)
-                    except Exception as e:
-                        if _api_status(e) != 404:
+                    except ApiError as e:
+                        if e.status != 404:
                             raise
                         # Deleted between the event and the patch: the
                         # DELETED event is already behind us in the queue.
@@ -282,6 +247,8 @@ class MultiClusterController:
                 "/inferencepoolimports")
 
     def _push_imports(self) -> None:
+        from gie_tpu_torch.controller.kube import ApiError
+
         desired = dict(self.cluster_set.imports)
         for (cluster, ns, name), imp in desired.items():
             client = self.clients.get(cluster)
@@ -313,11 +280,15 @@ class MultiClusterController:
                 continue
             try:
                 client._json("DELETE", f"{self._imports_path(ns)}/{name}")
-            except Exception as e:
-                if _api_status(e) != 404:
+            except ApiError as e:
+                if e.status != 404:
                     self.log.error("import delete failed", cluster=cluster,
                                    name=name, err=e)
                     continue
                 # Already gone (out-of-band delete): the desired state
                 # holds — forget it rather than retrying a 404 forever.
+            except Exception as e:
+                self.log.error("import delete failed", cluster=cluster,
+                               name=name, err=e)
+                continue
             self._written.discard(key)

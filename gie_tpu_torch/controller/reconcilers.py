@@ -22,10 +22,6 @@ open streams complete against the live slot, and the slot reclaims at
 the bounded drain deadline or on the pod's actual deletion event,
 whichever arrives first. A pod that was never serving (or whose labels
 left the pool) still hard-deletes: there is nothing to drain.
-
-The informer pass-through (a watch event carrying the pod manifest) needs
-the kube adapter's pod_from_k8s, which comes with the kube slice of the
-port; until then such an event raises the port's not-ported error.
 """
 
 from __future__ import annotations
@@ -35,7 +31,6 @@ from typing import Optional
 
 from gie_tpu_torch.controller.cluster import ClusterClient, WatchEvent
 from gie_tpu_torch.datastore.datastore import Datastore
-from gie_tpu_torch.sched.profile import _not_ported
 from gie_tpu_torch.utils.kubemeta import GKNN
 from gie_tpu_torch.utils.podutil import is_pod_ready, to_endpoint_pool
 
@@ -86,8 +81,9 @@ class PodReconciler:
             # Informer-style pass-through: the watch/relist already carried
             # the manifest at this event's resourceVersion — no re-GET
             # (the reference gets this from controller-runtime's cache).
-            raise _not_ported("a pod manifest on a watch event "
-                              "(controller/kube.py pod_from_k8s)", "kube")
+            from gie_tpu_torch.controller.kube import pod_from_k8s
+
+            pod = pod_from_k8s(obj)
         else:
             pod = self.client.get_pod(namespace, name)
         if pod is None:

@@ -30,7 +30,6 @@ imports no protobuf, and re-exported here.
 from __future__ import annotations
 
 import dataclasses
-import json
 import math
 import re
 import time
@@ -40,6 +39,7 @@ from typing import Optional, Protocol
 from google.protobuf.message import DecodeError as _DecodeError
 
 from gie_tpu_torch import obs
+from gie_tpu_torch.bbr.chain import parse_body
 from gie_tpu_torch.extproc import codec, envoy, fieldscan, metadata, pb, wire, wirecodec
 from gie_tpu_torch.extproc.pick import (  # re-exported: defined without protobuf
     INTERNAL,
@@ -144,24 +144,24 @@ def _decode_tokens(
     return 0.0
 
 
-def _parse_body(body: bytes) -> Optional[dict]:
-    """The request path's single JSON parse (copy of
-    gie_tpu/bbr/chain.py:parse_body). The reference's StreamingServer also
-    takes an optional BBR plugin chain (proposal 1964) that no runner
-    wires; the port has no BBR package and no such seam."""
-    if not body:
-        return None
-    try:
-        obj = json.loads(body)
-    except (ValueError, UnicodeDecodeError):
-        return None
-    return obj if isinstance(obj, dict) else None
-
-
 class EndpointPicker(Protocol):
     """reference handlers/server.go:80-82."""
 
     def pick(self, req: PickRequest, candidates: list) -> PickResult: ...
+
+
+class RoundRobinPicker:
+    """reference handlers/server.go:85-101."""
+
+    def __init__(self) -> None:
+        self._i = 0
+
+    def pick(self, req: PickRequest, candidates: list) -> PickResult:
+        if not candidates:
+            raise ExtProcError(UNAVAILABLE, "no endpoints available")
+        self._i += 1
+        ep = candidates[self._i % len(candidates)]
+        return PickResult(endpoint=ep.hostport)
 
 
 @dataclasses.dataclass(slots=True)
@@ -314,7 +314,8 @@ class _HeadersTemplatePool:
     CommonResponse / HeaderMutation / N HeaderValueOptions / the
     dynamic-metadata Struct pyramid — from Python per request; only the
     VALUES differ between requests with the same key set (the overwhelming
-    majority: the two protocol keys). Here the skeleton is built once, serialized, and each request
+    majority: the two protocol keys, plus BBR's model header when a chain
+    runs). Here the skeleton is built once, serialized, and each request
     revives it with one C-level MergeFromString and patches the values.
     A fresh message per request, never a shared one: responses are queued
     for serialization by the gRPC layer (service.py) and held by test
@@ -452,7 +453,7 @@ class StreamingServer:
     (Envoy opens an ext-proc stream per request)."""
 
     def __init__(self, datastore, picker: EndpointPicker, on_served=None,
-                 transcode_h2c: bool = True,
+                 bbr_chain=None, transcode_h2c: bool = True,
                  on_response_complete=None, fast_lane: bool = True,
                  needed_headers=None, on_stream_aborted=None,
                  clock=None):
@@ -468,7 +469,8 @@ class StreamingServer:
         self._clock = (clock if clock is not None
                        else getattr(picker, "_clock", MONOTONIC))
         # Admission fast lane (docs/EXTPROC.md): zero-parse field scan
-        # instead of json.loads, needed-keys header copy, and pooled response templates. Off =
+        # instead of json.loads when the BBR chain can run from the scan,
+        # needed-keys header copy, and pooled response templates. Off =
         # the seed's build-everything-per-request path (--extproc-fast-
         # lane rollout flag); outputs are byte-identical either way.
         self.fast_lane = fast_lane
@@ -499,6 +501,10 @@ class StreamingServer:
         # (on_served will never fire for this stream) and records a
         # reset serve outcome against the primary endpoint's breaker.
         self.on_stream_aborted = on_stream_aborted
+        # Optional BBR plugin chain (proposal 1964): runs over the complete
+        # request body before the pick; its headers join the header mutation
+        # and its body mutation is forwarded chunked.
+        self.bbr_chain = bbr_chain
         # http-in -> gRPC-out transcoding for h2c pools (proposal 2162,
         # preferred detection: the observed InferencePool's appProtocol).
         self.transcode_h2c = transcode_h2c
@@ -902,13 +908,16 @@ class StreamingServer:
     def _pick_inner(self, ctx: RequestContext, body: Optional[bytes]) -> PickResult:
         """Admission core. Two lanes, byte-identical outputs:
 
-        fast   (fast_lane on): ZERO json.loads. The native scanner
+        fast   (fast_lane on, and the BBR chain — if any — can answer
+               from the field scan): ZERO json.loads. The native scanner
                (fieldscan) pulls model/stream/max_tokens in one pass; the
                body flows through untouched.
-        legacy (flag off, or the body will be transcoded): at most ONE
-               json.loads for the whole request path — the parse rides
-               into the decode-tokens extraction AND the transcoding
-               codec below.
+        legacy (flag off, or a plugin needs the parsed dict / mutates the
+               body): at most ONE json.loads for the whole request path —
+               the chain's shared parse (1964 README:59) rides into the
+               decode-tokens extraction AND the transcoding codec below,
+               which previously re-parsed the same bytes
+               (bbr/chain.py:78 + codec.py:108).
         """
         if ctx.deadline_at and deadline_mod.expired(
                 ctx.deadline_at, now=self._clock.now()):
@@ -918,6 +927,8 @@ class StreamingServer:
             # waiting for.
             own_metrics.DEADLINE_SHED.labels(stage="admission").inc()
             raise DeadlineExceeded("admission")
+        bbr_headers: dict[str, str] = {}
+        bbr_body: Optional[bytes] = None
         parsed: Optional[dict] = None
         scan: Optional[fieldscan.FieldScan] = None
         # gRPC transcoding (checked up front so the lane choice can see
@@ -930,22 +941,47 @@ class StreamingServer:
             and not codec.is_grpc_request(ctx.headers)
         )
         if self.fast_lane and body and not will_transcode:
-            scan = fieldscan.scan(body)
+            chain = self.bbr_chain
+            if chain is None:
+                scan = fieldscan.scan(body)
+            elif getattr(chain, "supports_scan", True):
+                # supports_scan is checked BEFORE scanning: a chain that
+                # statically cannot answer from the scan (a plugin without
+                # the execute_scanned hook) must not pay a wasted body
+                # pass per request on top of its full parse.
+                scan = fieldscan.scan(body)
+                scanned_headers = chain.execute_scanned(scan)
+                if scanned_headers is None:
+                    # THIS request needs the full parse (a body mutation
+                    # fires): run the legacy chain. One parse.
+                    scan = None
+                else:
+                    bbr_headers = scanned_headers
         if scan is None and body:
-            # The EPP owes the scheduler its output-length hint; this is
-            # the request path's one parse.
-            parsed = _parse_body(body)
+            if self.bbr_chain is not None:
+                with tracing.span("extproc.bbr"):
+                    bbr_headers, bbr_body, parsed = self.bbr_chain.execute(body)
+            else:
+                # No BBR chain: the EPP still owes the scheduler its
+                # output-length hint; this is the request path's one parse
+                # (same at-most-once contract as the chain's).
+                parsed = parse_body(body)
         # Lane label = the rollout flag, not the per-request parse path:
         # templates and the needed-keys header scan apply flag-wide, and
-        # dashboards compare deployments by flag setting. (A
+        # dashboards compare deployments by flag setting. (A chain- or
         # transcode-forced full parse under the flag still reports fast.)
         ctx.lane = "fast" if self.fast_lane else "legacy"
-        # Model precedence: the upstream rewrite header (proposal 1816)
-        # beats the raw BODY model; without the body model LoRA-affinity
-        # scheduling would be blind to adapter identity. Both lanes read
-        # the same value: the zero-parse scan when it is valid, else the
-        # shared parse (scan/parse model equality is pinned by
-        # tests/test_fieldscan.py).
+        # Model precedence: an explicit rewrite (from BBR's rewrite plugin,
+        # else the upstream rewrite header) beats the chain-extracted
+        # model header, which beats the raw BODY model (proposal 1816
+        # rewrite > 1964 extraction). The body fallback matters when no
+        # BBR chain runs (demo/storm deployments): without it the pick
+        # request carried model="" — LoRA-affinity scheduling went blind
+        # to adapter identity and the flight-recorder records (the
+        # TraceReplay/trainer substrate) recorded no model at all. Both
+        # lanes read the same value: the zero-parse scan when it is
+        # valid, else the shared parse (scan/parse model equality is
+        # pinned by tests/test_fieldscan.py).
         rewrite = ctx.headers.get(metadata.MODEL_NAME_REWRITE_KEY)
         body_model = ""
         if scan is not None and scan.valid and isinstance(scan.model, str):
@@ -954,11 +990,16 @@ class StreamingServer:
             pm = parsed.get("model")
             if isinstance(pm, str):
                 body_model = pm
-        model = (rewrite[0] if rewrite else "") or body_model
+        model = (
+            bbr_headers.get(metadata.MODEL_NAME_REWRITE_KEY)
+            or (rewrite[0] if rewrite else "")
+            or bbr_headers.get(metadata.MODEL_NAME_HEADER)
+            or body_model
+        )
         result = self.picker.pick(
             PickRequest(
                 headers=ctx.headers,
-                body=body,
+                body=bbr_body if bbr_body is not None else body,
                 model=model,
                 decode_tokens=_decode_tokens(ctx.headers, parsed, scan),
                 deadline_at=ctx.deadline_at,
@@ -967,17 +1008,28 @@ class StreamingServer:
             ),
             ctx.candidates,
         )
+        if result.extra_headers:
+            result.extra_headers = {**bbr_headers, **result.extra_headers}
+        elif bbr_headers:
+            # bbr_headers is a fresh per-request dict (chain.execute /
+            # execute_scanned build it); handing it over avoids a copy.
+            result.extra_headers = bbr_headers
+        if result.mutated_body is None and bbr_body is not None:
+            result.mutated_body = bbr_body
 
         # http-in -> gRPC-out (proposal 2162): JSON clients talking to an
-        # h2c/gRPC pool get their completion body reframed as a gRPC
-        # GenerateRequest. gRPC-in clients pass through.
+        # h2c/gRPC pool get their (possibly BBR-mutated) completion body
+        # reframed as a gRPC GenerateRequest. gRPC-in clients pass through.
         if will_transcode:
             source = result.mutated_body if result.mutated_body is not None else body
             # At-most-once parse: hand the codec the dict this request
-            # already paid for — valid only when `source` IS the raw body
-            # (a picker-supplied mutated_body is not).
+            # already paid for — valid only when `source` IS the bytes
+            # that dict came from (the raw body, or the chain's final
+            # mutation; a picker-supplied mutated_body is neither).
             framed, stream_requested, model_name = codec.json_to_generate_request(
-                source, parsed=parsed if source is body else None)
+                source,
+                parsed=parsed if (source is body or source is bbr_body) else None,
+            )
             if framed is not None:
                 ctx.stream_requested = stream_requested
                 ctx.transcoding = True

@@ -3,17 +3,20 @@ cmd/lwepp/main.go:36-116).
 
     python -m gie_tpu_torch.runtime.main --pool-name my-pool --demo \
         --no-resilience --no-obs
+    python -m gie_tpu_torch.runtime.main --pool-name my-pool --kube \
+        --kubeconfig ~/.kube/config --publish-status-parents my-gateway
 
-The scheduler runs on the CUDA card. --kube (the kube slice) is refused
-here, and the runner refuses the other flags of later slices
-(runner.refuse_out_of_slice).
+The scheduler runs on the CUDA card. The runner refuses the one flag a
+later slice of the port brings (runner.refuse_out_of_slice).
 
-Without a real kube-apiserver in this environment, the ClusterClient seam
-(gie_tpu/controller/cluster.py) is served either by an external integration
-(a kubernetes watch adapter implementing ClusterClient) or — with --demo —
-by an in-process FakeCluster populated with simulated vLLM pods whose
-/metrics endpoints are real HTTP servers backed by VLLMStub dynamics, so the
-whole binary is drivable end to end on one machine.
+The ClusterClient seam (controller/cluster.py) is served either by a real
+kube-apiserver — with --kube, the stdlib list/watch adapter of
+controller/kube.py (in-cluster service account, or --kubeconfig), which
+also carries the pool status publication (--publish-status-parents), the
+Lease elector and the autoscale actuator's patch — or, with --demo, by an
+in-process FakeCluster populated with simulated vLLM pods whose /metrics
+endpoints are real HTTP servers backed by VLLMStub dynamics, so the whole
+binary is drivable end to end on one machine.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ import argparse
 import signal
 import sys
 import threading
+
+# Seconds between two pool status publications (--publish-status-parents).
+STATUS_INTERVAL_S = 10.0
 
 
 def _demo_cluster(opts, n_pods: int):
@@ -142,25 +148,66 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     opts = Options.from_args(args)
     opts.validate()
-    # Refuse what later slices of the port bring before anything starts.
-    if args.kube:
-        from gie_tpu_torch.sched.profile import _not_ported
-
-        raise _not_ported("--kube (controller/kube.py)", "kube")
+    # Refuse what a later slice of the port brings before anything starts.
     refuse_out_of_slice(opts)
     set_verbosity(opts.verbosity)
     log = get_logger("main")
 
-    if not args.demo:
+    kube_client = None
+    if args.demo:
+        cluster = _demo_cluster(opts, args.demo_pods)
+    elif args.kube:
+        from gie_tpu_torch.controller.kube import KubeClusterClient
+
+        kube_client = KubeClusterClient(
+            opts.pool_namespace, opts.pool_name, kubeconfig=args.kubeconfig
+        )
+        cluster = kube_client
+    else:
         log.error(
-            "no cluster integration configured; run with --demo (simulated)"
+            "no cluster integration configured; run with --demo (simulated) "
+            "or --kube (real apiserver over stdlib HTTP list/watch)"
         )
         return 2
-    cluster = _demo_cluster(opts, args.demo_pods)
+
+    if opts.autoscale_mode == "apply" and kube_client is None:
+        # The demo FakeCluster has no apiserver to patch; the actuator
+        # degrades to metrics-only and every apply counts as no_target.
+        log.error(
+            "--autoscale-mode apply needs --kube (an apiserver to patch "
+            "spec.replicas on); running recommend-only against the demo "
+            "cluster"
+        )
 
     runner = ExtProcServerRunner(opts, cluster)
     runner.setup()
+    if kube_client is not None:
+        kube_client.start()  # watches begin after reconcilers subscribe
     runner.start()
+
+    status_stop = None
+    if kube_client is not None and args.publish_status_parents:
+        # Periodic parent-condition publication (controller/status.py):
+        # unchanged cycles skip the patch, so the loop is churn-free.
+        from gie_tpu_torch.controller.status import PoolStatusController
+
+        status_ctrl = PoolStatusController(
+            kube_client, opts.pool_namespace, opts.pool_name,
+            parents=[p.strip()
+                     for p in args.publish_status_parents.split(",")
+                     if p.strip()],
+            service_exists=kube_client.service_exists,
+        )
+        status_stop = threading.Event()
+
+        def status_loop():
+            while not status_stop.wait(STATUS_INTERVAL_S):
+                try:
+                    status_ctrl.reconcile()
+                except Exception as e:  # status must never take us down
+                    log.error("pool status publication failed", err=e)
+
+        threading.Thread(target=status_loop, daemon=True).start()
 
     stop = threading.Event()
 
@@ -172,6 +219,10 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGINT, on_signal)
     log.info("serving", pool=opts.pool_name)
     stop.wait()
+    if status_stop is not None:
+        status_stop.set()
+    if kube_client is not None:
+        kube_client.stop()
     runner.stop()
     return 0
 

@@ -28,12 +28,14 @@ served and response-complete feedback, SLO admission in the picker, a
 train thread that hands its params to the scheduler and phases the
 column in, --predictor-checkpoint-dir, the autoscale loop's TTFT probe
 and the replication digest's "predictor" section; the cycle binds the
-column only when --scheduler-config gives weights.latency > 0).
-Subsystems that later slices of the port bring are refused at
+column only when --scheduler-config gives weights.latency > 0), and so
+are the kube deployment's pieces: over a kube cluster client (main's
+--kube) --leader-elect elects on a coordination.k8s.io Lease
+(KubeLeaseElector) and --autoscale-mode apply SSA-patches the target
+Deployment's spec.replicas. The one subsystem a later slice of the port
+brings, the multi-device mesh (--mesh-devices), is refused at
 construction with the port's not-ported error, never skipped silently
-(`refuse_out_of_slice`): the multi-device mesh (--mesh-devices), and the
-kube slice's actuation (--autoscale-mode apply) and Lease elector
-(--leader-elect over a kube cluster client; main refuses --kube itself).
+(`refuse_out_of_slice`).
 """
 
 from __future__ import annotations
@@ -86,7 +88,7 @@ from gie_tpu_torch.resilience import (
 from gie_tpu_torch.runtime import metrics as own_metrics
 from gie_tpu_torch.replication import ReplicationManager, replication_identity
 from gie_tpu_torch.runtime.health import HealthService, start_dedicated_health_server
-from gie_tpu_torch.runtime.leader import LeaseFileElector
+from gie_tpu_torch.runtime.leader import KubeLeaseElector, LeaseFileElector
 from gie_tpu_torch.runtime.logging import get_logger
 from gie_tpu_torch.runtime.options import Options
 from gie_tpu_torch.runtime.tls import server_credentials
@@ -99,18 +101,11 @@ from gie_tpu_torch.utils.kubemeta import GKNN
 from gie_tpu_torch.utils.lora import LoraRegistry
 
 
-def refuse_out_of_slice(opts: Options, cluster=None) -> None:
-    """Raise the port's not-ported error for the first option whose
-    subsystem a later slice of the port brings (ROADMAP.md, Queue 1)."""
-    refusals = (
-        (opts.leader_elect and hasattr(cluster, "_json"),
-         "--leader-elect on a kube Lease (KubeLeaseElector)", "kube"),
-        (opts.autoscale_mode == "apply", "--autoscale-mode apply", "kube"),
-        (opts.mesh_devices > 1, "--mesh-devices", "mesh"),
-    )
-    for refused, what, key in refusals:
-        if refused:
-            raise _not_ported(what, key)
+def refuse_out_of_slice(opts: Options) -> None:
+    """Raise the port's not-ported error for an option whose subsystem a
+    later slice of the port brings (ROADMAP.md, Queue 1)."""
+    if opts.mesh_devices > 1:
+        raise _not_ported("--mesh-devices", "mesh")
 
 
 class ExtProcServerRunner:
@@ -120,7 +115,7 @@ class ExtProcServerRunner:
         cluster: ClusterClient,
         scheduler: Optional[Scheduler] = None,
     ):
-        refuse_out_of_slice(opts, cluster)
+        refuse_out_of_slice(opts)
         self.opts = opts
         self.log = get_logger("runner")
         self.cluster = cluster
@@ -386,6 +381,9 @@ class ExtProcServerRunner:
         the reference's runner builds them (gie_tpu/runtime/runner.py
         :355-496)."""
         self.elector = None
+        # A kube cluster client (main's --kube): anything exposing the
+        # stdlib adapter's _json HTTP core.
+        kube = self.cluster if hasattr(self.cluster, "_json") else None
         # With replication enabled, the elector's holder identity carries
         # this replica's advertised digest address — the lease doubles as
         # the followers' leader-discovery channel.
@@ -396,14 +394,21 @@ class ExtProcServerRunner:
                 or f"{opts.replication_bind}:{opts.replication_port}")
             repl_identity = replication_identity(repl_advertise)
         if opts.leader_elect:
-            # The file lease (a kube cluster's Lease elector comes with
-            # the kube slice; refuse_out_of_slice refuses that case).
-            self.elector = LeaseFileElector(
-                opts.leader_lease_path, identity=repl_identity)
-        # Closed-loop replica control behind --autoscale-mode recommend:
-        # the collector differentiates the pick path's own counters, the
-        # recommender sizes the pool, and the dry-run actuator exports
-        # gie_autoscale_* without writing.
+            # Kube deployments elect on a coordination.k8s.io Lease; the
+            # file lease covers single-host/demo runs.
+            if kube is not None:
+                self.elector = KubeLeaseElector(
+                    kube, opts.pool_namespace,
+                    f"{opts.pool_name}-epp-leader",
+                    identity=repl_identity)
+            else:
+                self.elector = LeaseFileElector(
+                    opts.leader_lease_path, identity=repl_identity)
+        # Closed-loop replica control behind --autoscale-mode: the
+        # collector differentiates the pick path's own counters, the
+        # recommender sizes the pool, and the actuator SSA-patches the
+        # target Deployment (apply mode; leader-gated) or just exports
+        # gie_autoscale_* (recommend mode).
         self.autoscaler = None
         self.capacity_model = None
         if opts.autoscale_mode != "off":
@@ -437,8 +442,8 @@ class ExtProcServerRunner:
             is_leader = (self.elector.is_leader
                          if self.elector is not None else None)
             actuator = ReplicaActuator(
-                None, opts.pool_namespace, opts.autoscale_target,
-                dry_run=True, is_leader=is_leader)
+                kube, opts.pool_namespace, opts.autoscale_target,
+                dry_run=opts.autoscale_mode != "apply", is_leader=is_leader)
             # The TTFT probe reads the latency predictor's trainer: the
             # capacity model's SLO cross-check.
             self.autoscaler = AutoscaleController(

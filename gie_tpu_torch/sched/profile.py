@@ -54,7 +54,6 @@ log = logging.getLogger(__name__)
 # rejects at construction.
 _LATER = {
     "mesh": "the multi-device slice",
-    "kube": "the kube slice",
 }
 
 

@@ -24,8 +24,9 @@ reference's (gie_tpu.autoscale) on the CPU.
   actuator     the dry run's outcomes equal the reference's;
   runner       --autoscale-mode recommend, --replication-port and
                --leader-elect build and start the runner (readiness gated
-               on leadership, gie_autoscale_* on /metrics); apply and a
-               kube cluster raise the not-ported error.
+               on leadership, gie_autoscale_* on /metrics); over a kube
+               cluster client --autoscale-mode apply builds a writing
+               actuator and --leader-elect a Lease elector.
 """
 
 import dataclasses
@@ -343,8 +344,9 @@ def test_actuator_dry_run_matches_the_reference():
     assert cases[0] == cases[1]
     assert {"noop", "dry_run", "not_leader", "no_target"} == set(
         c for c in cases[0] if c is not None)
-    with pytest.raises(NotImplementedError, match="the kube slice"):
-        actuator.ReplicaActuator(object(), "ns", "deploy")
+    # A kube client is taken (the kube slice): the actuator writes to it.
+    client = object()
+    assert actuator.ReplicaActuator(client, "ns", "deploy").client is client
 
 
 def _free_port() -> int:
@@ -426,7 +428,11 @@ def test_runner_builds_and_serves_with_autoscale_replication_and_lease(
     (["--leader-elect"], "KubeLeaseElector"),
 ])
 def test_runner_refuses_the_kube_slices_actuation_and_lease(argv, what):
+    """The kube slice is ported: over a kube cluster client the runner
+    builds the writing actuator and the Lease elector it used to refuse
+    (construction calls the apiserver for neither)."""
     from gie_tpu_torch.controller import FakeCluster
+    from gie_tpu_torch.runtime.leader import KubeLeaseElector
     from gie_tpu_torch.runtime.runner import ExtProcServerRunner
     from gie_tpu_torch.sched import Scheduler
 
@@ -436,7 +442,15 @@ def test_runner_refuses_the_kube_slices_actuation_and_lease(argv, what):
 
     opts = _options(["--pool-name", "p", "--no-resilience", "--no-obs"]
                     + argv)
-    with pytest.raises(NotImplementedError, match="the kube slice") as e:
-        ExtProcServerRunner(opts, KubeCluster(),
-                            scheduler=Scheduler(device="cpu"))
-    assert what in str(e.value)
+    cluster = KubeCluster()
+    runner = ExtProcServerRunner(opts, cluster,
+                                 scheduler=Scheduler(device="cpu"))
+    try:
+        if what == "KubeLeaseElector":
+            assert isinstance(runner.elector, KubeLeaseElector)
+            assert runner.elector.client is cluster
+        else:
+            actuator = runner.autoscaler.actuator
+            assert actuator.client is cluster and not actuator.dry_run
+    finally:
+        runner.stop()

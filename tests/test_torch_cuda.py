@@ -35,7 +35,10 @@ fleet wave makes no synchronizing call. With the latency predictor's
 column, a warmed wave makes no synchronizing call, a parameter handoff
 reaches the next replay without a capture, predict_ttft does not wait
 behind a queued wave, and a train step on the card is within the stated
-tolerance of the CPU's."""
+tolerance of the CPU's. The port's conformance suite passes every case
+with its "tpu" EPPs' Scheduler on the card in both kernel configurations,
+one kernel launch a wave, and its routing case answers as on a CPU
+Scheduler taking the same Gumbel draws."""
 
 import dataclasses
 import threading
@@ -1774,3 +1777,52 @@ def test_train_step_on_card_within_cpu_tolerance(dev):
         close += int((diff <= 1e-5).sum())
         total += diff.numel()
     assert close >= 0.99 * total
+
+
+CONFORMANCE_PROFILES = {
+    "sinkhorn-kernel": (ProfileConfig(picker="sinkhorn",
+                                      use_pallas_sinkhorn=True),
+                        fused_sinkhorn_plan),
+    "topk-kernel": (ProfileConfig(use_pallas_topk=True), fused_blend_topk),
+}
+
+
+@pytest.mark.parametrize("config", sorted(CONFORMANCE_PROFILES))
+def test_conformance_suite_on_card(dev, config):
+    from gie_tpu_torch.conformance import suite
+    from gie_tpu_torch.runtime import metrics as own_metrics
+
+    profile, kernel = CONFORMANCE_PROFILES[config]
+    before = kernel.launches
+    waves0 = own_metrics.PIPELINE_WAVES.value()
+    report, errors = suite.run(picker_mode="tpu", device=dev,
+                               profile=profile)
+    assert errors == {}
+    assert all(r.passed for r in report.results)
+    waves = own_metrics.PIPELINE_WAVES.value() - waves0
+    assert kernel.launches - before == waves >= 1
+
+
+def test_conformance_routing_on_card_as_on_the_cpu(dev):
+    from gie_tpu_torch.conformance import ConformanceEnv, suite
+
+    def noise(where):
+        gen = torch.Generator()
+        gen.manual_seed(19)
+        return lambda shape: gumbel_noise(shape, gen, torch.device("cpu")).to(
+            where)
+
+    got = []
+    for where in (dev, torch.device("cpu")):
+        env = ConformanceEnv(
+            picker_mode="tpu", device=where,
+            profile=CONFORMANCE_PROFILES["sinkhorn-kernel"][0],
+            noise_source=noise(where))
+        try:
+            got.append([(r.status, r.backend_pod, r.headers)
+                        for r in suite.routing_conformance(env)])
+            picker = env.epps[("default", "pool-tpu")].server.picker
+            assert picker.scheduler.device.type == where.type
+        finally:
+            env.close()
+    assert got[0] == got[1]

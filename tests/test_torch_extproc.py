@@ -5,8 +5,8 @@ stub picker leave both StreamingServers with byte-equal responses, on every
 lane (legacy, fast, wire) and frame kind (headers only, headers + body,
 response headers, shed 429, deadline 503, subset hint, unavailable, and a
 body transcoded to gRPC for an h2c pool); and
-the port's runner and main refuse, naming their slice, what later slices
-of the port bring.
+the port's runner and main refuse, naming their slice, what a later slice
+of the port brings (--mesh-devices), and build the kube slice's pieces.
 """
 
 import argparse
@@ -255,7 +255,7 @@ LIVE = ["--no-resilience", "--no-obs"]
 # (argv, the _LATER key of the slice it is refused until, or None where
 # the runner builds: the resilience and observability layers, both on by
 # default, --fault arming, the KV-event listener, the learned scorer, the
-# file-lease elector, replication, the recommend-only autoscale loop,
+# file-lease elector, replication, the autoscale loop in both modes,
 # federation and the fleet picker are ported).
 REFUSED = [
     ([], None),                                 # resilience + obs on
@@ -263,7 +263,9 @@ REFUSED = [
     (LIVE + ["--leader-elect"], None),
     (LIVE + ["--replication-port", "19100"], None),
     (LIVE + ["--autoscale-mode", "recommend"], None),
-    (LIVE + ["--autoscale-mode", "apply"], "kube"),
+    # Ported: with no kube cluster client the actuator has nothing to
+    # patch and every apply counts as no_target, as in the reference.
+    (LIVE + ["--autoscale-mode", "apply"], None),
     (LIVE + ["--fed-cluster", "east", "--fed-peer", "w=http://w:1"], None),
     (LIVE + ["--fed-drain", "--fed-cluster", "east"], None),
     (LIVE + ["--kv-events-port", "19300"], None),
@@ -317,7 +319,11 @@ def test_runner_refuses_out_of_slice(argv, key, tmp_path):
             assert ((runner.replication is not None)
                     == (opts.replication_port > 0))
             assert ((runner.autoscaler is not None)
-                    == (opts.autoscale_mode == "recommend"))
+                    == (opts.autoscale_mode != "off"))
+            if runner.autoscaler is not None:
+                actuator = runner.autoscaler.actuator
+                assert actuator.client is None
+                assert actuator.dry_run == (opts.autoscale_mode != "apply")
             fed = bool(opts.fed_peers or opts.fed_drain)
             assert (runner.federation is not None) == fed
             assert runner.picker.federation is runner.federation
@@ -349,23 +355,50 @@ def test_fault_scenario_refused_at_validate():
         opts.validate()
 
 
-def test_main_refuses_kube():
+def test_main_refuses_kube(tmp_path, monkeypatch):
+    """main --kube builds the kube adapter, which refuses to start with no
+    kubeconfig outside a cluster (as the reference's does); the multi-
+    device mesh is still refused before anything starts."""
+    from gie_tpu_torch.controller import kube
     from gie_tpu_torch.runtime.main import main
 
-    with pytest.raises(NotImplementedError, match="the kube slice"):
+    monkeypatch.delenv("KUBERNETES_SERVICE_HOST", raising=False)
+    monkeypatch.setattr(kube, "_SA_DIR", str(tmp_path / "no-sa"))
+    with pytest.raises(RuntimeError, match="no usable Kubernetes"):
         main(["--kube", "--pool-name", "p", "--insecure-serving"] + LIVE)
+    with pytest.raises(NotImplementedError, match=_LATER["mesh"]):
+        main(["--kube", "--pool-name", "p", "--mesh-devices", "2"] + LIVE)
 
 
 def test_pod_manifest_event_refused():
-    from gie_tpu_torch.controller import FakeCluster, PodReconciler
-    from gie_tpu_torch.datastore import Datastore
-    from gie_tpu_torch.datastore.objects import EndpointPool
-
-    ds = Datastore()
-    ds.pool_set(EndpointPool({"app": "v"}, [8000], "default"))
-    rec = PodReconciler(FakeCluster(), ds)
-    with pytest.raises(NotImplementedError, match="the kube slice"):
-        rec.reconcile("default", "p0", obj={"metadata": {"name": "p0"}})
+    """A pod manifest riding on a watch event (the informer pass-through)
+    is no longer refused: both packages reconcile the same manifests,
+    readiness, labels and deletion included, into the same endpoints."""
+    got = []
+    for pkg in PKGS:
+        controller = _mod(pkg, "controller")
+        objects = _mod(pkg, "datastore.objects")
+        ds = _mod(pkg, "datastore").Datastore()
+        ds.pool_set(objects.EndpointPool({"app": "v"}, [8000], "default"))
+        rec = controller.PodReconciler(controller.FakeCluster(), ds)
+        seen = []
+        for i, (ready, app, deleting) in enumerate((
+                (True, "v", False), (False, "v", False), (True, "w", False),
+                (True, "v", True), (True, "v", False))):
+            meta = {"name": f"p{i % 4}", "namespace": "default",
+                    "labels": {"app": app}}
+            if deleting:
+                meta["deletionTimestamp"] = "2026-01-01T00:00:00Z"
+            rec.reconcile("default", meta["name"], obj={
+                "metadata": meta, "status": {
+                    "podIP": f"127.7.0.{i + 1}", "conditions": [{
+                        "type": "Ready",
+                        "status": "True" if ready else "False"}]}})
+            seen.append((sorted(e.hostport for e in ds.endpoints()),
+                         sorted(e.hostport for e in ds.pick_candidates())))
+        got.append(seen)
+    assert got[1] == got[0]
+    assert got[1][0] == (["127.7.0.1:8000"], ["127.7.0.1:8000"])
 
 
 def test_pd_scheduler_config_builds_a_pd_runner(tmp_path, monkeypatch):

@@ -30,8 +30,11 @@ print(json.dumps(sorted(sys.modules)))
 
 
 # Never imported by the port, the ext-proc transport included: its
-# collector and exposition are its own (runtime/metrics.py).
-_FOREIGN = ("jax", "jaxlib", "flax", "gie_tpu", "prometheus_client")
+# collector and exposition are its own (runtime/metrics.py), and its
+# conformance harness is gie_tpu_torch/conformance, never the top-level
+# conformance package (which imports gie_tpu).
+_FOREIGN = ("jax", "jaxlib", "flax", "gie_tpu", "prometheus_client",
+            "conformance")
 
 
 def test_import_pulls_in_no_jax_and_no_gie_tpu():
@@ -53,7 +56,13 @@ def test_import_pulls_in_no_jax_and_no_gie_tpu():
                  "gie_tpu_torch.storm.__main__",
                  "gie_tpu_torch.fleet.picker",
                  "gie_tpu_torch.models.latency",
-                 "gie_tpu_torch.simulator.cluster"):
+                 "gie_tpu_torch.simulator.cluster",
+                 "gie_tpu_torch.controller.kube",
+                 "gie_tpu_torch.controller.status",
+                 "gie_tpu_torch.api.cel", "gie_tpu_torch.api.crdgen",
+                 "gie_tpu_torch.bbr.chain",
+                 "gie_tpu_torch.conformance.harness",
+                 "gie_tpu_torch.conformance.multicluster"):
         assert name in loaded
     forbidden = [
         name for name in loaded
@@ -76,10 +85,11 @@ def test_source_scan_finds_no_jax_or_gie_tpu_import():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 15
     # Every subpackage is in the scan, the fleet picker's, the latency
-    # predictor's and the simulator's included.
+    # predictor's, the simulator's and the kube slice's included.
     assert {f.parent.name for f in files} >= {"fleet", "federation",
                                               "sched", "storm", "models",
-                                              "simulator"}
+                                              "simulator", "api", "bbr",
+                                              "controller", "conformance"}
     assert {PKG / "models" / "latency.py",
             PKG / "simulator" / "cluster.py"} <= set(files)
     bad = [
@@ -138,7 +148,8 @@ def test_formerly_refused_config_builds(kwargs):
 
 
 # (Scheduler keyword, the slice that brings it, the error it raises or
-# None where the Scheduler takes it: the latency predictor is ported).
+# None where the Scheduler takes it: the latency predictor is ported; the
+# mesh is the one thing a later slice brings, _LATER holds nothing else).
 SCHEDULER_ARGS = [
     ({"predictor_fn": "predictor_score_fn"}, "latency-predictor", None),
     ({"mesh": object()}, "multi-device", NotImplementedError),
@@ -149,6 +160,9 @@ SCHEDULER_ARGS = [
     "kwargs, slice_name, raises", SCHEDULER_ARGS,
     ids=[f"kwargs{i}-{name}" for i, (_, name, _) in enumerate(SCHEDULER_ARGS)])
 def test_out_of_slice_scheduler_arg_raises(kwargs, slice_name, raises):
+    from gie_tpu_torch.sched.profile import _LATER
+
+    assert set(_LATER) == {"mesh"}
     if raises is None:
         from gie_tpu_torch.models.latency import (
             LatencyPredictor,
@@ -261,3 +275,72 @@ def test_out_of_slice_picker_arg_raises(kwargs, slice_name, raises):
     with pytest.raises(raises, match=slice_name):
         BatchingTPUPicker(Scheduler(device="cpu"), Datastore(),
                           MetricsStore(), **kwargs)
+
+
+# (argv of the port's runner, the slice that brings it, the error it
+# raises or None where the runner builds: the kube slice's Lease elector
+# and applying actuator are ported; --mesh-devices is still refused).
+RUNNER_ARGS = [
+    (["--autoscale-mode", "apply"], "kube", None),
+    (["--leader-elect"], "kube", None),
+    (["--mesh-devices", "2"], "multi-device", NotImplementedError),
+]
+
+
+@pytest.mark.parametrize(
+    "argv, slice_name, raises", RUNNER_ARGS,
+    ids=[" ".join(a) for a, _, _ in RUNNER_ARGS])
+def test_out_of_slice_runner_option_raises(argv, slice_name, raises):
+    import argparse
+
+    from gie_tpu_torch.controller import FakeCluster
+    from gie_tpu_torch.runtime.options import Options
+    from gie_tpu_torch.runtime.runner import ExtProcServerRunner
+
+    class KubeCluster(FakeCluster):
+        """A cluster client with the kube adapter's HTTP core."""
+
+        def _json(self, method, path, body=None, content_type=None):
+            raise AssertionError("construction calls no apiserver")
+
+    parser = argparse.ArgumentParser()
+    Options.add_flags(parser)
+    opts = Options.from_args(parser.parse_args(
+        ["--pool-name", "p", "--no-resilience", "--no-obs"] + argv))
+    if raises is not None:
+        with pytest.raises(raises, match=slice_name):
+            ExtProcServerRunner(opts, KubeCluster(),
+                                scheduler=Scheduler(device="cpu"))
+        return
+    runner = ExtProcServerRunner(opts, KubeCluster(),
+                                 scheduler=Scheduler(device="cpu"))
+    try:
+        assert (runner.elector is not None) == opts.leader_elect
+        assert (runner.autoscaler is not None) == (
+            opts.autoscale_mode == "apply")
+    finally:
+        runner.stop()
+
+
+def test_conformance_harness_stands_alone():
+    """The port's harness imports nothing of the top-level conformance
+    package, and its meshed mode waits for the multi-device slice."""
+    files = sorted((PKG / "conformance").glob("*.py"))
+    assert {f.name for f in files} >= {"__init__.py", "harness.py",
+                                       "multicluster.py", "report.py"}
+    for f in files:
+        assert not [n for n in _imported_modules(f)
+                    if n.split(".")[0] in _FOREIGN], f
+    from gie_tpu_torch.conformance import ConformanceEnv
+    from gie_tpu_torch.datastore import Pod
+
+    env = ConformanceEnv(picker_mode="tpu-mesh", device="cpu")
+    env.cluster.apply_pod(Pod(name="p", labels={"app": "a"}, ip="10.1.0.1"))
+    from gie_tpu_torch.api import types as api
+
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        env.apply_pool(api.InferencePool(
+            metadata=api.ObjectMeta(name="pool"),
+            spec=api.InferencePoolSpec(
+                selector=api.LabelSelector(matchLabels={"app": "a"}),
+                targetPorts=[api.Port(8000)])))

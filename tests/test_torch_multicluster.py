@@ -11,8 +11,7 @@ the imports (as import_to_dict manifests) and each pool's status
 (dataclasses.asdict) are equal. The (de)serializers of the types this
 slice brings give equal manifests and objects. MultiClusterController,
 each package's on its own pair of fake apiservers (tests/fakeapi.py)
-through the reference's KubeClusterClient (the port's client comes with
-its kube slice), reconciles the same pool manifests into the same import
+through its own package's KubeClusterClient, reconciles the same pool manifests into the same import
 objects and Exported conditions, repairs an import deleted out of band
 and settles a DELETE that finds nothing. All comparisons are exact."""
 
@@ -194,13 +193,15 @@ def _conditions(server):
 def _drive(mc):
     """Export, repair an out-of-band deletion, withdraw onto a DELETE that
     finds nothing; the imports seen at each step and the conditions."""
-    from gie_tpu.controller.kube import KubeClusterClient
+    from gie_tpu.controller import kube as r_kube
+    from gie_tpu_torch.controller import kube as p_kube
     from tests.fakeapi import FakeKubeApiServer
 
+    client = (p_kube if mc is p_mc else r_kube).KubeClusterClient
     east, west = FakeKubeApiServer(), FakeKubeApiServer()
     ctl = mc.MultiClusterController({
-        "east": KubeClusterClient("default", "pool", server=east.url),
-        "west": KubeClusterClient("default", "pool", server=west.url),
+        "east": client("default", "pool", server=east.url),
+        "west": client("default", "pool", server=west.url),
     })
     ctl.start()
     key = ("imports", "default", "pool")

@@ -693,8 +693,9 @@ def test_fieldscan_native_scan_fault_falls_back_to_python():
 
 # Points whose subsystem a later slice of the port brings: named here,
 # neither woven in the port nor exercised by its tests yet (the peer.*
-# points came with the federation slice).
-LATER_POINTS = {"kube.patch"}
+# points came with the federation slice, kube.patch with the kube slice:
+# none is left).
+LATER_POINTS = set()
 
 
 def _literals(path: pathlib.Path) -> set:
