@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each (any failure raises and exits non-zero). On the
-card every wave of phases 3-6, 8-10, 12 and 13 is a replay of the scheduling
+card every wave of phases 3-6, 8-10, 12, 13 and 20 is a replay of the scheduling
 cycle captured as a CUDA graph for its shape (sched/graphs.py): the first
 wave of a shape captures it inline, the runner's picker (phases 6-7)
 captures its lattices on background threads, and each kernel's launch
@@ -275,10 +275,36 @@ count adds the launches a replay makes:
      launch a wave; the routing case on the card and on a CPU Scheduler
      with the same Gumbel draws, every response equal; (e) both kernels'
      launches of the phase. Prints its wall seconds;
+ 20. the multi-device slice on the card: (a) 8 mesh positions on one card
+     (`make_mesh(devices=[dev] * 8)`) at (dp, tp) = (4, 2), (8, 1) and
+     (1, 8), at 1024 x 256 and 1024 x 1024, for the tuned Sinkhorn profile
+     (its solve on the grouped path, as a mesh runs it), topk +
+     use_pallas_topk and the random picker: 2 carried waves through
+     Scheduler(mesh=), each a replay of its captured sharded cycle,
+     against the unmeshed Scheduler with the same seed: indices,
+     statuses, the Sinkhorn duals and the prefix keys, words and ages
+     bit-equal, the load within 1e-6, the blend-top-k kernel launched
+     once per dp shard a wave; the shard shapes and each wave's wall
+     time beside the unmeshed one's; (b) Scheduler(mesh=make_mesh(1)),
+     tuned profile, its lattice warmed: picks equal to the unmeshed
+     Scheduler's, no inline capture, one cudaGraphLaunch a wave under the
+     profiler, wall time and device operations a wave beside the
+     unmeshed one's; (c) a FleetPicker given a mesh (kept as its
+     deploy_mesh) launching the Sinkhorn kernel once a wave, picks equal
+     to an unmeshed FleetPicker's; (d) the conformance suite in
+     "tpu-mesh" (every card, tp 1) with the blend-top-k profile: every
+     case passed, one launch per dp shard a wave; (e) sharded_train_step
+     over 8 positions against make_train_step's single step (loss within
+     rtol 1e-4, gradients within four bf16 steps of their largest
+     element), then multihost_train_step in two processes on the card
+     (gloo): both print one loss, within rtol 1e-4 of one process's step
+     on the concatenated rows; (f) the server bursts of phase 6 through
+     `--mesh-devices 2`, only where the machine shows two cards, else one
+     line saying why it did not run. Prints its wall seconds;
  11. the `kernels` line: launches on the main path (phases 3-6, 8, 9, 12,
-     13, 14, 15, 16, 17, 18 and 19, replays counted; phase 15's promoted
-     server, phase 16's east and phase 19's servers report their own),
-     error, times, bound.
+     13, 14, 15, 16, 17, 18, 19 and 20, replays counted; phase 15's
+     promoted server, phase 16's east and phase 19's servers report their
+     own), error, times, bound.
 Then the card's name and power limit (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}. Every listener the script starts takes its
 port from free_port(), which draws below Linux's ephemeral range, so no
@@ -1919,11 +1945,13 @@ def process_readings() -> dict:
     return out
 
 
-def phase_server(dev, name, cfg, weights, kernels, own, tmp) -> dict:
+def phase_server(dev, name, cfg, weights, kernels, own, tmp,
+                 extra_argv=()) -> dict:
     """The ext-proc server on the card for one configuration: the runner
-    main() would build, over 256 stub pods (a process of their own), under
-    bursts of concurrent Envoy-shaped streams from CLIENTS client
-    processes; then sequential streams replayed on a CPU runner."""
+    main() would build (with `extra_argv` beside the phase's flags), over
+    256 stub pods (a process of their own), under bursts of concurrent
+    Envoy-shaped streams from CLIENTS client processes; then sequential
+    streams replayed on a CPU runner."""
     need_transport()
     import gc
     import multiprocessing
@@ -1953,7 +1981,8 @@ def phase_server(dev, name, cfg, weights, kernels, own, tmp) -> dict:
                 "--pool-name", "smoke", "--grpc-port", str(gport),
                 "--grpc-health-port", str(hport), "--metrics-port", str(mport),
                 "--extproc-workers", str(EXTPROC_WORKERS),
-                "--scrape-interval-ms", str(SCRAPE_INTERVAL_MS)]
+                "--scrape-interval-ms", str(SCRAPE_INTERVAL_MS),
+                *extra_argv]
         runner = ExtProcServerRunner(
             server_options(argv), fleet_cluster("smoke", fleet_ips(M),
                                                 fleet_port))
@@ -6045,6 +6074,397 @@ def phase_kube(dev, cfg, weights, kernels, tmp) -> dict:
     return summary
 
 
+# -- phase 20: the multi-device slice on the card ----------------------------
+
+MESH_LAYOUTS = ((4, 2), (8, 1), (1, 8))
+MESH_WIDTHS = (M, 1024)
+MESH_WAVES = 2
+MESH_SEED = 20
+MESH_TRAIN_ROWS = 8 * 16          # sharded_train_step's batch, 16 a dp row
+MESH_HOST_ROWS = 64               # multihost_train_step's rows a process
+
+
+def mesh_profiles():
+    """(a)'s three pickers: the tuned Sinkhorn profile with its solve on
+    the grouped path (a mesh never runs the Sinkhorn kernel, so neither
+    does the unmeshed Scheduler it is held to), the fused blend-top-k and
+    the random picker."""
+    from gie_tpu_torch.sched import ProfileConfig
+    from gie_tpu_torch.sched.config import tuned_profile
+
+    cfg, weights = tuned_profile()
+    return {
+        "sinkhorn": (dataclasses.replace(cfg, use_pallas_sinkhorn=False),
+                     weights, None),
+        "topk+use_pallas_topk": (ProfileConfig(picker="topk",
+                                               use_pallas_topk=True), None,
+                                 "fused_blend_topk"),
+        "random": (ProfileConfig(picker="random"), None, None),
+    }
+
+
+def mesh_equivalence(dev, kernels) -> dict:
+    """(a): 8 positions on one card, at each layout of MESH_LAYOUTS and
+    each width of MESH_WIDTHS, for each of mesh_profiles(): MESH_WAVES
+    carried waves of the north-star mix through Scheduler(mesh=), each a
+    replay of its captured sharded cycle, against the unmeshed Scheduler
+    on the card with the same seed: indices, statuses, the Sinkhorn duals
+    and the prefix keys, words and ages bit-equal, the load within 1e-6.
+    The blend-top-k kernel launches once per dp shard a wave."""
+    from gie_tpu_torch.parallel import make_mesh
+    from gie_tpu_torch.sched import Scheduler
+
+    out = {"launches": {k: 0 for k in kernels}, "cases": 0}
+    for m in MESH_WIDTHS:
+        eps, wave = workload(torch.device("cpu"), m)
+        waves = [wave(w) for w in range(MESH_WAVES)]
+        for name, (cfg, weights, own) in mesh_profiles().items():
+            plain = Scheduler(cfg, weights, device=dev, seed=MESH_SEED)
+            ref, plain_ms = [], []
+            for reqs in waves:
+                t0 = time.perf_counter()
+                res = plain.pick(reqs, eps)
+                plain_ms.append((time.perf_counter() - t0) * 1e3)
+                ref.append((res, plain.export_state()))
+            for dp, tp in MESH_LAYOUTS:
+                mesh = make_mesh(devices=[dev] * 8, tp=tp)
+                meshed = Scheduler(cfg, weights, seed=MESH_SEED, mesh=mesh)
+                check(meshed._captured and meshed.device == plain.device,
+                      f"mesh {name}: the meshed Scheduler does not capture")
+                torch.cuda.synchronize()
+                for fn in kernels.values():
+                    fn.launches = 0
+                ms = []
+                for w, reqs in enumerate(waves):
+                    t0 = time.perf_counter()
+                    res = meshed.pick(reqs, eps)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    want, state = ref[w]
+                    got = meshed.export_state()
+                    what = f"mesh {name} {dp}x{tp} m={m} wave {w}"
+                    check(np.array_equal(res.indices, want.indices)
+                          and np.array_equal(res.status, want.status),
+                          f"{what}: picks differ from the unmeshed cycle")
+                    for k in ("ot_v", "prefix_keys", "prefix_present",
+                              "prefix_ages", "rr", "tick"):
+                        check(np.array_equal(got[k], state[k]),
+                              f"{what}: {k} differs from the unmeshed cycle")
+                    check(np.allclose(got["assumed_load"],
+                                      state["assumed_load"], atol=1e-6,
+                                      rtol=0),
+                          f"{what}: the load is beyond 1e-6 of the unmeshed")
+                launches = {k: fn.launches for k, fn in kernels.items()}
+                want_launches = {k: 0 for k in kernels}
+                if own is not None:
+                    want_launches[own] = dp * MESH_WAVES
+                check(launches == want_launches,
+                      f"mesh {name} {dp}x{tp} m={m}: launches {launches}, "
+                      f"want {want_launches}")
+                for k in kernels:
+                    out["launches"][k] += launches[k]
+                out["cases"] += 1
+                st = meshed.state
+                emit({"phase": "mesh-equal", "config": name,
+                      "layout": [dp, tp], "shape": [N, m],
+                      "waves": MESH_WAVES, "launches": launches,
+                      "block": [N // dp, m // tp],
+                      "present_shards": [list(s.prefix.present.shape)
+                                         for s in st.shards],
+                      "present_axis": "words" if st.words_axis else "slots",
+                      "load_shards": [list(s.assumed_load.shape)
+                                      for s in st.shards],
+                      "wave_ms": ms, "unmeshed_wave_ms": plain_ms,
+                      "ok_rows_last": int((res.status == 0).sum())})
+    return out
+
+
+def mesh_one(dev, kernels) -> dict:
+    """(b): Scheduler(mesh=make_mesh(1)) with the tuned profile through the
+    captured cycle: the lattice warmed (no inline capture after), picks
+    equal to the unmeshed Scheduler's, one graph launch a wave under the
+    profiler, and the wall time per wave beside the unmeshed one's."""
+    from gie_tpu_torch.parallel import make_mesh
+    from gie_tpu_torch.sched import Scheduler
+    from gie_tpu_torch.sched.config import tuned_profile
+
+    cfg, weights = tuned_profile()
+    eps, wave = workload(torch.device("cpu"))
+    waves = [wave(w) for w in range(WAVES)]
+    lanes = {int(r.chunk_hashes.shape[1]) for r in waves}
+    check(len(lanes) == 1, f"mesh-1: the waves span chunk buckets {lanes}")
+    lanes = lanes.pop()
+    mesh = make_mesh(1)
+    check(mesh.shape == {"dp": 1, "tp": 1}, f"mesh-1: {mesh.shape}")
+    readings = {}
+    results = {}
+    for name, sched in (("meshed", Scheduler(cfg, weights, seed=MESH_SEED,
+                                             mesh=mesh)),
+                        ("unmeshed", Scheduler(cfg, weights, device=dev,
+                                               seed=MESH_SEED))):
+        t0 = time.perf_counter()
+        thread = sched.warm_lattice_async(M, lanes)
+        thread.join(600)
+        check(not thread.is_alive() and not sched._warm_failures,
+              f"mesh-1 {name}: the lattice did not warm")
+        warm_s = time.perf_counter() - t0
+        results[name] = [sched.pick(r, eps) for r in waves]
+
+        def replay(reqs, sched=sched):
+            pending = sched.pick_async(reqs, eps)
+            return pending, pending.event
+
+        host, wall, _ = run_waves(replay, waves)
+        prof = profiled(replay, waves)
+        check(sched.warm_inline_compiles == 0,
+              f"mesh-1 {name}: {sched.warm_inline_compiles} inline captures")
+        check(prof["launch_calls_by_name"].get("cudaGraphLaunch") == 1,
+              f"mesh-1 {name}: {prof['launch_calls_by_name']} a wave")
+        readings[name] = {
+            "lattice_s": warm_s, "warm_inline_compiles":
+                sched.warm_inline_compiles,
+            "pick_async_host_ms_median": statistics.median(host),
+            "wall_ms_per_wave": wall, **prof}
+    for w, (a, b) in enumerate(zip(results["meshed"], results["unmeshed"])):
+        check(np.array_equal(a.indices, b.indices)
+              and np.array_equal(a.status, b.status),
+              f"mesh-1: wave {w} picks differ from the unmeshed Scheduler")
+    rec = {"phase": "mesh-one", "shape": [N, M, lanes], "waves": WAVES,
+           "graph_launches_per_wave": readings["meshed"][
+               "launch_calls_by_name"].get("cudaGraphLaunch"),
+           **readings}
+    emit(rec)
+    return rec
+
+
+def mesh_fleet(dev, kernels) -> dict:
+    """(c): a FleetPicker given a mesh keeps it as its deploy_mesh and runs
+    its inner cycle mesh-free, so the Sinkhorn kernel runs: picks equal to
+    an unmeshed FleetPicker's with the same seed, one launch a wave."""
+    from gie_tpu_torch.fleet import FleetPicker
+    from gie_tpu_torch.parallel import make_mesh
+    from gie_tpu_torch.sched.config import tuned_profile
+
+    cfg, weights = tuned_profile()
+    cfg = dataclasses.replace(cfg, use_pallas_sinkhorn=True)
+    m = FLEET_TOPK * FLEET_CAP
+    eps, wave = workload(dev, m)
+    mesh = make_mesh(devices=[dev] * 8)
+    meshed = FleetPicker(cfg, weights, seed=FLEET_SEED, topk=FLEET_TOPK,
+                         cell_cap=FLEET_CAP, mesh=mesh)
+    plain = FleetPicker(cfg, weights, device=dev, seed=FLEET_SEED,
+                        topk=FLEET_TOPK, cell_cap=FLEET_CAP)
+    check(meshed.deploy_mesh is mesh and meshed.mesh is None,
+          "mesh fleet: the deploy mesh is not kept")
+    launches = {k: 0 for k in kernels}
+    for w in range(MESH_WAVES):
+        reqs = wave(w)
+        before = {k: fn.launches for k, fn in kernels.items()}
+        a = meshed.pick(reqs, eps)
+        for k, fn in kernels.items():
+            launches[k] += fn.launches - before[k]
+        b = plain.pick(reqs, eps)
+        check(np.array_equal(a.indices, b.indices)
+              and np.array_equal(a.status, b.status),
+              f"mesh fleet: wave {w} picks differ from the unmeshed fleet")
+    check(launches["fused_sinkhorn_plan"] == MESH_WAVES,
+          f"mesh fleet: {launches} for {MESH_WAVES} waves")
+    rec = {"phase": "mesh-fleet", "m": m, "deploy_mesh": mesh.shape,
+           "waves": MESH_WAVES, "launches": launches}
+    emit(rec)
+    return rec
+
+
+def mesh_conformance(dev, kernels) -> dict:
+    """(d): the port's conformance suite in "tpu-mesh" mode on the card
+    (make_mesh over every card, tp 1), with the blend-top-k profile: every
+    case passed, one kernel launch per dp shard a wave."""
+    from gie_tpu_torch.conformance import suite
+    from gie_tpu_torch.runtime import metrics as own_metrics
+    from gie_tpu_torch.sched import ProfileConfig
+
+    for fn in kernels.values():
+        fn.launches = 0
+    waves0 = own_metrics.PIPELINE_WAVES.value()
+    t0 = time.monotonic()
+    report, errors = suite.run(picker_mode="tpu-mesh", device=dev,
+                               profile=ProfileConfig(use_pallas_topk=True))
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    waves = int(own_metrics.PIPELINE_WAVES.value() - waves0)
+    passed = [r.short_name for r in report.results if r.passed]
+    cards = torch.cuda.device_count()
+    rec = {"phase": "mesh-conformance", "mode": "tpu-mesh",
+           "mesh": {"dp": cards, "tp": 1}, "passed": len(passed),
+           "cases": len(report.results), "waves": waves,
+           "launches": launches, "seconds": time.monotonic() - t0}
+    emit(rec)
+    check(not errors and len(passed) == len(suite.BASE_CASES)
+          + len(suite.OWN_CASES),
+          f"mesh conformance: failed {sorted(errors)}: "
+          + "".join(list(errors.values())[:1]))
+    check(launches["fused_blend_topk"] == cards * waves >= 1
+          and launches["fused_sinkhorn_plan"] == 0,
+          f"mesh conformance: launches {launches} for {waves} waves")
+    return rec
+
+
+def mesh_train_batch(rows: int, seed: int):
+    from gie_tpu_torch.models.latency import NUM_FEATURES
+
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(a) for a in (
+        rng.uniform(0, 1, (rows, NUM_FEATURES)).astype(np.float32),
+        rng.integers(0, 64, rows).astype(np.int64),
+        rng.uniform(0, 1, (rows, 2)).astype(np.float32),
+        np.ones((rows, 2), np.float32))]
+
+
+def mesh_worker(rank: int, world: int, port: int) -> None:
+    """One process of (e)'s two-process step (`python3 -c "import
+    chip_smoke; chip_smoke.mesh_worker(...)"`): joins the group on the
+    card, steps its own rows, prints its loss as a JSON line."""
+    from gie_tpu_torch.parallel import multihost
+
+    dev = multihost.initialize(f"127.0.0.1:{port}", world, rank)
+    try:
+        mesh = multihost.global_mesh()
+        step, module, optimizer = multihost.multihost_train_step(mesh)
+        batch = mesh_train_batch(MESH_HOST_ROWS, 100 + rank)
+        shards = [multihost.host_local_batch_to_global(mesh, a)
+                  for a in batch]
+        loss = float(step(module, optimizer, *shards))
+        print(json.dumps({"rank": rank, "device": str(dev),
+                          "backend": torch.distributed.get_backend(),
+                          "offset": shards[0].offset,
+                          "global_rows": shards[0].global_shape[0],
+                          "loss": loss}), flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def mesh_training(dev) -> dict:
+    """(e): sharded_train_step over 8 positions of the card against
+    make_train_step's single step (the loss within rtol 1e-4, every
+    gradient within four bf16 steps of its largest element: the hidden
+    layers round to bf16, and a gradient sums up to 16 rows of rounded
+    terms); then the
+    two-process multihost_train_step, both processes on the card: both
+    print the same loss, within rtol 1e-4 of one process's step on the
+    concatenated rows."""
+    from gie_tpu_torch.models.latency import (
+        LatencyPredictor, make_optimizer, make_train_step)
+    from gie_tpu_torch.parallel import make_mesh, sharded_train_step
+
+    predictor = LatencyPredictor()
+    mesh = make_mesh(devices=[dev] * 8)
+    batch = [t.to(dev) for t in mesh_train_batch(MESH_TRAIN_ROWS, 7)]
+    losses, grads, times = [], [], []
+    for step in (make_train_step(predictor),
+                 sharded_train_step(mesh, predictor)):
+        module = predictor.module(0).to(dev)
+        opt = make_optimizer(module, predictor.cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(module, opt, *batch)))
+        times.append((time.perf_counter() - t0) * 1e3)
+        grads.append({k: p.grad.clone() for k, p in module.named_parameters()})
+    check(abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0]),
+          f"mesh train: sharded loss {losses[1]} vs single {losses[0]}")
+    worst = 0.0
+    for k, g in grads[0].items():
+        gap = float((grads[1][k] - g).abs().max())
+        scale = float(g.abs().max()) * 2.0 ** -6
+        check(gap <= scale, f"mesh train: {k} gradient gap {gap} > {scale}")
+        worst = max(worst, gap / max(scale, 1e-30))
+
+    port = free_port()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.mesh_worker({rank}, 2, {port})"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=180)
+            check(p.returncode == 0, f"mesh worker failed:\n{err[-2000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    whole = [torch.cat([a, b]).to(dev) for a, b in zip(
+        mesh_train_batch(MESH_HOST_ROWS, 100),
+        mesh_train_batch(MESH_HOST_ROWS, 101))]
+    module = predictor.module(0).to(dev)
+    single = float(make_train_step(predictor)(
+        module, make_optimizer(module, predictor.cfg), *whole))
+    check(len({o["loss"] for o in outs}) == 1,
+          f"mesh multihost: the ranks' losses differ: {outs}")
+    check(abs(outs[0]["loss"] - single) <= 1e-4 * abs(single),
+          f"mesh multihost: loss {outs[0]['loss']} vs one process {single}")
+    rec = {"phase": "mesh-train", "positions": 8, "rows": MESH_TRAIN_ROWS,
+           "single_loss": losses[0], "sharded_loss": losses[1],
+           "grad_gap_of_bound": worst, "single_ms": times[0],
+           "sharded_ms": times[1], "multihost": outs,
+           "multihost_single_loss": single}
+    emit(rec)
+    return rec
+
+
+def mesh_main_bursts(dev, kernels, tmp) -> dict:
+    """(f): phase 6's server bursts through the runner main() builds with
+    --mesh-devices 2 (dp 1 x tp 2 over two cards) and the blend-top-k
+    profile, one launch a wave; it needs two cards, and with fewer the
+    part is not run and one line says so."""
+    from gie_tpu_torch.sched import ProfileConfig
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        rec = {"phase": "mesh-main", "run": False,
+               "reason": f"--mesh-devices 2 needs 2 CUDA cards; this "
+                         f"machine shows {cards}"}
+        emit(rec)
+        return rec
+    stats = phase_server(dev, "mesh-devices-2",
+                         ProfileConfig(picker="topk", use_pallas_topk=True),
+                         None, kernels, "fused_blend_topk", tmp,
+                         extra_argv=("--mesh-devices", "2"))
+    rec = {"phase": "mesh-main", "run": True, "launches": stats["launches"]}
+    emit(rec)
+    return rec
+
+
+def phase_mesh(dev, kernels, tmp) -> dict:
+    """Phase 20: (a) the meshed cycle on 8 positions of one card against
+    the unmeshed cycle, (b) a 1-position mesh through the captured cycle,
+    (c) a meshed FleetPicker's Sinkhorn launches, (d) the conformance
+    suite in "tpu-mesh", (e) the sharded and two-process training steps,
+    (f) `main --mesh-devices 2` where there are two cards."""
+    t0 = time.monotonic()
+    equal = mesh_equivalence(dev, kernels)
+    one = mesh_one(dev, kernels)
+    fleet = mesh_fleet(dev, kernels)
+    conformance = mesh_conformance(dev, kernels)
+    train = mesh_training(dev)
+    bursts = mesh_main_bursts(dev, kernels, tmp)
+    launches = {k: equal["launches"][k] + fleet["launches"][k]
+                + conformance["launches"][k]
+                + bursts.get("launches", {}).get(k, 0) for k in kernels}
+    summary = {"phase": "mesh", "seconds": time.monotonic() - t0,
+               "launches": launches, "equal_cases": equal["cases"],
+               "one_graph_launches_per_wave": one["graph_launches_per_wave"],
+               "multihost_loss": train["multihost"][0]["loss"],
+               "main_mesh_devices_run": bursts["run"]}
+    emit(summary)
+    for k in kernels:
+        check(launches[k] >= 1, f"mesh: {k} not launched in phase 20")
+    return summary
+
+
 def tail(path: str, n: int = 4000) -> str:
     with open(path, errors="replace") as f:
         return f.read()[-n:]
@@ -6135,17 +6555,19 @@ def main() -> int:
         pred = phase_predictor(dev, cfg, weights, kernels, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         kube = phase_kube(dev, cfg, weights, kernels, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = phase_mesh(dev, kernels, tmp)
 
     line = []
     for rec, phases, source, replaces in (
         (records["fused_sinkhorn_plan"],
          (sink, pick_sink, serve_sink, chaos_sink, warm_sink, pd_sink,
-          learn, ha, fed, fleet, pred, kube),
+          learn, ha, fed, fleet, pred, kube, mesh),
          "gie_tpu_torch/ops/csrc/fused_sinkhorn.cu",
          "gie_tpu/ops/fused_sinkhorn.py:66"),
         (records["fused_blend_topk"],
          (topk, pick_topk, serve_topk, chaos_topk, warm_topk, pd_topk, kv,
-          fleet, pred, kube),
+          fleet, pred, kube, mesh),
          "gie_tpu_torch/ops/csrc/fused_topk.cu",
          "gie_tpu/ops/fused_topk.py:80"),
     ):

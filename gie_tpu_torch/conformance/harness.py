@@ -22,8 +22,9 @@ the echo-backend fixtures of resources/base.yaml):
 The "tpu" EPP's Scheduler runs on `device` (None: the CUDA card, as every
 port entry point) with `profile` (None: the reference harness's
 Scheduler() defaults) and an optional Gumbel `noise_source`, so a run on
-the card can be replayed on the CPU. The meshed EPP ("tpu-mesh") comes
-with the multi-device slice of the port and raises the not-ported error.
+the card can be replayed on the CPU. The meshed EPP ("tpu-mesh") runs
+the same Scheduler dp-sharded over every available position of that
+device (parallel/mesh.py: the cards, or the CPU's virtual positions).
 """
 
 from __future__ import annotations
@@ -97,25 +98,30 @@ class EppInstance:
     batched scheduler through BatchingTPUPicker — proving conformance holds
     for the real scheduling path, not just the trivial picker), or
     "tpu-mesh" (the same scheduler dp-sharded over every available device —
-    the --mesh-devices production path, not ported yet).
+    the --mesh-devices production path).
     """
 
     def __init__(self, env: "ConformanceEnv", pool_ns: str, pool_name: str,
                  picker_mode: str = "rr"):
         self.datastore = Datastore()
         self._closers = []
-        if picker_mode == "tpu-mesh":
-            from gie_tpu_torch.sched.profile import _not_ported
-
-            raise _not_ported("the meshed conformance EPP (tpu-mesh)", "mesh")
-        if picker_mode == "tpu":
+        if picker_mode in ("tpu", "tpu-mesh"):
             from gie_tpu_torch.metricsio import MetricsStore
             from gie_tpu_torch.sched.batching import BatchingTPUPicker
             from gie_tpu_torch.sched.profile import ProfileConfig, Scheduler
 
+            mesh = None
+            if picker_mode == "tpu-mesh":
+                # The --mesh-devices production path: dp-shard the cycle
+                # over every available position (conformance must hold
+                # for the distributed pick path bit-for-bit).
+                from gie_tpu_torch.parallel.mesh import make_mesh
+
+                mesh = make_mesh(device=env.device, tp=1)
             picker = BatchingTPUPicker(
-                Scheduler(env.profile or ProfileConfig(), device=env.device,
-                          noise_source=env.noise_source),
+                Scheduler(env.profile or ProfileConfig(),
+                          device=None if mesh is not None else env.device,
+                          noise_source=env.noise_source, mesh=mesh),
                 self.datastore, MetricsStore(), max_wait_s=0.002,
             )
             self._closers.append(picker.close)

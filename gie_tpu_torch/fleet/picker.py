@@ -290,7 +290,11 @@ class FleetPicker(Scheduler):
     One state per fleet width, allocated once, as every bucket's is; on
     CUDA one captured graph per (N bucket, fleet width, chunk lanes), with
     the coarse weights beside the dense blend's in its static weight
-    buffer. A mesh is refused, as the port's Scheduler refuses one."""
+    buffer. A mesh is accepted for constructor parity with the Scheduler
+    and kept on `deploy_mesh` for /debugz/fleet; the inner dense cycle
+    runs mesh-free (its block is one M bucket, replicated by design), so
+    the fused Sinkhorn kernel runs in a meshed deployment, as in the
+    reference."""
 
     def __init__(
         self,
@@ -320,10 +324,13 @@ class FleetPicker(Scheduler):
                 f"candidate block must fit one dense cycle")
         self.fleet_topk = int(topk)
         self.fleet_cell_cap = int(cell_cap)
+        if mesh is not None and device is None:
+            device = mesh.device(0, 0)
         super().__init__(cfg, weights, seed=seed, device=device,
                          noise_source=noise_source,
                          predictor_fn=predictor_fn,
-                         predictor_params=predictor_params, mesh=mesh)
+                         predictor_params=predictor_params, mesh=None)
+        self.deploy_mesh = mesh
         # /debugz/fleet counters, fed by the batching completer (host
         # arrays, never under the pick lock): where the final pick landed
         # in its request's candidate list, and per-cell pick tallies.

@@ -5,8 +5,9 @@ trained exponents,
 
     total = prod_s col_s ** w_s  =  exp(sum_s w_s * log(max(col_s, EPS)))
 
-computed in log space over the stacked [S, N, M] columns with the same
-``einsum("s,snm->nm", ...)`` as the heuristic blend. The reference leaves
+computed in log space over the stacked [S, N, M] columns as a left fold
+over the columns, elementwise like the heuristic blend (profile.blend),
+so a mesh's blocks equal the whole. The reference leaves
 this to XLA (no Pallas kernel), so the port runs it as plain torch ops,
 inside the captured cycle on CUDA. The numpy reference pins the algebra
 with an ULP bound: a fused program and numpy libm differ in the last
@@ -30,7 +31,11 @@ def multiplicative_total(stacked: torch.Tensor,
     """exp(sum_s w_s * log(max(col_s, EPS))) over stacked f32[S, N, M]
     -> f32[N, M]."""
     logs = torch.log(torch.clamp_min(stacked, float(EPS)))
-    return torch.exp(torch.einsum("s,snm->nm", wvec, logs))
+    # A left fold over the columns, as multiplicative_total_reference.
+    acc = wvec[0] * logs[0]
+    for s in range(1, logs.shape[0]):
+        acc = acc + wvec[s] * logs[s]
+    return torch.exp(acc)
 
 
 def multiplicative_total_reference(stacked: np.ndarray,

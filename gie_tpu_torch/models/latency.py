@@ -264,14 +264,15 @@ def predictor_score_fn(predictor: LatencyPredictor):
     signal."""
 
     def fn(params: dict, reqs: RequestBatch, eps: EndpointBatch,
-           assumed_load: torch.Tensor) -> torch.Tensor:
+           assumed_load: torch.Tensor, *, col0: int = 0) -> torch.Tensor:
         feats = build_features(reqs, eps, assumed_load)
         n = reqs.valid.shape[0]
         m = eps.valid.shape[0]
         # Slot ids are GLOBAL endpoint identities regardless of the live M
         # bucket: the embedding table stays M_MAX+1 wide so a slot keeps
-        # its learned bias across bucket migrations.
-        slots = torch.arange(m, dtype=torch.int64,
+        # its learned bias across bucket migrations. `col0` is the global
+        # slot of eps' first lane (a tp shard's, parallel/mesh.py).
+        slots = torch.arange(col0, col0 + m, dtype=torch.int64,
                              device=feats.device)[None, :].expand(n, m)
         latency = predictor.request_latency(params, feats, slots,
                                             reqs.decode_len)

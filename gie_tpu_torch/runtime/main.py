@@ -6,8 +6,8 @@ cmd/lwepp/main.go:36-116).
     python -m gie_tpu_torch.runtime.main --pool-name my-pool --kube \
         --kubeconfig ~/.kube/config --publish-status-parents my-gateway
 
-The scheduler runs on the CUDA card. The runner refuses the one flag a
-later slice of the port brings (runner.refuse_out_of_slice).
+The scheduler runs on the CUDA card, or over a mesh of cards with
+--mesh-devices N.
 
 The ClusterClient seam (controller/cluster.py) is served either by a real
 kube-apiserver — with --kube, the stdlib list/watch adapter of
@@ -121,10 +121,7 @@ def _demo_cluster(opts, n_pods: int):
 def main(argv=None) -> int:
     from gie_tpu_torch.runtime.logging import get_logger, set_verbosity
     from gie_tpu_torch.runtime.options import Options
-    from gie_tpu_torch.runtime.runner import (
-        ExtProcServerRunner,
-        refuse_out_of_slice,
-    )
+    from gie_tpu_torch.runtime.runner import ExtProcServerRunner
 
     parser = argparse.ArgumentParser(prog="gie-tpu-epp")
     Options.add_flags(parser)
@@ -148,8 +145,6 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     opts = Options.from_args(args)
     opts.validate()
-    # Refuse what a later slice of the port brings before anything starts.
-    refuse_out_of_slice(opts)
     set_verbosity(opts.verbosity)
     log = get_logger("main")
 

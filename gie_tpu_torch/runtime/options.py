@@ -4,9 +4,9 @@ argv parses the same in both packages).
 
 Mirror of reference pkg/lwepp/server/options.go:25-94 (defaults: ext-proc
 gRPC 9002, dedicated health 9003, metrics 9090, pool group
-inference.networking.k8s.io, TLS on) plus the scheduler's knobs. Flags
-whose subsystem a later slice of the port brings parse here and are
-refused by the runner (runtime/runner.py)."""
+inference.networking.k8s.io, TLS on) plus the scheduler's knobs. Every
+flag is served by the runner (runtime/runner.py), --mesh-devices
+included."""
 
 from __future__ import annotations
 

@@ -32,10 +32,10 @@ column only when --scheduler-config gives weights.latency > 0), and so
 are the kube deployment's pieces: over a kube cluster client (main's
 --kube) --leader-elect elects on a coordination.k8s.io Lease
 (KubeLeaseElector) and --autoscale-mode apply SSA-patches the target
-Deployment's spec.replicas. The one subsystem a later slice of the port
-brings, the multi-device mesh (--mesh-devices), is refused at
-construction with the port's not-ported error, never skipped silently
-(`refuse_out_of_slice`).
+Deployment's spec.replicas, and so is the multi-device mesh
+(--mesh-devices N: make_mesh(N) over the first N cards, dp x tp, served
+by Scheduler(mesh=) or a FleetPicker that keeps it as its deploy_mesh;
+parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -96,16 +96,9 @@ from gie_tpu_torch.sched import constants as C
 from gie_tpu_torch.sched.batching import BatchingTPUPicker
 from gie_tpu_torch.sched.config import load_scheduler_config_file, tuned_profile
 from gie_tpu_torch.sched.kvevents import KVEventAggregator, KVEventHTTPServer
-from gie_tpu_torch.sched.profile import Scheduler, _not_ported, feature_schema
+from gie_tpu_torch.sched.profile import Scheduler, feature_schema
 from gie_tpu_torch.utils.kubemeta import GKNN
 from gie_tpu_torch.utils.lora import LoraRegistry
-
-
-def refuse_out_of_slice(opts: Options) -> None:
-    """Raise the port's not-ported error for an option whose subsystem a
-    later slice of the port brings (ROADMAP.md, Queue 1)."""
-    if opts.mesh_devices > 1:
-        raise _not_ported("--mesh-devices", "mesh")
 
 
 class ExtProcServerRunner:
@@ -115,7 +108,6 @@ class ExtProcServerRunner:
         cluster: ClusterClient,
         scheduler: Optional[Scheduler] = None,
     ):
-        refuse_out_of_slice(opts)
         self.opts = opts
         self.log = get_logger("runner")
         self.cluster = cluster
@@ -181,6 +173,17 @@ class ExtProcServerRunner:
                 if float(weights.latency) > 0.0:
                     predictor_fn = predictor_score_fn(predictor)
                     predictor_params = self.trainer.params
+            mesh = None
+            if opts.mesh_devices > 1:
+                from gie_tpu_torch.parallel.mesh import make_mesh
+
+                # The full dp x tp layout (docs/MESH.md): requests split
+                # on dp, endpoints (metrics, cost-matrix columns, assumed
+                # load, Sinkhorn duals, prefix words) on tp; picks are
+                # bit-identical to one card's at every layout.
+                mesh = make_mesh(opts.mesh_devices)
+                self.log.info("multi-chip scheduling mesh",
+                              shape=dict(mesh.shape))
             if opts.fleet_topk > 0:
                 # Hierarchical two-level pick (gie_tpu_torch/fleet): coarse
                 # cell stage, then the dense cycle over the gathered
@@ -192,13 +195,14 @@ class ExtProcServerRunner:
                 self.scheduler = FleetPicker(
                     cfg, weights=weights, topk=opts.fleet_topk,
                     cell_cap=opts.fleet_cell_cap, predictor_fn=predictor_fn,
-                    predictor_params=predictor_params)
+                    predictor_params=predictor_params, mesh=mesh)
                 self.log.info("fleet picker armed", topk=opts.fleet_topk,
                               cell_cap=opts.fleet_cell_cap)
             else:
                 self.scheduler = Scheduler(cfg, weights=weights,
                                            predictor_fn=predictor_fn,
-                                           predictor_params=predictor_params)
+                                           predictor_params=predictor_params,
+                                           mesh=mesh)
             if self.trainer is not None:
                 # A restored checkpoint carries its confidence state:
                 # apply it now, or a converged column would sit at weight

@@ -11,8 +11,10 @@ A CycleGraph owns static tensors at its key's shape: every RequestBatch
 and EndpointBatch field and the blend weights, all views of one device
 buffer, and the Gumbel noise ([N, M], or [2, N, M] under
 pd_disaggregation, whose two solves draw a plane each). It is bound to
-the live SchedState of its M bucket, which the Scheduler allocates once
-and never reallocates (the graph holds the addresses of its tensors). A
+the live SchedState of its M bucket (a mesh's ShardedState: the shard
+cut of the inputs and the gather of the results are captured with the
+cycle), which the Scheduler allocates once and never reallocates (the
+graph holds the addresses of its tensors). A
 wave
 
   1. packs its rows into one pinned host buffer, padding rows zeroed as
@@ -181,7 +183,9 @@ class CycleGraph:
         try:
             with torch.cuda.stream(stream):
                 self.upload(*self.pack(*self._template, weights))
-                throwaway = blank_like(self.state)
+                throwaway = (blank_like(self.state)
+                             if isinstance(self.state, SchedState)
+                             else self.state.blank_like())
                 with ops.tally(warm):
                     cycle(throwaway, self.reqs, self.eps, self.gumbel,
                           self.wvec)
@@ -244,6 +248,10 @@ class FoldGraph:
     def _fold(self) -> None:
         from gie_tpu_torch.sched.prefix import ingest_lanes
 
+        if not isinstance(self.state, SchedState):    # a mesh's shards
+            self.state.ingest_lanes(self.lanes[0], self.lanes[1],
+                                    self.lanes[2] != 0, self._scratch)
+            return
         ingest_lanes(self.state.prefix, self.lanes[0], self.lanes[1],
                      self.lanes[2] != 0, self.state.tick, self._scratch)
 

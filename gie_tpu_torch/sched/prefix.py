@@ -41,8 +41,21 @@ def match_scores(
     *,
     max_age: int,
 ) -> torch.Tensor:
-    """Longest-prefix match fraction per (request, endpoint) -> f32[N, m]."""
-    slots = _slots(reqs.chunk_hashes, table.keys.shape[0])     # [N, C]
+    """Longest-prefix match fraction per (request, endpoint) -> f32[N, m].
+    Over a word shard of the table (a present block of some words, the
+    full keys and ages) it reads that shard's endpoints only."""
+    return match_from_words(hit_words(table, reqs, tick, max_age=max_age),
+                            reqs)
+
+
+def hit_words(table: PrefixTable, reqs: RequestBatch, tick: torch.Tensor,
+              *, max_age: int, row0: int = 0) -> torch.Tensor:
+    """The packed presence words of every (request, chunk) whose slot
+    holds its hash, fresh -> int64[N, C, W], 0 where it misses. `table`'s
+    present may hold only rows [row0, row0 + R) (a slot shard of the
+    table, parallel/mesh.py); rows it does not hold read 0."""
+    nslots = table.keys.shape[0]
+    slots = _slots(reqs.chunk_hashes, nslots)                  # [N, C]
     keys = table.keys[slots]                                   # [N, C]
     cmax = reqs.chunk_hashes.shape[1]
     dev = slots.device
@@ -51,12 +64,22 @@ def match_scores(
     fresh = ((tick - table.ages[slots]) & C.U32_MASK) <= max_age
     hit = ((keys == reqs.chunk_hashes) & (reqs.chunk_hashes != 0)
            & chunk_valid & fresh)
+    rows = table.present.shape[0]
+    if rows == nslots:
+        return table.present[slots] * hit[..., None]           # [N, C, W]
+    local = slots - row0
+    own = (local >= 0) & (local < rows)
+    return (table.present[torch.clamp(local, 0, rows - 1)]
+            * (hit & own)[..., None])
 
-    words = table.present[slots] * hit[..., None]              # [N, C, W]
 
+def match_from_words(words: torch.Tensor,
+                     reqs: RequestBatch) -> torch.Tensor:
+    """hit_words -> the match fraction f32[N, W * 32]."""
     # One sequential sweep over the chunk axis: `acc` is the running
     # cumulative AND of the packed words, `planes[k]` holds bit k of every
     # endpoint's running depth (a ripple-carry add of `acc` on whole words).
+    cmax = words.shape[1]
     n_planes = max(cmax.bit_length(), 1)
     acc = torch.full_like(words[:, 0, :], C.U32_MASK)
     planes = [torch.zeros_like(acc) for _ in range(n_planes)]
@@ -65,7 +88,7 @@ def match_scores(
         carry = acc
         for k in range(n_planes):
             planes[k], carry = planes[k] ^ carry, planes[k] & carry
-    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
     matched = sum(
         ((p[..., None] >> shifts) & 1).to(torch.float32) * float(1 << k)
         for k, p in enumerate(planes)
@@ -92,11 +115,32 @@ def _winners(target: torch.Tensor, valid: torch.Tensor,
     return winner, valid & (winner[target] == lane)
 
 
+def _window(table: PrefixTable, words: "int | None") -> tuple[int, int, int]:
+    """-> (table rows, whole-table words, present's rows) of a table
+    whose present may be a block of the whole (see insert)."""
+    nslots = int(table.keys.shape[0])
+    rows, w_loc = table.present.shape
+    return nslots, (int(w_loc) if words is None else int(words)), int(rows)
+
+
+def _local_cells(slot, word, row0, word0, rows, w_loc):
+    """Whole-table (row, word) cells -> (their cells in a present block
+    of `rows` rows from row0 and `w_loc` words from word0, 0 where the
+    block does not hold them; whether it does)."""
+    lrow, lword = slot - row0, word - word0
+    own = (lrow >= 0) & (lrow < rows) & (lword >= 0) & (lword < w_loc)
+    return torch.where(own, lrow * w_loc + lword, torch.zeros_like(lrow)), own
+
+
 def insert(
     table: PrefixTable,
     reqs: RequestBatch,
     picked: torch.Tensor,  # i32[N] primary endpoint slot per request (-1 = none)
     tick: torch.Tensor,    # int64 scalar (u32)
+    *,
+    row0: int = 0,
+    word0: int = 0,
+    words: "int | None" = None,
 ) -> PrefixTable:
     """Record the batch's chunks as cached on their picked endpoints, IN
     PLACE, and return the table.
@@ -110,10 +154,16 @@ def insert(
 
     Every step is a fixed-shape scatter or select: no boolean indexing,
     whose nonzero() would make the host wait for the device mid-cycle.
+
+    A tp shard of the table (parallel/mesh.py) holds whole keys and ages
+    and a block of present: rows [row0, row0 + R) and words [word0,
+    word0 + W) of a table `words` words wide. Every shard decides the
+    winners over all the wave's lanes, as the whole table does, and
+    writes only the cells its block holds.
     """
     n, cmax = reqs.chunk_hashes.shape
-    nslots = table.keys.shape[0]
-    w = table.present.shape[1]
+    nslots, w, rows = _window(table, words)
+    w_loc = table.present.shape[1]
     flat_hash = reqs.chunk_hashes.reshape(-1)                       # [N*C]
     flat_slot = _slots(flat_hash, nslots)
     dev = flat_hash.device
@@ -135,10 +185,13 @@ def insert(
 
     # 1) Evictions: clear the packed presence row of every row some lane
     #    evicts.
-    table.present.masked_fill_((evicted >= 0)[:, None], 0)
+    table.present.masked_fill_((evicted >= 0)[row0:row0 + rows, None], 0)
     # 2) OR the winning lane's bit into its (row, word) cell, reading the
     #    cell as the evictions left it. Words are >= 0, so an amax with
     #    0 from every other lane leaves the winner's value.
+    if (rows, w_loc) != (nslots, w):
+        cell, own = _local_cells(flat_slot, word, row0, word0, rows, w_loc)
+        cell_winner = cell_winner & own
     flat_present = table.present.view(-1)
     won = torch.where(cell_winner, flat_present[cell] | bit,
                       torch.zeros_like(bit))
@@ -181,6 +234,10 @@ def ingest_lanes(
     remove: torch.Tensor,  # bool[L] removed (True) or stored (False)
     tick: torch.Tensor,    # int64 scalar (u32)
     scratch: "torch.Tensor | None" = None,
+    *,
+    row0: int = 0,
+    word0: int = 0,
+    words: "int | None" = None,
 ) -> PrefixTable:
     """ingest_keys for several event batches at once, IN PLACE: lane l
     carries one hash of endpoint ep[l]'s stored or removed batch. Lanes of
@@ -195,9 +252,14 @@ def ingest_lanes(
     (int64[2, table rows], all -1; per-row winners are reduced into it and
     it is left all -1 again; allocated here when None). Words, keys and
     ages lie in [0, 2**32), so an amax with 0 and an amin with U32_MASK
-    leave a target that no lane of that step names as it was."""
-    nslots = table.keys.shape[0]
-    w = table.present.shape[1]
+    leave a target that no lane of that step names as it was.
+
+    Over a tp shard of the table (row0, word0, words: see insert) every
+    lane still decides and writes the replicated keys and ages, and only
+    the presence cells the shard holds are written."""
+    nslots, w, rows = _window(table, words)
+    w_loc = table.present.shape[1]
+    whole = (rows, w_loc) == (nslots, w)
     dev = hashes.device
     if scratch is None:
         scratch = torch.full((2, nslots), -1, dtype=torch.int64, device=dev)
@@ -223,16 +285,24 @@ def ingest_lanes(
     full = torch.full_like(hashes, C.U32_MASK)
     flat = table.present.view(-1)
     # 1) Evictions clear the row's every word.
-    row_cells = (slot[:, None] * w
-                 + torch.arange(w, dtype=torch.int64, device=dev)).reshape(-1)
+    lrow = slot - row0
+    own_row = (lrow >= 0) & (lrow < rows)
+    row_cells = (torch.where(own_row, lrow, zero)[:, None] * w_loc
+                 + torch.arange(w_loc, dtype=torch.int64, device=dev)
+                 ).reshape(-1)
     flat.scatter_reduce_(0, row_cells, torch.where(
-        store & evicted, zero, full)[:, None].expand(-1, w).reshape(-1),
-        "amin")
+        store & evicted & own_row, zero, full)[:, None].expand(-1, w_loc)
+        .reshape(-1), "amin")
     # 2) Stored lanes OR their bit into the cell as the evictions left it;
     #    removed lanes that match clear theirs.
-    cell = slot * w + word
+    if whole:
+        cell = slot * w + word
+    else:
+        cell, own = _local_cells(slot, word, row0, word0, rows, w_loc)
+        store_cell, drop = store & own, drop & own
     old = flat[cell]
-    flat.scatter_reduce_(0, cell, torch.where(store, old | bit, zero), "amax")
+    flat.scatter_reduce_(0, cell, torch.where(
+        store if whole else store_cell, old | bit, zero), "amax")
     flat.scatter_reduce_(0, cell, torch.where(
         drop, old & (~bit & C.U32_MASK), full), "amin")
     # 3) Keys and ages of every stored row, from its last storing lane.
@@ -274,8 +344,12 @@ def table_from_arrays(arrays: dict, *, device) -> "PrefixTable | None":
     )
 
 
-def clear_endpoint(table: PrefixTable, slot: int) -> PrefixTable:
-    """Clear one endpoint's presence bit across the table, in place."""
-    word, bit = slot // 32, 1 << (slot % 32)
-    table.present[:, word] &= (~bit) & C.U32_MASK
+def clear_endpoint(table: PrefixTable, slot: int, *,
+                   word0: int = 0) -> PrefixTable:
+    """Clear one endpoint's presence bit across the table, in place. Over
+    a word shard holding words [word0, word0 + W), an endpoint of another
+    shard's words is left alone."""
+    word, bit = slot // 32 - word0, 1 << (slot % 32)
+    if 0 <= word < table.present.shape[1]:
+        table.present[:, word] &= (~bit) & C.U32_MASK
     return table

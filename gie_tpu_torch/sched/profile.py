@@ -1,5 +1,5 @@
 """Profile composition: the full scheduling cycle (port of
-gie_tpu/sched/profile.py, single device).
+gie_tpu/sched/profile.py).
 
 A cycle is filter -> score (normalized, weighted blend) -> exactly one pick
 -> state update (assumed load, prefix index, rr/tick, Sinkhorn duals), as
@@ -14,6 +14,10 @@ the reference's compiled executable per key; warm_lattice_async captures a
 lattice of keys on a background thread, as the reference compiles one. On
 the CPU the cycle runs eagerly and warming runs it once on a throwaway
 state.
+
+`Scheduler(mesh=)` runs the cycle over a (dp, tp) mesh of shards
+(parallel/mesh.py). The single-device cycle is the same code over a 1 x 1
+grid, so the picks are bit-identical in any layout.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ import torch
 from gie_tpu_torch.sched import constants as C
 from gie_tpu_torch.sched import filters, pickers, prefix, scorers
 from gie_tpu_torch.sched.graphs import CycleGraph, FoldGraph
+from gie_tpu_torch.sched.sinkhorn import _combine, _on
+from gie_tpu_torch.sched.sinkhorn import _gather as _cat
 from gie_tpu_torch.sched.types import (
     EndpointBatch,
     PickResult,
@@ -49,19 +55,6 @@ from gie_tpu_torch.sched.types import (
 )
 
 log = logging.getLogger(__name__)
-
-# Later slices of the port (ROADMAP.md, Queue 1) that bring what this one
-# rejects at construction.
-_LATER = {
-    "mesh": "the multi-device slice",
-}
-
-
-def _not_ported(what: str, key: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to gie_tpu_torch yet; it comes with "
-        f"{_LATER[key]} (ROADMAP.md, Queue 1)")
-
 
 @dataclasses.dataclass(frozen=True)
 class ProfileConfig:
@@ -199,6 +192,215 @@ def _weight_vector(weights: Weights, names: tuple,
                         dtype=torch.float32, device=device)
 
 
+# -- the cycle over a grid of blocks -----------------------------------------
+# The cycle runs over a (dp, tp) grid of blocks: position (i, j) works on
+# request rows i, endpoint columns j and the state's tp shard j. One
+# device's whole wave is the 1 x 1 grid, where every gather and combine
+# below passes its one block through, so the single-device cycle and the
+# meshed one (parallel/mesh.py) are one code path. docs/MESH.md's three
+# classes of operation map onto it as follows.
+#
+#   1. Elementwise and max/argmax work (filters, scorer columns, the blend,
+#      the lane tiebreak, the top-k) is exact in any layout. A row's
+#      cross-shard flags and maxima combine its blocks' in tp order; each
+#      pick gathers its row block's tp columns ([N/dp, M]) and runs the
+#      picker there (the fused top-k kernel once per dp row).
+#   2. Noise: the wave's one draw, cut into blocks (mesh.shard_noise).
+#   3. Coupled float sums (the Sinkhorn solve, its capacities and
+#      warm-start gate) run as fixed group partials, gathered in mesh order
+#      and folded as on one device (sched/sinkhorn.py).
+#
+# The state update sends each charge to the shard that owns its slot, over
+# every row of the wave in dp order (the order the single-device scatter
+# sums in), and every shard decides the prefix table's winning lanes over
+# the whole wave (last lane wins), writing the presence cells it holds.
+
+
+@dataclasses.dataclass
+class _Wave:
+    """The blocks of one wave and the state shards it updates."""
+
+    mesh: object          # the Mesh, or None for one device's whole wave
+    reqs: list            # [dp][tp] RequestBatch
+    eps: list             # [dp][tp] EndpointBatch
+    shards: list          # [tp] SchedState, updated in place
+    st: list              # [dp][tp] SchedState as each position reads it
+    windows: list         # [tp] each shard's block of the presence matrix
+    words_axis: bool      # whether `present` splits on its word axis
+
+    @staticmethod
+    def of(mesh, state, reqs, eps) -> "_Wave":
+        """One device's whole tensors (mesh None: the 1 x 1 grid), or a
+        ShardedState and [dp][tp] shards over `mesh`."""
+        if mesh is None:
+            return _Wave(None, [[reqs]], [[eps]], [state], [[state]], [{}],
+                         True)
+        return _Wave(mesh, reqs, eps, state.shards,
+                     [[state.at(i, j) for j in range(mesh.tp)]
+                      for i in range(mesh.dp)],
+                     [state.window(j) for j in range(mesh.tp)],
+                     state.words_axis)
+
+    @property
+    def dp(self) -> int:
+        return len(self.reqs)
+
+    @property
+    def tp(self) -> int:
+        return len(self.reqs[0])
+
+    @property
+    def m_loc(self) -> int:
+        return int(self.eps[0][0].valid.shape[0])
+
+    def dev(self, i: int, j: int) -> torch.device:
+        return self.eps[i][j].valid.device
+
+    def home(self, i: int) -> torch.device:
+        return self.dev(i, 0)
+
+    def cells(self):
+        for i in range(self.dp):
+            for j in range(self.tp):
+                yield i, j
+
+    def grid(self, fn: Callable) -> list:
+        return [[fn(i, j) for j in range(self.tp)] for i in range(self.dp)]
+
+    def row(self, blocks: list, i: int, dim: int = -1) -> torch.Tensor:
+        """Row i's tp blocks gathered into one [N/dp, M] row block."""
+        return _cat(blocks[i], dim, self.home(i))
+
+
+def _prefix_blocks(w: _Wave, cfg: ProfileConfig) -> list:
+    """The prefix scorer column's blocks. Word shards read their own
+    words; slot shards each contribute the words of the slots they hold
+    (zeros elsewhere), ORed in tp order into the row's whole words."""
+    if w.words_axis:
+        return w.grid(lambda i, j: prefix.match_scores(
+            w.st[i][j].prefix, w.reqs[i][j], w.st[i][j].tick,
+            max_age=cfg.prefix_max_age))
+    out = []
+    for i in range(w.dp):
+        words = None
+        for j in range(w.tp):
+            part = _on(prefix.hit_words(
+                w.st[i][j].prefix, w.reqs[i][j], w.st[i][j].tick,
+                max_age=cfg.prefix_max_age,
+                row0=w.windows[j]["row0"]), w.home(i))
+            words = part if words is None else words | part
+        full = prefix.match_from_words(words, w.reqs[i][0])
+        out.append([_on(full[:, j * w.m_loc:(j + 1) * w.m_loc].contiguous(),
+                        w.dev(i, j)) for j in range(w.tp)])
+    return out
+
+
+def _session_blocks(w: _Wave, cfg: ProfileConfig) -> list:
+    """The session scorer column's blocks: each block's rendezvous hashes
+    at its global slots, the row's winner and runner-up hashes combined
+    across tp."""
+    keyed = w.grid(lambda i, j: scorers.session_hash(
+        w.reqs[i][j], w.eps[i][j], key_chunks=cfg.session_key_chunks,
+        col0=j * w.m_loc))
+    out = []
+    for i in range(w.dp):
+        hs = [h for _, h in keyed[i]]
+        top = _combine([h.amax(dim=-1, keepdim=True) for h in hs],
+                       w.home(i), "amax")
+        ranked = [scorers.runner_up_hash(h, _on(top, h.device)) for h in hs]
+        second = _combine([h2.amax(dim=-1, keepdim=True) for _, h2 in ranked],
+                          w.home(i), "amax")
+        out.append([scorers.session_from_hash(
+            w.reqs[i][j], w.eps[i][j], keyed[i][j][0], hs[j], *ranked[j],
+            _on(second, hs[j].device)) for j in range(w.tp)])
+    return out
+
+
+def _stages(w: _Wave, weights: Weights, *, cfg: ProfileConfig, wvec=None,
+            predictor_fn=None, predictor_params=None):
+    """build_stages over the blocks -> (mask [dp][tp], shed [dp], named
+    [dp][tp] dicts, stacked [dp][tp], wvec, total [dp][tp] or None)."""
+    mask = [[None] * w.tp for _ in range(w.dp)]
+    memb = [[None] * w.tp for _ in range(w.dp)]
+    for i, j in w.cells():
+        r, e = w.reqs[i][j], w.eps[i][j]
+        mk = filters.base_mask(r, e)
+        if cfg.enable_lora:
+            memb[i][j] = filters.lora_membership(r, e)
+            mk = mk & filters.lora_capacity_mask(r, e, memb[i][j])
+        mask[i][j] = mk
+    shed = [torch.zeros(w.reqs[i][0].valid.shape, dtype=torch.bool,
+                        device=w.home(i)) for i in range(w.dp)]
+    if cfg.enable_saturation:
+        sat = w.grid(lambda i, j: mask[i][j] & filters.saturation_mask(
+            w.reqs[i][j], w.eps[i][j], queue_limit=cfg.queue_limit,
+            kv_limit=cfg.kv_limit))
+        for i in range(w.dp):
+            had = _combine([b.any(dim=-1) for b in mask[i]], w.home(i), "any")
+            any_unsat = _combine([b.any(dim=-1) for b in sat[i]], w.home(i),
+                                 "any")
+            sheddable = (w.reqs[i][0].criticality
+                         == int(C.Criticality.SHEDDABLE))
+            if cfg.shed_sheddable:
+                shed[i] = sheddable & had & ~any_unsat
+                keep_hard = sheddable | any_unsat
+            else:
+                keep_hard = any_unsat
+            for j in range(w.tp):
+                kh = _on(keep_hard, w.dev(i, j))
+                mask[i][j] = torch.where(kh[:, None], sat[i][j], mask[i][j])
+
+    pref = _prefix_blocks(w, cfg) if cfg.enable_prefix else None
+    sess = _session_blocks(w, cfg) if cfg.enable_session else None
+    named = [[None] * w.tp for _ in range(w.dp)]
+    stacked = [[None] * w.tp for _ in range(w.dp)]
+    for i, j in w.cells():
+        r, e, s = w.reqs[i][j], w.eps[i][j], w.st[i][j]
+        shape = mask[i][j].shape
+        nm = {
+            "queue": scorers.queue_score(
+                e, queue_norm=cfg.queue_norm)[None, :].expand(shape),
+            "kv_cache": scorers.kv_cache_score(e)[None, :].expand(shape),
+            "assumed_load": scorers.assumed_load_score(
+                s.assumed_load, load_norm=cfg.load_norm)[None, :]
+            .expand(shape),
+        }
+        if pref is not None:
+            nm["prefix"] = pref[i][j]
+        if sess is not None:
+            nm["session"] = sess[i][j]
+        if cfg.enable_lora:
+            nm["lora"] = scorers.lora_affinity_score(r, e, memb[i][j])
+        if predictor_fn is not None:
+            # Replicated params: each position reads them on its device.
+            params = (None if predictor_params is None else
+                      {k: _on(v, w.dev(i, j))
+                       for k, v in predictor_params.items()})
+            # A tp shard names the global slot of its first lane.
+            at = {"col0": j * w.m_loc} if w.tp > 1 else {}
+            nm["latency"] = predictor_fn(params, r, e, s.assumed_load, **at)
+        named[i][j] = nm
+        stacked[i][j] = torch.stack(list(nm.values()))       # [S, n, m]
+    if wvec is None:
+        wvec = _weight_vector(weights, tuple(named[0][0]), w.dev(0, 0))
+    total = None
+    if cfg.scorer == "learned" or cfg.pd_disaggregation or not (
+            cfg.picker == "topk" and cfg.use_pallas_topk):
+        total = [[None] * w.tp for _ in range(w.dp)]
+        for i, j in w.cells():
+            wv = _on(wvec, w.dev(i, j))
+            if cfg.scorer == "learned":
+                # The gie-learn multiplicative policy; the reference
+                # forbids it beside the fused top-k and the dual pick
+                # (ProfileConfig).
+                from gie_tpu_torch.learn.policy import multiplicative_total
+
+                total[i][j] = multiplicative_total(stacked[i][j], wv)
+            else:
+                total[i][j] = blend(wv, stacked[i][j])
+    return mask, shed, named, stacked, wvec, total
+
+
 def build_stages(
     state: SchedState,
     reqs: RequestBatch,
@@ -209,6 +411,7 @@ def build_stages(
     wvec: Optional[torch.Tensor] = None,
     predictor_fn: Optional[Callable] = None,
     predictor_params=None,
+    mesh=None,
 ):
     """Filter + score stages -> (mask, shed, named column dict,
     stacked [S,N,M], wvec [S], blended total [N,M]). `total` is None on
@@ -219,119 +422,136 @@ def build_stages(
     tensor the caller fills (a captured cycle's static buffer); otherwise
     they come from `weights`. `predictor_fn(predictor_params, reqs, eps,
     assumed_load) -> f32[N, M]`, when given, adds the "latency" column
-    last (models.latency.predictor_score_fn builds it).
+    last (models.latency.predictor_score_fn builds it); over several tp
+    shards it also takes `col0`, the global slot of eps' first lane.
+
+    With `mesh`, the inputs are shards as scheduling_cycle takes them and
+    every output but wvec is its [dp][tp] blocks (shed its [dp] rows).
 
     Saturation is a soft filter: unsaturated candidates are preferred;
     when all are saturated SHEDDABLE traffic is shed (429) and STANDARD
     falls back to the full candidate set (CRITICAL bypasses it)."""
-    mask = filters.base_mask(reqs, eps)
-    membership = (filters.lora_membership(reqs, eps) if cfg.enable_lora
-                  else None)
-    if cfg.enable_lora:
-        mask = mask & filters.lora_capacity_mask(reqs, eps, membership)
-    no_shed = torch.zeros(reqs.valid.shape, dtype=torch.bool,
-                          device=mask.device)
-    if cfg.enable_saturation:
-        sat_mask = mask & filters.saturation_mask(
-            reqs, eps, queue_limit=cfg.queue_limit, kv_limit=cfg.kv_limit)
-        had_candidates = mask.any(dim=-1)
-        any_unsaturated = sat_mask.any(dim=-1)
-        sheddable = reqs.criticality == int(C.Criticality.SHEDDABLE)
-        if cfg.shed_sheddable:
-            shed = sheddable & had_candidates & ~any_unsaturated
-            keep_hard = sheddable | any_unsaturated
-        else:
-            shed = no_shed
-            keep_hard = any_unsaturated
-        mask = torch.where(keep_hard[:, None], sat_mask, mask)
-    else:
-        shed = no_shed
-
-    shape = mask.shape
-    named: dict[str, torch.Tensor] = {
-        "queue": scorers.queue_score(
-            eps, queue_norm=cfg.queue_norm)[None, :].expand(shape),
-        "kv_cache": scorers.kv_cache_score(eps)[None, :].expand(shape),
-        "assumed_load": scorers.assumed_load_score(
-            state.assumed_load, load_norm=cfg.load_norm)[None, :].expand(shape),
-    }
-    if cfg.enable_prefix:
-        named["prefix"] = prefix.match_scores(
-            state.prefix, reqs, state.tick, max_age=cfg.prefix_max_age)
-    if cfg.enable_session:
-        named["session"] = scorers.session_affinity_score(
-            reqs, eps, key_chunks=cfg.session_key_chunks)
-    if cfg.enable_lora:
-        named["lora"] = scorers.lora_affinity_score(reqs, eps, membership)
-    if predictor_fn is not None:
-        named["latency"] = predictor_fn(predictor_params, reqs, eps,
-                                        state.assumed_load)
-
-    stacked = torch.stack(list(named.values()))               # [S, N, M]
-    if wvec is None:
-        wvec = _weight_vector(weights, tuple(named), mask.device)
-    total = None
-    if cfg.scorer == "learned":
-        # The gie-learn multiplicative policy; the reference forbids it
-        # beside the fused top-k and the dual pick (ProfileConfig).
-        from gie_tpu_torch.learn.policy import multiplicative_total
-
-        total = multiplicative_total(stacked, wvec)
-    elif cfg.pd_disaggregation or not (cfg.picker == "topk"
-                                       and cfg.use_pallas_topk):
-        total = blend(wvec, stacked)
-    return mask, shed, named, stacked, wvec, total
+    mask, shed, named, stacked, wvec, total = _stages(
+        _Wave.of(mesh, state, reqs, eps), weights, cfg=cfg, wvec=wvec,
+        predictor_fn=predictor_fn, predictor_params=predictor_params)
+    if mesh is not None:
+        return mask, shed, named, stacked, wvec, total
+    return (mask[0][0], shed[0], named[0][0], stacked[0][0], wvec,
+            None if total is None else total[0][0])
 
 
 def blend(wvec: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor:
-    """The weighted blend of the scorer columns -> f32[N, M]."""
-    return torch.einsum("s,snm->nm", wvec, stacked) / torch.clamp(
-        wvec.sum(), min=1e-6)
+    """The weighted blend of the scorer columns -> f32[N, M]: sum_s w[s] *
+    col[s] folded in order s = 0, 1, ... (each product rounded, then
+    added), divided by max(sum w, 1e-6). Elementwise, so a block of the
+    grid blends bit-equal to the whole on every device, as a matrix
+    product, whose summation order follows its shape, would not; the
+    weight sum is one replicated scalar."""
+    total = wvec[0] * stacked[0]
+    for si in range(1, stacked.shape[0]):
+        total = total + wvec[si] * stacked[si]
+    return total / torch.clamp(wvec.sum(), min=1e-6)
 
 
-def _pick_stage(
-    total: Optional[torch.Tensor],
-    stacked: torch.Tensor,
-    wvec: torch.Tensor,
-    mask: torch.Tensor,
-    shed: torch.Tensor,
-    reqs: RequestBatch,
-    eps: EndpointBatch,
-    state: SchedState,
-    gumbel: Optional[torch.Tensor],
-    cfg: ProfileConfig,
-) -> tuple[PickResult, dict]:
-    """The configured picker; the aux dict carries the Sinkhorn duals.
-    `gumbel` is the wave's standard Gumbel noise, which the random and
+def _pick_stage(w: _Wave, total, stacked, wvec, mask, shed, gumbel,
+                cfg: ProfileConfig) -> tuple[list, dict]:
+    """The configured picker over the blocks -> ([dp] PickResult row
+    shards, aux with the Sinkhorn duals' [tp] shards). `gumbel` is the
+    blocks of the wave's standard Gumbel noise, which the random and
     sinkhorn pickers take (the reference hands both the wave's key)."""
+    valid = [w.reqs[i][0].valid for i in range(w.dp)]
     if cfg.picker == "topk" and cfg.use_pallas_topk:
         from gie_tpu_torch.ops.fused_topk import fused_blend_topk
 
-        vals, idxs = fused_blend_topk(stacked, wvec, mask, k=C.FALLBACKS)
-        return pickers.finalize_from_topk(
-            vals, idxs, mask, shed, reqs.valid), {}
+        out = []
+        for i in range(w.dp):
+            # One launch per dp row over its rows, the tp columns
+            # gathered: the kernel is row-local and exact.
+            mk = w.row(mask, i)
+            vals, idxs = fused_blend_topk(
+                w.row(stacked, i, dim=2), _on(wvec, w.home(i)), mk,
+                k=C.FALLBACKS)
+            out.append(pickers.finalize_from_topk(vals, idxs, mk, shed[i],
+                                                  valid[i]))
+        return out, {}
     if cfg.picker == "random":
         if gumbel is None:
             raise ValueError("the random picker needs a Gumbel noise tensor")
-        return pickers.weighted_random_picker(
-            total, mask, shed, reqs.valid, gumbel,
-            temperature=cfg.sample_temperature), {}
+        return [pickers.weighted_random_picker(
+            w.row(total, i), w.row(mask, i), shed[i], valid[i],
+            w.row(gumbel, i), temperature=cfg.sample_temperature)
+            for i in range(w.dp)], {}
     if cfg.picker == "sinkhorn":
         from gie_tpu_torch.sched.sinkhorn import sinkhorn_picker
 
         if gumbel is None:
             raise ValueError("the sinkhorn picker needs a Gumbel noise tensor")
-        res, v_out = sinkhorn_picker(
-            total, mask, shed, reqs.valid, eps, gumbel,
-            queue_limit=cfg.queue_limit,
-            tau=cfg.sinkhorn_tau,
+        rows, v_out = sinkhorn_picker(
+            total, mask, shed, valid, w.eps, gumbel,
+            queue_limit=cfg.queue_limit, tau=cfg.sinkhorn_tau,
             iters=cfg.sinkhorn_iters,
             rounding_temp=cfg.sinkhorn_rounding_temp,
-            use_kernel=cfg.use_pallas_sinkhorn,
-            v0=state.ot_v,
-        )
-        return res, {"ot_v": v_out}
-    return pickers.topk_picker(total, mask, shed, reqs.valid, state.rr), {}
+            use_kernel=cfg.use_pallas_sinkhorn and w.mesh is None,
+            v0=[s.ot_v for s in w.st[0]])
+        return rows, {"ot_v": v_out}
+    return [pickers.topk_picker(w.row(total, i), w.row(mask, i), shed[i],
+                                valid[i], w.st[i][0].rr)
+            for i in range(w.dp)], {}
+
+
+def _charge(w: _Wave, lanes: list, decay: float) -> None:
+    """The assumed-load update: every (slot, cost) lane list, each over
+    the whole wave in dp order, summed into each shard's own slots (over
+    several shards the others' go to a dropped scratch slot), then load =
+    load * decay + added on every shard."""
+    m_loc = w.m_loc
+    for j, s in enumerate(w.shards):
+        dev = s.assumed_load.device
+        added = torch.zeros((m_loc + (w.tp > 1),), dtype=torch.float32,
+                            device=dev)
+        for slot, cost in lanes:
+            slot, cost = _on(slot, dev), _on(cost, dev)
+            if w.tp > 1:
+                local = slot - j * m_loc
+                own = (local >= 0) & (local < m_loc)
+                slot = torch.where(own, local, m_loc)
+                cost = torch.where(own, cost, torch.zeros_like(cost))
+            added.index_add_(0, slot, cost)
+        s.assumed_load.mul_(decay).add_(added[:m_loc])
+
+
+@dataclasses.dataclass(frozen=True)
+class _Lanes:
+    """The (request, chunk) lanes prefix.insert reads from a wave."""
+
+    chunk_hashes: torch.Tensor
+    n_chunks: torch.Tensor
+
+
+def _insert(w: _Wave, picked: list) -> None:
+    """prefix.insert over the shards: the whole wave's lanes in dp order
+    on every shard, each writing the presence cells it holds."""
+    for j, s in enumerate(w.shards):
+        dev = s.prefix.keys.device
+        lanes = _Lanes(
+            chunk_hashes=_cat([w.reqs[i][j].chunk_hashes
+                               for i in range(w.dp)], 0, dev),
+            n_chunks=_cat([w.reqs[i][j].n_chunks for i in range(w.dp)], 0,
+                          dev))
+        prefix.insert(s.prefix, lanes, _cat(picked, 0, dev), s.tick,
+                      **w.windows[j])
+
+
+def _advance(w: _Wave) -> None:
+    for s in w.shards:
+        s.rr.add_(1).bitwise_and_(C.U32_MASK)
+        s.tick.add_(1).bitwise_and_(C.U32_MASK)
+
+
+def _affinity(w: _Wave, named: list, i: int, primary, ok) -> torch.Tensor:
+    row = {k: _cat([nm[k] for nm in named[i]], -1, w.home(i))
+           for k in ("prefix", "session") if k in named[i][0]}
+    return _affinity_columns(row, primary, ok)
 
 
 def scheduling_cycle(
@@ -345,9 +565,16 @@ def scheduling_cycle(
     wvec: Optional[torch.Tensor] = None,
     predictor_fn: Optional[Callable] = None,
     predictor_params=None,
+    mesh=None,
 ) -> tuple[PickResult, SchedState]:
     """One full scheduling cycle. Updates `state`'s tensors IN PLACE (the
     role of the reference's donated buffers) and returns (result, state).
+
+    With `mesh` the cycle runs over its shards: `state` is a ShardedState,
+    `reqs` and `eps` [dp][tp] shards, `gumbel` the noise's blocks, and the
+    result is [dp] PickResult row shards (parallel/mesh.py's shard_* and
+    unshard_* helpers). Without, it runs the same code over the 1 x 1
+    grid of the whole tensors.
 
     `gumbel` is the standard Gumbel noise f32[N, M] the sinkhorn picker's
     rounding and the random picker's sampling use (the reference draws it
@@ -359,37 +586,40 @@ def scheduling_cycle(
     waits for the device, so it can be captured into a CUDA graph
     (sched/graphs.py).
     """
-    mask, shed, named, stacked, wvec, total = build_stages(
-        state, reqs, eps, weights, cfg=cfg, wvec=wvec,
-        predictor_fn=predictor_fn, predictor_params=predictor_params)
-
+    w = _Wave.of(mesh, state, reqs, eps)
+    if mesh is None and gumbel is not None:
+        gumbel = [[gumbel]]
+    mask, shed, named, stacked, wvec, total = _stages(
+        w, weights, cfg=cfg, wvec=wvec, predictor_fn=predictor_fn,
+        predictor_params=predictor_params)
     if cfg.pd_disaggregation:
-        return _pd_cycle(state, reqs, eps, gumbel, cfg, mask=mask, shed=shed,
-                         named=named, stacked=stacked, wvec=wvec, total=total)
-
-    result, pick_aux = _pick_stage(
-        total, stacked, wvec, mask, shed, reqs, eps, state, gumbel, cfg)
-
-    m = state.m
-    primary = result.indices[:, 0]                  # i32[N], -1 on non-OK
-    picked_ok = primary >= 0
-    if cfg.record_affinity:
-        result = result.replace(
-            affinity=_affinity_columns(named, primary, picked_ok))
-    cost = request_cost(reqs)
-    cost = torch.where(picked_ok, cost, torch.zeros_like(cost))
-    slot = torch.where(picked_ok, primary, m - 1).long()
-    added = torch.zeros((m,), dtype=torch.float32,
-                        device=cost.device).index_add_(0, slot, cost)
-    state.assumed_load.mul_(cfg.load_decay).add_(added)
-
-    if cfg.enable_prefix:
-        prefix.insert(state.prefix, reqs, primary, state.tick)
-    state.rr.add_(1).bitwise_and_(C.U32_MASK)
-    state.tick.add_(1).bitwise_and_(C.U32_MASK)
-    if "ot_v" in pick_aux:
-        state.ot_v.copy_(pick_aux["ot_v"])
-    return result, state
+        rows = _pd_cycle(w, gumbel, cfg, mask=mask, shed=shed, named=named,
+                         stacked=stacked, wvec=wvec, total=total)
+    else:
+        rows, aux = _pick_stage(w, total, stacked, wvec, mask, shed, gumbel,
+                                cfg)
+        m = w.m_loc * w.tp
+        slots, costs, primaries = [], [], []
+        for i, res in enumerate(rows):
+            primary = res.indices[:, 0]             # i32[N], -1 on non-OK
+            picked_ok = primary >= 0
+            if cfg.record_affinity:
+                rows[i] = res.replace(
+                    affinity=_affinity(w, named, i, primary, picked_ok))
+            cost = request_cost(w.reqs[i][0])
+            costs.append(torch.where(picked_ok, cost, torch.zeros_like(cost)))
+            slots.append(torch.where(picked_ok, primary, m - 1).long())
+            primaries.append(primary)
+        home = w.dev(0, 0)
+        _charge(w, [(_cat(slots, 0, home), _cat(costs, 0, home))],
+                cfg.load_decay)
+        if cfg.enable_prefix:
+            _insert(w, primaries)
+        _advance(w)
+        if "ot_v" in aux:
+            for s, v in zip(w.shards, aux["ot_v"]):
+                s.ot_v.copy_(v)
+    return (rows[0] if mesh is None else rows), state
 
 
 # Locality columns that only describe the PREFILL side (the prefix cache
@@ -398,39 +628,33 @@ def scheduling_cycle(
 _PREFILL_ONLY_COLUMNS = ("prefix", "session")
 
 
-def _pd_cycle(
-    state: SchedState,
-    reqs: RequestBatch,
-    eps: EndpointBatch,
-    gumbel: Optional[torch.Tensor],
-    cfg: ProfileConfig,
-    *,
-    mask: torch.Tensor,
-    shed: torch.Tensor,
-    named: dict,
-    stacked: torch.Tensor,
-    wvec: torch.Tensor,
-    total: torch.Tensor,
-) -> tuple[PickResult, SchedState]:
+def _pd_cycle(w: _Wave, gumbel, cfg: ProfileConfig, *, mask, shed, named,
+              stacked, wvec, total) -> list:
     """Dual pick for disaggregated serving (the reference's _pd_cycle):
     the prefill endpoint (full blend over PREFILL/BOTH roles), then the
     decode endpoint (locality columns dropped, co-location bonus, over
     DECODE/BOTH roles). `indices` is the decode pick and `prefill` names
-    the prefill worker. Updates `state` in place; neither solve writes the
-    carried Sinkhorn duals (one vector under two capacity patterns would
-    poison both warm starts)."""
-    prefill_ok = mask & (eps.role != int(C.Role.DECODE))[None, :]
-    decode_ok = mask & (eps.role != int(C.Role.PREFILL))[None, :]
-    g_p, g_d = (None, None) if gumbel is None else (gumbel[0], gumbel[1])
+    the prefill worker -> [dp] PickResult row shards. Updates the state in
+    place; neither solve writes the carried Sinkhorn duals (one vector
+    under two capacity patterns would poison both warm starts)."""
+    prefill_ok = w.grid(lambda i, j: mask[i][j] & (
+        w.eps[i][j].role != int(C.Role.DECODE))[None, :])
+    decode_ok = w.grid(lambda i, j: mask[i][j] & (
+        w.eps[i][j].role != int(C.Role.PREFILL))[None, :])
+    if gumbel is None:
+        g_p = g_d = None
+    else:
+        g_p = w.grid(lambda i, j: gumbel[i][j][0])
+        g_d = w.grid(lambda i, j: gumbel[i][j][1])
+    p_rows, _ = _pick_stage(w, total, stacked, wvec, prefill_ok, shed, g_p,
+                            cfg)
+    p_primary = [r.indices[:, 0] for r in p_rows]
 
-    p_res, _ = _pick_stage(total, stacked, wvec, prefill_ok, shed, reqs, eps,
-                           state, g_p, cfg)
-    p_primary = p_res.indices[:, 0]
-
+    names = list(named[0][0])
     keep = torch.ones_like(wvec)
-    for i, k in enumerate(named):
-        if k in _PREFILL_ONLY_COLUMNS:
-            keep[i].fill_(0.0)            # a device fill: capturable
+    for k, name in enumerate(names):
+        if name in _PREFILL_ONLY_COLUMNS:
+            keep[k].fill_(0.0)            # a device fill: capturable
     d_wvec = wvec * keep
     # Incremental de-blend: (total * sum(w) - the prefill-only columns) /
     # sum(kept w), two column reads instead of re-reducing the stack.
@@ -440,64 +664,74 @@ def _pd_cycle(
     # co-location bonus; the decode side then has no signal, so 0.
     wsum = torch.clamp(wvec.sum(), min=1e-6)
     d_wsum = d_wvec.sum()
-    dropped = torch.zeros((), dtype=torch.float32, device=wvec.device)
-    for i, k in enumerate(named):
-        if k in _PREFILL_ONLY_COLUMNS:
-            dropped = dropped + wvec[i] * named[k]
-    d_total = torch.where(
-        d_wsum > 1e-4 * wsum,
-        (total * wsum - dropped) / torch.clamp(d_wsum, min=1e-6),
-        torch.zeros((), dtype=torch.float32, device=total.device))
-    # The same endpoint as the prefill pick needs no KV transfer: a bonus
-    # on that lane (only BOTH-role endpoints can win both picks).
-    m = d_total.shape[1]
-    colocated = (torch.arange(m, dtype=torch.int32, device=total.device)[None, :]
-                 == p_primary[:, None])
-    d_total = d_total + float(np.float32(cfg.pd_colocation_bonus)) * colocated
-
+    bonus = float(np.float32(cfg.pd_colocation_bonus))
+    d_total = [[None] * w.tp for _ in range(w.dp)]
+    for i, j in w.cells():
+        dev = w.dev(i, j)
+        wv, ws, dws = _on(wvec, dev), _on(wsum, dev), _on(d_wsum, dev)
+        dropped = torch.zeros((), dtype=torch.float32, device=dev)
+        for k, name in enumerate(names):
+            if name in _PREFILL_ONLY_COLUMNS:
+                dropped = dropped + wv[k] * named[i][j][name]
+        dt = torch.where(dws > 1e-4 * ws,
+                         (total[i][j] * ws - dropped)
+                         / torch.clamp(dws, min=1e-6),
+                         torch.zeros((), dtype=torch.float32, device=dev))
+        # The same endpoint as the prefill pick needs no KV transfer: a
+        # bonus on that lane (only BOTH-role endpoints can win both picks).
+        lanes = torch.arange(j * w.m_loc, (j + 1) * w.m_loc,
+                             dtype=torch.int32, device=dev)
+        colocated = lanes[None, :] == _on(p_primary[i], dev)[:, None]
+        d_total[i][j] = dt + bonus * colocated
     # The fused top-k recomputes the blend from (stacked, wvec) and would
     # drop the co-location bonus: the decode pick never takes it.
     d_cfg = (dataclasses.replace(cfg, use_pallas_topk=False)
              if cfg.use_pallas_topk else cfg)
-    d_res, _ = _pick_stage(d_total, stacked, d_wvec, decode_ok, shed, reqs,
-                           eps, state, g_d, d_cfg)
-    d_primary = d_res.indices[:, 0]
+    d_rows, _ = _pick_stage(w, d_total, stacked, d_wvec, decode_ok, shed,
+                            g_d, d_cfg)
 
-    ok = (p_primary >= 0) & (d_primary >= 0)
-    # SHED (from either pick) wins over NO_CAPACITY; OK requires both.
-    status = torch.maximum(p_res.status, d_res.status)
-    is_ok = status == int(C.Status.OK)
-    status = torch.where(~ok & is_ok,
-                         torch.full_like(status, int(C.Status.NO_CAPACITY)),
-                         status)
+    m = w.m_loc * w.tp
+    out, p_lanes, d_lanes, prefills = [], [], [], []
+    for i in range(w.dp):
+        p_res, d_res = p_rows[i], d_rows[i]
+        d_primary = d_res.indices[:, 0]
+        ok = (p_primary[i] >= 0) & (d_primary >= 0)
+        # SHED (from either pick) wins over NO_CAPACITY; OK requires both.
+        status = torch.maximum(p_res.status, d_res.status)
+        is_ok = status == int(C.Status.OK)
+        status = torch.where(
+            ~ok & is_ok, torch.full_like(status, int(C.Status.NO_CAPACITY)),
+            status)
+        # Each side's cost to its own worker, prefill first.
+        p_cost_all, d_cost_all = pd_costs(w.reqs[i][0])
+        zero = torch.zeros_like(p_cost_all)
+        p_lanes.append((torch.where(ok, p_primary[i], m - 1).long(),
+                        torch.where(ok, p_cost_all, zero)))
+        d_lanes.append((torch.where(ok, d_primary, m - 1).long(),
+                        torch.where(ok, d_cost_all, zero)))
+        prefill = torch.where(ok, p_primary[i],
+                              torch.full_like(p_primary[i], -1))
+        prefills.append(prefill)
+        out.append(PickResult(
+            indices=d_res.indices, status=status, scores=d_res.scores,
+            prefill=prefill,
+            # Affinity is a PREFILL-side property: gathered at the prefill
+            # pick, not the decode destination.
+            affinity=(_affinity(w, named, i, p_primary[i], ok)
+                      if cfg.record_affinity else None)))
+    home = w.dev(0, 0)
 
-    # State update: each side's cost to its own worker, prefill first.
-    m_state = state.m
-    p_cost_all, d_cost_all = pd_costs(reqs)
-    zero = torch.zeros_like(p_cost_all)
-    p_cost = torch.where(ok, p_cost_all, zero)
-    d_cost = torch.where(ok, d_cost_all, zero)
-    p_slot = torch.where(ok, p_primary, m_state - 1).long()
-    d_slot = torch.where(ok, d_primary, m_state - 1).long()
-    added = torch.zeros((m_state,), dtype=torch.float32, device=zero.device)
-    added.index_add_(0, p_slot, p_cost).index_add_(0, d_slot, d_cost)
-    state.assumed_load.mul_(cfg.load_decay).add_(added)
+    def whole(lanes):
+        return (_cat([s for s, _ in lanes], 0, home),
+                _cat([c for _, c in lanes], 0, home))
 
-    prefill = torch.where(ok, p_primary, torch.full_like(p_primary, -1))
+    _charge(w, [whole(p_lanes), whole(d_lanes)], cfg.load_decay)
     if cfg.enable_prefix:
         # Only OK requests run: a rejected request must not record its
         # chunks as cached on the prefill worker.
-        prefix.insert(state.prefix, reqs, prefill, state.tick)
-    state.rr.add_(1).bitwise_and_(C.U32_MASK)
-    state.tick.add_(1).bitwise_and_(C.U32_MASK)
-    result = PickResult(
-        indices=d_res.indices, status=status, scores=d_res.scores,
-        prefill=prefill,
-        # Affinity is a PREFILL-side property: gathered at the prefill
-        # pick, not the decode destination.
-        affinity=(_affinity_columns(named, p_primary, ok)
-                  if cfg.record_affinity else None))
-    return result, state
+        _insert(w, prefills)
+    _advance(w)
+    return out
 
 
 @dataclasses.dataclass
@@ -675,10 +909,39 @@ class Scheduler:
         mesh=None,
     ):
         if mesh is not None:
-            raise _not_ported("a mesh", "mesh")
+            # Every padded wave must split evenly over the dp axis; the N
+            # buckets are powers of two, so dp must be one too.
+            dp = int(mesh.shape["dp"])
+            if dp & (dp - 1) or dp > C.N_BUCKETS[-1]:
+                raise ValueError(
+                    f"mesh dp axis must be a power of two <= "
+                    f"{C.N_BUCKETS[-1]} to divide the request buckets "
+                    f"{C.N_BUCKETS}; got dp={dp}")
+            if cfg.picker == "sinkhorn" and cfg.use_pallas_sinkhorn:
+                # The reference's own rule (use_pallas and mesh is None):
+                # the fused kernel solves one device's whole wave.
+                log.warning(
+                    "use_pallas_sinkhorn is set, but a meshed scheduler runs "
+                    "the grouped Sinkhorn solve over its shards and never "
+                    "launches the fused kernel (debug_report: "
+                    "sinkhorn_solve)")
+        # A meshed scheduler's device is its first position's: the state's
+        # first shard, the noise draw and the gathered results live there.
+        self.mesh = mesh
+        self._min_bucket = 1 if mesh is None else int(mesh.shape["dp"])
         self.cfg = cfg
         self.weights = weights if weights is not None else Weights.default()
-        self.device = resolve_device(device)
+        self.device = (mesh.device(0, 0) if mesh is not None and device is None
+                       else resolve_device(device))
+        if mesh is not None and mesh.device(0, 0) != self.device:
+            raise ValueError(f"a mesh whose first position is "
+                             f"{mesh.device(0, 0)} for a scheduler on "
+                             f"{self.device}")
+        # Whether waves replay captured graphs and state calls queue for
+        # them: on CUDA, unless the mesh spans several cards (a capture
+        # covers one device's stream; such a mesh runs its cycle eagerly).
+        self._captured = self.device.type == "cuda" and (
+            mesh is None or len(mesh.distinct_devices) == 1)
         # The configured latency weight is the CEILING the phase-in gate
         # scales toward; with a predictor column the live blend starts at
         # 0, so an untrained model never dilutes the heuristics.
@@ -745,7 +1008,10 @@ class Scheduler:
         that cannot run here fails construction (KernelUnavailable) rather
         than a wave."""
         cfg = self.cfg
-        sinkhorn = cfg.picker == "sinkhorn" and cfg.use_pallas_sinkhorn
+        # Under a mesh the grouped solve runs instead of the Sinkhorn
+        # kernel, as in the reference (its use_pallas and mesh is None).
+        sinkhorn = (cfg.picker == "sinkhorn" and cfg.use_pallas_sinkhorn
+                    and self.mesh is None)
         topk = cfg.picker == "topk" and cfg.use_pallas_topk
         if not (sinkhorn or topk):
             return
@@ -771,12 +1037,35 @@ class Scheduler:
         return m_bucket_for(count)
 
     def _init_state(self, m: int) -> SchedState:
-        """A fresh state of width m."""
+        """A fresh state of width m (its shards under a mesh)."""
+        if self.mesh is not None:
+            from gie_tpu_torch.parallel.mesh import ShardedState
+
+            return ShardedState.init(self.mesh, m)
         return SchedState.init(m=m, device=self.device)
 
     def _resize_into(self, src: SchedState, dst: SchedState) -> SchedState:
-        """Carry `src` into `dst`'s own tensors (another width or not)."""
-        return resize_into(src, dst)
+        """Carry `src` into `dst`'s own tensors (another width or not).
+        Under a mesh, through whole states: a bucket change or an install
+        is rare beside the waves."""
+        if self.mesh is None:
+            return resize_into(src, dst)
+        if not isinstance(src, SchedState):
+            src = src.gather()
+        whole = SchedState.init(int(src.prefix.keys.shape[0]), dst.m,
+                                device=self.device)
+        return dst.scatter_(resize_into(src, whole))
+
+    def _whole_state(self) -> SchedState:
+        """The live state as one SchedState: itself, or its shards
+        gathered (fresh tensors) under a mesh. Caller holds _lock."""
+        return self.state if self.mesh is None else self.state.gather()
+
+    def _load_of(self, state) -> torch.Tensor:
+        """A fresh copy of `state`'s whole assumed-load vector."""
+        if self.mesh is None:
+            return state.assumed_load.clone()
+        return state.load()
 
     def _state_shapes_ok(self, state: SchedState) -> bool:
         """Whether an installed state has a layout this scheduler runs."""
@@ -790,11 +1079,24 @@ class Scheduler:
 
     def _run_cycle(self, state, reqs, eps, gumbel, wvec=None):
         """One cycle over `state`, in place -> (result, state); `wvec` is
-        the static weight buffer of _graph_schema() in a captured cycle."""
-        return scheduling_cycle(state, reqs, eps, self.weights, gumbel,
-                                cfg=self.cfg, wvec=wvec,
-                                predictor_fn=self.predictor_fn,
-                                predictor_params=self.predictor_params)
+        the static weight buffer of _graph_schema() in a captured cycle.
+        Under a mesh the wave's whole batches are cut into their shards
+        and the row shards' results gathered, all on the device (inside
+        the capture on CUDA)."""
+        if self.mesh is None:
+            return scheduling_cycle(state, reqs, eps, self.weights, gumbel,
+                                    cfg=self.cfg, wvec=wvec,
+                                    predictor_fn=self.predictor_fn,
+                                    predictor_params=self.predictor_params)
+        from gie_tpu_torch.parallel import mesh as pm
+
+        rows, state = scheduling_cycle(
+            state, pm.shard_requests(self.mesh, reqs),
+            pm.shard_endpoints(self.mesh, eps), self.weights,
+            pm.shard_noise(self.mesh, gumbel), cfg=self.cfg, wvec=wvec,
+            predictor_fn=self.predictor_fn,
+            predictor_params=self.predictor_params, mesh=self.mesh)
+        return pm.unshard_result(rows, self.device), state
 
     def _bucket_state(self, m: int) -> SchedState:
         """Bucket m's state, allocated on first use. Callers hold _lock
@@ -844,7 +1146,7 @@ class Scheduler:
         n, m = int(reqs.valid.shape[0]), int(eps.valid.shape[0])
         key = (n, m, int(reqs.chunk_hashes.shape[1]))
         shape = self._noise_shape(n, m)
-        if self.device.type != "cuda":
+        if not self._captured:
             gumbel = (None if shape is None else torch.zeros(
                 shape, dtype=torch.float32, device=self.device))
             self._run_cycle(
@@ -886,6 +1188,8 @@ class Scheduler:
 
         def _run() -> None:
             for n in C.N_BUCKETS:
+                if n < self._min_bucket:
+                    continue      # a meshed scheduler pads below dp up
                 key = (n, m, chunk_lanes)
                 if key in self._warm_buckets:
                     continue
@@ -932,7 +1236,7 @@ class Scheduler:
         an event after them, which PendingWave waits on, are queued, all
         on the device's current stream."""
         n = int(reqs.valid.shape[0])
-        bucket = bucket_for(n)
+        bucket = bucket_for(max(n, self._min_bucket))
         m = int(eps.valid.shape[0])
         if not self._m_ok(m):
             raise ValueError(
@@ -944,7 +1248,7 @@ class Scheduler:
                 f"endpoint width {m}")
         lanes = int(reqs.chunk_hashes.shape[1])
         key = (bucket, m, lanes)
-        if self.device.type != "cuda":
+        if not self._captured:
             reqs = pad_requests(_batch_to_device(reqs, self.device), bucket)
             eps = _batch_to_device(eps, self.device)
             self._ensure_warm(key, lambda: (reqs, eps))
@@ -953,8 +1257,20 @@ class Scheduler:
                 shape = self._noise_shape(bucket, m)
                 gumbel = None if shape is None else self._noise(shape)
                 result, _ = self._run_cycle(state, reqs, eps, gumbel)
-                snap = state.assumed_load.clone() if snapshot_load else None
-            return PendingWave(result=result, n=n, load_snapshot=snap)
+                snap = self._load_of(state) if snapshot_load else None
+                if self.device.type != "cuda":
+                    return PendingWave(result=result, n=n, load_snapshot=snap)
+                # A mesh over several cards: eager, its results copied down
+                # as a captured wave's are.
+                host = PickResult(**{
+                    f.name: (None if getattr(result, f.name) is None
+                             else _to_host_async(getattr(result, f.name)[:n]))
+                    for f in dataclasses.fields(PickResult)})
+                snap = None if snap is None else _to_host_async(snap)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+            return PendingWave(result=host, n=n, load_snapshot=snap,
+                               event=event)
         self._ensure_warm(key, lambda: (
             RequestBatch.empty(bucket, m, lanes=lanes), EndpointBatch.empty(m)))
         graph = self._graphs[key]
@@ -970,7 +1286,7 @@ class Scheduler:
             # overwrites the static outputs and updates the state again:
             # the copies are this wave's, and the event follows them and
             # nothing of a later wave.
-            snap = (_to_host_async(state.assumed_load) if snapshot_load
+            snap = (_to_host_async(self._load_of(state)) if snapshot_load
                     else None)
             host = PickResult(**{
                 f.name: (None if getattr(result, f.name) is None
@@ -994,12 +1310,16 @@ class Scheduler:
         waves."""
         slots = np.array(endpoint_slots, np.int64)
         costs = np.array(costs, np.float32)
-        if self.device.type == "cuda":
+        if self._captured:
             self._enqueue(("complete", slots, costs))
             return
         with self._lock:
-            _complete_update(self.state, torch.from_numpy(slots),
-                             torch.from_numpy(costs))
+            slots_t = _to_device(torch.from_numpy(slots), self.device)
+            costs_t = _to_device(torch.from_numpy(costs), self.device)
+            if self.mesh is not None:
+                self.state.complete(slots_t, costs_t)
+            else:
+                _complete_update(self.state, slots_t, costs_t)
 
     # The queue's bound in lanes (a call counts one, plus its hashes or
     # released slots). Past it a thread of its own applies the queue under
@@ -1094,6 +1414,13 @@ class Scheduler:
                 layers[d][1].append(amount)
         if not layers:
             return
+        if self.mesh is not None:
+            for layer_slots, layer_sums in layers:
+                self.state.release_layer(
+                    np.array(layer_slots, np.int64),
+                    np.array(layer_sums, np.float32),
+                    lambda a, dev: _to_device(torch.from_numpy(a), dev))
+            return
         slots = _to_device(torch.from_numpy(np.array(
             [s for layer in layers for s in layer[0]], np.int64)), self.device)
         sums = _to_device(torch.from_numpy(np.array(
@@ -1185,8 +1512,10 @@ class Scheduler:
             while pending and pending[0][0] <= a:
                 self._use_bucket(pending.pop(0)[1])
             group = lanes[:, offsets[g]:offsets[g] + size]
-            if self.device.type == "cuda":
+            if self._captured:
                 self._fold_graph(size).replay(group)
+            elif self.mesh is not None:
+                self.state.ingest_lanes(group[0], group[1], group[2] != 0)
             else:
                 prefix.ingest_lanes(self.state.prefix, group[0], group[1],
                                     group[2] != 0, self.state.tick)
@@ -1212,7 +1541,11 @@ class Scheduler:
 
     def _clear_prefix(self, slot: int) -> None:
         """Clear one endpoint's presence bits. Caller holds _lock."""
-        if slot < self.state.m:  # beyond the live bucket: nothing recorded
+        if slot >= self.state.m:  # beyond the live bucket: nothing recorded
+            return
+        if self.mesh is not None:
+            self.state.clear_endpoint(slot)
+        else:
             prefix.clear_endpoint(self.state.prefix, slot)
 
     def apply_prefix_events(self, slot: int, stored: np.ndarray,
@@ -1225,7 +1558,7 @@ class Scheduler:
         stored = np.array(stored, np.uint32, copy=True)
         removed = np.array(removed, np.uint32, copy=True)
         entry = (time.monotonic(), slot, stored, removed)
-        if self.device.type == "cuda":
+        if self._captured:
             self._enqueue(("events", slot, stored, removed), journal=entry)
             return
         with self._lock:
@@ -1258,6 +1591,9 @@ class Scheduler:
                         maxlen=self._KV_JOURNAL_MAX)
             if slot >= self.state.m:
                 return  # beyond the live bucket: nothing was ever recorded
+            if self.mesh is not None:
+                self.state.evict(slot)
+                return
             self._clear_prefix(slot)
             self.state.assumed_load[slot] = 0.0
             self.state.ot_v[slot] = 1.0
@@ -1265,7 +1601,7 @@ class Scheduler:
     def clear_prefix_endpoint(self, slot: int) -> None:
         """Forget an endpoint's cached chunks, keeping its assumed load
         (live-pod cache reset). Queued on CUDA, as apply_prefix_events."""
-        if self.device.type == "cuda":
+        if self._captured:
             self._enqueue(("clear", slot))
             return
         with self._lock:
@@ -1306,9 +1642,11 @@ class Scheduler:
         eps = _batch_to_device(eps, self.device)
         with self._lock:
             self._apply_queued()
-            state = (_copy_state(self.state) if self.state.m == m
-                     else resize_into(self.state, SchedState.init(
-                         m=m, device=self.device)))
+            whole = self._whole_state()
+            state = (_copy_state(whole) if whole.m == m
+                     else resize_into(whole, SchedState.init(
+                         int(whole.prefix.keys.shape[0]), m,
+                         device=self.device)))
             weights = self.weights
             params = _clone_params(self.predictor_params)
         mask, shed, named, stacked, wvec, total = build_stages(
@@ -1339,6 +1677,13 @@ class Scheduler:
             "device": str(self.device),
             "warm_buckets": sorted(self._warm_buckets),
             "warm_inline_compiles": self.warm_inline_compiles,
+            "mesh": None if self.mesh is None else dict(self.mesh.shape),
+            # Which Sinkhorn solve the waves run: a mesh runs the grouped
+            # one even where the profile asks for the kernel.
+            "sinkhorn_solve": (
+                None if self.cfg.picker != "sinkhorn" else
+                "kernel" if self.cfg.use_pallas_sinkhorn and self.mesh is None
+                else "grouped"),
         }
 
     def snapshot_assumed_load(self) -> np.ndarray:
@@ -1346,7 +1691,7 @@ class Scheduler:
         device copy; the transfer runs outside it)."""
         with self._lock:
             self._apply_queued()
-            load = self.state.assumed_load.clone()
+            load = self._load_of(self.state)
         return load.cpu().numpy()
 
     # -- warm-restart persistence -------------------------------------------
@@ -1367,7 +1712,7 @@ class Scheduler:
 
         with self._lock:
             self._apply_queued()
-            arrays = state_to_numpy(self.state)
+            arrays = state_to_numpy(self._whole_state())
         os.makedirs(directory, exist_ok=True)
         path = os.path.join(directory, self._CHECKPOINT)
         with open(path + ".tmp", "wb") as f:
@@ -1429,7 +1774,8 @@ class Scheduler:
         with self._state_stream():
             with self._lock:
                 self._apply_queued()
-                snap = _copy_state(self.state)
+                snap = (_copy_state(self.state) if self.mesh is None
+                        else self.state.gather())
             return state_to_numpy(snap)
 
     def prepare_install(self, arrays: dict) -> Optional[SchedState]:

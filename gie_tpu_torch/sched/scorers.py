@@ -60,6 +60,17 @@ def session_affinity_score(
     at depth `key_chunks` over the valid endpoints. 1.0 for the winner,
     0.55 for the runner-up, 0.25 * a uniform fraction for the rest; 1.0
     everywhere for requests without a session key; 0 on invalid slots."""
+    key, h = session_hash(reqs, eps, key_chunks=key_chunks)
+    winner, h2 = runner_up_hash(h, h.amax(dim=-1, keepdim=True))
+    return session_from_hash(reqs, eps, key, h, winner, h2,
+                             h2.amax(dim=-1, keepdim=True))
+
+
+def session_hash(reqs: RequestBatch, eps: EndpointBatch, *,
+                 key_chunks: int = 1, col0: int = 0):
+    """-> (the session key u32[N], the rendezvous hash u32[N, M] of each
+    endpoint, 0 on invalid slots). `col0` is the global slot of eps' first
+    lane (a tp shard's offset, parallel/mesh.py)."""
     depth = torch.clamp(
         torch.minimum(reqs.n_chunks, torch.full_like(reqs.n_chunks,
                                                      key_chunks)) - 1,
@@ -68,16 +79,31 @@ def session_affinity_score(
     key = torch.gather(reqs.chunk_hashes, 1, depth[:, None])[:, 0]  # [N]
 
     m = eps.valid.shape[0]
-    slots = torch.arange(m, dtype=torch.int64, device=key.device)
+    slots = torch.arange(col0, col0 + m, dtype=torch.int64, device=key.device)
     h = key[:, None] ^ _mul32(slots, 0x9E3779B1)[None, :]
     h = _mul32(h ^ (h >> 16), 0x7FEB352D)
     h = _mul32(h ^ (h >> 15), 0x846CA68B)
     h = h ^ (h >> 16)
-    h = torch.where(eps.valid[None, :], h, torch.zeros_like(h))
+    return key, torch.where(eps.valid[None, :], h, torch.zeros_like(h))
+
+
+def runner_up_hash(h: torch.Tensor,
+                   top: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (each row's winner lanes, where h is the row's max `top`; the
+    hashes with the winners zeroed)."""
+    winner = h == top
+    return winner, torch.where(winner, torch.zeros_like(h), h)
+
+
+def session_from_hash(reqs: RequestBatch, eps: EndpointBatch,
+                      key: torch.Tensor, h: torch.Tensor,
+                      winner: torch.Tensor, h2: torch.Tensor,
+                      second: torch.Tensor) -> torch.Tensor:
+    """The session score from session_hash's key and hashes, runner_up_hash
+    of them against the row's max, and the row's runner-up hash `second`
+    (the max of h2 over the whole row)."""
     frac = h.to(torch.float32) / float(2**32)                # [0, 1)
-    winner = h == h.amax(dim=-1, keepdim=True)
-    h2 = torch.where(winner, torch.zeros_like(h), h)
-    runner = (h2 == h2.amax(dim=-1, keepdim=True)) & (h2 > 0)
+    runner = (h2 == second) & (h2 > 0)
     one = torch.ones((), dtype=torch.float32, device=key.device)
     score = torch.where(winner, one,
                         torch.where(runner, one * 0.55, 0.25 * frac))

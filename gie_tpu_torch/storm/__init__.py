@@ -9,9 +9,8 @@ virtual time, scored into the reference's JSON scorecard (scorecard.py).
 recorded scenario whose ``drive`` carries a ``storm`` section; the search
 harness is storm/search.py. The autoscale loop, the replication standby
 probe, the learned scorer, federation (a peer cluster's stub fleet
-imported through the real exchange) and the fleet picker run as in the
-reference; a mesh, which a later slice brings, is refused at engine
-construction.
+imported through the real exchange), the fleet picker and the mesh
+(``mesh_devices``) run as in the reference.
 """
 
 from gie_tpu_torch.storm.engine import (          # noqa: F401

@@ -46,12 +46,10 @@ decoded the way a follower would), and so does federation (a
 through a real FederationPublisher and imported through a real PeerLink /
 FederationState, with the drain, partition and heal control events), and
 so does the fleet picker (``fleet_topk``: the hierarchical FleetPicker in
-place of the Scheduler, and the scorecard's ``fleet`` section). A mesh,
-which a later slice brings, is refused at construction, before any stub
-or thread exists, with the port's not-ported error. Its branch of the
-reference engine is not carried; its tallies stay in the scorecard as the
-values the reference records when it is off, so a port fingerprint can
-equal a reference one.
+place of the Scheduler, and the scorecard's ``fleet`` section), and so
+does the mesh (``mesh_devices`` > 1: the Scheduler(mesh=) production path,
+the dp x tp sharded cycle over that many cards, or over that many virtual
+positions of the CPU when the engine runs there).
 
 Determinism: the SCHEDULE is bit-identical per seed (shapes.py). Under
 ``virtual_time`` the decision sequence is a pure function of the seed and
@@ -113,7 +111,7 @@ from gie_tpu_torch.runtime.clock import MONOTONIC, VirtualClock
 from gie_tpu_torch.sched.batching import BatchingTPUPicker
 from gie_tpu_torch.sched.config import tuned_profile
 from gie_tpu_torch.sched.hashing import batch_chunk_hashes
-from gie_tpu_torch.sched.profile import Scheduler, _not_ported, resolve_device
+from gie_tpu_torch.sched.profile import Scheduler, resolve_device
 from gie_tpu_torch.sched.types import chunk_bucket_for
 from gie_tpu_torch.simulator.vllm_stub import StubConfig, VLLMStub
 from gie_tpu_torch.storm import scorecard as scorecard_mod
@@ -207,8 +205,7 @@ class FederationSpec:
 @dataclasses.dataclass
 class EngineConfig:
     """The reference's fields and defaults (see gie_tpu/storm/engine.py
-    for each knob's rationale). The subsystem of a later slice —
-    mesh_devices > 1 — is refused by StormEngine."""
+    for each knob's rationale)."""
 
     ttft_slo_s: float = 2.5
     scrape_interval_s: float = 0.025
@@ -245,6 +242,8 @@ class EngineConfig:
     # Run the whole stack on a deterministic discrete-event VirtualClock.
     # Real mode keeps each subsystem's monotonic default.
     virtual_time: bool = False
+    # > 1 serves the storm through Scheduler(mesh=): the dp x tp sharded
+    # cycle over that many positions (parallel/mesh.py). 0/1 = one device.
     mesh_devices: int = 0
     scorer: str = "blend"
     policy_weights: tuple = ()
@@ -257,14 +256,6 @@ class EngineConfig:
             latency_breach_s=5.0, latency_breach_streak=200,
             recover_streak=2, min_dwell_s=0.3, probe_interval_s=0.15,
             serve_min_samples=10_000)
-
-
-def _refuse_later_slices(cfg: EngineConfig) -> None:
-    """Raise the not-ported error for the first subsystem of a later
-    slice that `cfg` asks for, in the reference engine's construction
-    order."""
-    if cfg.mesh_devices > 1:
-        raise _not_ported("a storm over a scheduling mesh", "mesh")
 
 
 class _ZombieSnapshot:
@@ -452,7 +443,6 @@ class StormEngine:
         self.name = name
         # Refusals and the device come first: nothing below (the clock
         # hand-off to faults, stubs, threads) may exist when they raise.
-        _refuse_later_slices(self.cfg)
         self.device = resolve_device(device)
         self.noise_source = noise_source
         # The constructor kwarg overrides the config.
@@ -555,6 +545,14 @@ class StormEngine:
                 weights = weights_from_mapping({
                     name: float(float32_from_hex(hexed))
                     for name, hexed in cfg.policy_weights})
+        mesh = None
+        if cfg.mesh_devices > 1:
+            # The production --mesh-devices path end to end: the storm's
+            # waves run the dp x tp sharded cycle (docs/MESH.md), over
+            # virtual positions when the engine runs on the CPU.
+            from gie_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(cfg.mesh_devices, device=self.device)
         if cfg.fleet_topk > 0:
             # gie-fleet: the hierarchical two-level pick cycle (coarse cell
             # stage, then the unchanged dense cycle over the gathered
@@ -565,11 +563,12 @@ class StormEngine:
             self.scheduler = FleetPicker(
                 prof, weights=weights, device=self.device,
                 noise_source=self.noise_source, topk=cfg.fleet_topk,
-                cell_cap=cfg.fleet_cell_cap)
+                cell_cap=cfg.fleet_cell_cap, mesh=mesh)
         else:
             self.scheduler = Scheduler(prof, weights=weights,
                                        device=self.device,
-                                       noise_source=self.noise_source)
+                                       noise_source=self.noise_source,
+                                       mesh=mesh)
         # Virtual mode hands every subsystem the same clock; real mode
         # keeps each subsystem's default (monotonic for the resilience
         # layer, wall time for the store's row stamps).

@@ -2,12 +2,16 @@
 """Where one scheduling wave's time goes in gie_tpu_torch.
 
     python3 hack/torch_wave_profile.py [--device cuda] [--waves 5]
+        [--timed 0] [--configs sinkhorn-kernel,topk-kernel]
 
 Runs chip_smoke.py's north-star workload (1024 requests x 256 endpoints)
-through the port's Scheduler in both kernel configurations (tuned +
-use_pallas_sinkhorn, and topk + use_pallas_topk): three warm-up waves, then
-`--waves` waves under torch.profiler. Prints one JSON line per
-configuration: wall time per wave (host clock, ends in a synchronize),
+through the port's Scheduler in each chosen configuration (sinkhorn-kernel:
+tuned + use_pallas_sinkhorn; topk-kernel: topk + use_pallas_topk;
+sinkhorn-grouped: the tuned profile as it stands, whose Sinkhorn solve is
+the grouped plain one): three warm-up waves, then `--timed` waves without
+the profiler (their wall time per wave, unprofiled), then `--waves` waves
+under torch.profiler. Prints one JSON line per configuration: wall time
+per wave (host clock, ends in a synchronize),
 device busy time per wave (sum of kernel times; one stream, so kernels do
 not overlap), the device's idle share, kernels run on the device per wave
 (on the card a wave replays the cycle's CUDA graph, so these run from one
@@ -42,6 +46,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--waves", type=int, default=5)
+    ap.add_argument("--timed", type=int, default=0)
+    ap.add_argument("--configs", default="sinkhorn-kernel,topk-kernel")
     args = ap.parse_args(argv)
 
     import torch
@@ -59,24 +65,33 @@ def main(argv=None) -> int:
         return 1
     sync = torch.cuda.synchronize if on_cuda else (lambda: None)
     tuned, tuned_w = tuned_profile()
-    configs = (
-        ("tuned+use_pallas_sinkhorn",
-         dataclasses.replace(tuned, use_pallas_sinkhorn=True), tuned_w),
-        ("topk+use_pallas_topk",
-         ProfileConfig(picker="topk", use_pallas_topk=True), None),
-    )
+    known = {
+        "sinkhorn-kernel": ("tuned+use_pallas_sinkhorn", dataclasses.replace(
+            tuned, use_pallas_sinkhorn=True), tuned_w),
+        "topk-kernel": ("topk+use_pallas_topk", ProfileConfig(
+            picker="topk", use_pallas_topk=True), None),
+        "sinkhorn-grouped": ("tuned (grouped solve)", tuned, tuned_w),
+    }
+    configs = [known[c] for c in args.configs.split(",")]
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if on_cuda else [])
     for name, cfg, weights in configs:
         sched = Scheduler(cfg, weights, device=dev)
         eps, wave = workload(dev)
-        waves = [wave(w) for w in range(3 + args.waves)]
+        waves = [wave(w) for w in range(3 + args.timed + args.waves)]
         for reqs in waves[:3]:
             sched.pick(reqs, eps)
         sync()
+        timed_ms = None
+        if args.timed:
+            t0 = time.perf_counter()
+            for reqs in waves[3:3 + args.timed]:
+                sched.pick(reqs, eps)
+            sync()
+            timed_ms = (time.perf_counter() - t0) * 1e3 / args.timed
         with profile(activities=activities) as prof:
             t0 = time.perf_counter()
-            for reqs in waves[3:]:
+            for reqs in waves[3 + args.timed:]:
                 sched.pick(reqs, eps)
             sync()
             wall_ms = (time.perf_counter() - t0) * 1e3 / args.waves
@@ -95,6 +110,8 @@ def main(argv=None) -> int:
             "device_name": (torch.cuda.get_device_name(0) if on_cuda
                             else None),
             "waves": args.waves, "wall_ms_per_wave": wall_ms,
+            "timed_waves": args.timed,
+            "wall_ms_per_wave_unprofiled": timed_ms,
             "device_busy_ms_per_wave": busy_ms if on_cuda else None,
             "device_idle_share": (1.0 - busy_ms / wall_ms) if on_cuda else None,
             "kernel_launches_per_wave": launches if on_cuda else None,

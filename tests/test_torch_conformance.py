@@ -2,7 +2,7 @@
 case of tests/test_conformance.py but the meshed one (the port's copies
 in gie_tpu_torch/conformance/suite.py), each run with the round-robin EPP
 ("rr") and with the port's batched Scheduler behind BatchingTPUPicker on
-the CPU ("tpu"), then a parity case, the meshed mode's refusal and the
+the CPU ("tpu"), then a parity case, the meshed mode on the CPU and the
 reports.
 
   cases    the 15 Gateway-profile cases over the shared base environment,
@@ -14,7 +14,9 @@ reports.
            harness and the port's, both seeded alike and "tpu" with the
            port's Scheduler replaying the reference's noise: equal status
            codes, headers, bodies and serving pods;
-  refusal  "tpu-mesh" raises the port's not-ported error;
+  meshed   "tpu-mesh" serves a Scheduler over every virtual CPU position
+           (dp 8, tp 1) and passes every case, and an unknown mode is
+           refused;
   report   each mode's ConformanceReport records every case passed, and
            suite.run() gives the same verdicts.
 """
@@ -29,7 +31,7 @@ from gie_tpu_torch.conformance.harness import build_base_env
 from gie_tpu_torch.extproc import metadata as mdkeys
 
 MODES = ("rr", "tpu")
-REPORTS = {mode: ConformanceReport() for mode in MODES}
+REPORTS = {mode: ConformanceReport() for mode in MODES + ("tpu-mesh",)}
 CASES = list(suite.BASE_CASES) + list(suite.OWN_CASES)
 
 
@@ -49,10 +51,29 @@ def test_conformance_case(case, mode):
     REPORTS[mode].add(case, True)
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_conformance_case_meshed(case):
+    """Every case through "tpu-mesh": the --mesh-devices production path
+    on the CPU's virtual positions."""
+    try:
+        suite.run_case(case, **env_kwargs("tpu-mesh"))
+    except Exception:
+        REPORTS["tpu-mesh"].add(case, False)
+        raise
+    REPORTS["tpu-mesh"].add(case, True)
+
+
 def test_meshed_mode_raises_not_ported():
+    """Not refused any more: "tpu-mesh" builds its EPP over the meshed
+    Scheduler on the CPU (test_conformance_case_meshed runs the suite
+    through it)."""
     env = ConformanceEnv(picker_mode="tpu-mesh", device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
+    try:
         env.apply_pool(suite.make_pool("pool-mesh", {"app": "primary"}))
+        (epp,) = env.epps.values()
+        assert epp.server.picker.scheduler.mesh.shape == {"dp": 8, "tp": 1}
+    finally:
+        env.close()
     with pytest.raises(ValueError, match="unknown picker_mode"):
         ConformanceEnv(picker_mode="nope").apply_pool(
             suite.make_pool("p", {"app": "primary"}))

@@ -38,7 +38,13 @@ behind a queued wave, and a train step on the card is within the stated
 tolerance of the CPU's. The port's conformance suite passes every case
 with its "tpu" EPPs' Scheduler on the card in both kernel configurations,
 one kernel launch a wave, and its routing case answers as on a CPU
-Scheduler taking the same Gumbel draws."""
+Scheduler taking the same Gumbel draws. Under a mesh of 8 positions on
+one card, the blend-top-k kernel launches once per dp shard and the
+meshed cycle equals the unmeshed one on the card, and the meshed
+Scheduler's captured waves (with releases, a KV-event fold, a prefix
+clear and an eviction between them) equal the unmeshed Scheduler's:
+picks, statuses, duals and the prefix table exact, the load within
+1e-6."""
 
 import dataclasses
 import threading
@@ -1826,3 +1832,93 @@ def test_conformance_routing_on_card_as_on_the_cpu(dev):
         finally:
             env.close()
     assert got[0] == got[1]
+
+
+# -- the multi-device slice on the card -----------------------------------
+
+MESH_LAYOUTS = [(4, 2), (8, 1), (1, 8)]
+
+
+def _mesh_pool(m, seed, dev):
+    rng = np.random.default_rng(seed)
+    live = m * 3 // 4
+    return make_endpoints(live, queue=rng.integers(0, 100, live).tolist(),
+                          kv=rng.uniform(0.1, 0.9, live).tolist(), m_slots=m,
+                          device=dev)
+
+
+@pytest.mark.parametrize("dp, tp", MESH_LAYOUTS)
+def test_blend_topk_kernel_under_a_mesh(dev, dp, tp):
+    """picker="topk" + use_pallas_topk over 8 positions of one card: the
+    kernel launches once per dp shard, and the meshed cycle's picks, the
+    prefix table and the load equal the unmeshed cycle's on the card."""
+    from gie_tpu_torch.parallel import mesh as pm
+    from gie_tpu_torch.sched.profile import scheduling_cycle
+    from gie_tpu_torch.sched.types import SchedState, Weights
+
+    cfg = ProfileConfig(picker="topk", use_pallas_topk=True)
+    mesh = pm.make_mesh(devices=[dev] * 8, tp=tp)
+    eps = _mesh_pool(256, 3, dev)
+    state = SchedState.init(m=256, device=dev)
+    sharded = pm.shard_state(mesh, state)
+    for wave in range(2):
+        reqs = make_requests(
+            64, prompts=[b"K%d " % (i % 5) * 30 + b"w%d %d" % (wave, i)
+                         for i in range(64)], m_slots=256, device=dev)
+        r1, _ = scheduling_cycle(state, reqs, eps, Weights.default(), None,
+                                 cfg=cfg)
+        before = fused_blend_topk.launches
+        rows, _ = scheduling_cycle(
+            sharded, pm.shard_requests(mesh, reqs),
+            pm.shard_endpoints(mesh, eps), Weights.default(), None, cfg=cfg,
+            mesh=mesh)
+        assert fused_blend_topk.launches == before + dp
+        r2 = pm.unshard_result(rows)
+        assert torch.equal(r1.indices, r2.indices)
+        assert torch.equal(r1.status, r2.status)
+        whole = sharded.gather()
+        assert torch.equal(state.prefix.present, whole.prefix.present)
+        assert torch.equal(state.prefix.keys, whole.prefix.keys)
+        torch.testing.assert_close(state.assumed_load, whole.assumed_load,
+                                   atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("picker", ["sinkhorn", "random"])
+def test_virtual_mesh_on_one_card_equals_unmeshed(dev, picker):
+    """8 positions on cuda:0 (dp 4 x tp 2): the meshed Scheduler's waves,
+    each one replay of its captured cycle, equal the unmeshed Scheduler's
+    on the card (the grouped solve on both: the mesh never runs the
+    Sinkhorn kernel) in picks, statuses, duals and prefix words, with
+    releases, a captured KV-event fold, a prefix clear and an eviction
+    between the waves."""
+    from gie_tpu_torch.parallel import mesh as pm
+
+    cfg = (dataclasses.replace(tuned_profile()[0], use_pallas_sinkhorn=False)
+           if picker == "sinkhorn" else ProfileConfig(picker=picker))
+    mesh = pm.make_mesh(devices=[dev] * 8)
+    eps = _mesh_pool(256, 5, "cpu")
+    plain = Scheduler(cfg, seed=3, device=dev)
+    meshed = Scheduler(cfg, seed=3, mesh=mesh)
+    assert meshed._captured and meshed._min_bucket == 4
+    for wave in range(2):
+        reqs = make_requests(
+            200, prompts=[b"V%d " % (i % 7) * 30 + b"w%d %d" % (wave, i)
+                          for i in range(200)], m_slots=256)
+        r1, r2 = plain.pick(reqs, eps), meshed.pick(reqs, eps)
+        np.testing.assert_array_equal(r1.indices, r2.indices)
+        np.testing.assert_array_equal(r1.status, r2.status)
+        # The queued facade calls apply to the shards as to the whole
+        # state: releases, a KV-event fold (captured), an eviction.
+        for s in (plain, meshed):
+            s.complete(r1.indices[:64, 0], np.full(64, 0.25, np.float32))
+            s.apply_prefix_events(
+                200 + wave, np.arange(1, 40, dtype=np.uint32) * 7919,
+                np.array([], np.uint32))
+            s.clear_prefix_endpoint(3)
+            s.evict_endpoint(130 + wave)
+        a, b = plain.export_state(), meshed.export_state()
+        for k in ("ot_v", "prefix_keys", "prefix_present", "prefix_ages"):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        np.testing.assert_allclose(a["assumed_load"], b["assumed_load"],
+                                   atol=1e-6, rtol=0)
+    assert meshed.warm_inline_compiles == plain.warm_inline_compiles

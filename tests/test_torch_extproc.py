@@ -5,8 +5,9 @@ stub picker leave both StreamingServers with byte-equal responses, on every
 lane (legacy, fast, wire) and frame kind (headers only, headers + body,
 response headers, shed 429, deadline 503, subset hint, unavailable, and a
 body transcoded to gRPC for an h2c pool); and
-the port's runner and main refuse, naming their slice, what a later slice
-of the port brings (--mesh-devices), and build the kube slice's pieces.
+the port's runner and main build every option's pieces, the kube
+slice's and the multi-device slice's (--mesh-devices) included, and
+refuse none.
 """
 
 import argparse
@@ -18,7 +19,6 @@ import urllib.request
 
 import pytest
 
-from gie_tpu_torch.sched.profile import _LATER
 from tests.test_extproc_wire import (
     GOLDEN_REQUEST_HEADERS,
     GOLDEN_RESPONSE_HEADERS,
@@ -252,11 +252,13 @@ def test_descriptors_byte_identical():
 # -- refusals -------------------------------------------------------------
 
 LIVE = ["--no-resilience", "--no-obs"]
-# (argv, the _LATER key of the slice it is refused until, or None where
-# the runner builds: the resilience and observability layers, both on by
-# default, --fault arming, the KV-event listener, the learned scorer, the
-# file-lease elector, replication, the autoscale loop in both modes,
-# federation and the fleet picker are ported).
+# (argv, None: the runner builds every one; a slice's key here would name
+# an option refused until that slice came. The resilience and
+# observability layers, both on by default, --fault arming, the KV-event
+# listener, the learned scorer, the file-lease elector, replication, the
+# autoscale loop in both modes, federation, the fleet picker and the mesh
+# are ported; with an injected scheduler --mesh-devices builds no mesh, as
+# in the reference).
 REFUSED = [
     ([], None),                                 # resilience + obs on
     (["--no-resilience"], None),                # obs on
@@ -270,7 +272,7 @@ REFUSED = [
     (LIVE + ["--fed-drain", "--fed-cluster", "east"], None),
     (LIVE + ["--kv-events-port", "19300"], None),
     (LIVE + ["--fleet-topk", "2"], None),
-    (LIVE + ["--mesh-devices", "2"], "mesh"),
+    (LIVE + ["--mesh-devices", "2"], None),
     # Ported: with a scheduler injected the runner reads no artifact,
     # as the reference's does not.
     (LIVE + ["--scorer", "learned", "--policy-artifact", "x.json"], None),
@@ -335,9 +337,7 @@ def test_runner_refuses_out_of_slice(argv, key, tmp_path):
         finally:
             runner.stop()
         return
-    with pytest.raises(NotImplementedError, match=_LATER[key]):
-        ExtProcServerRunner(opts, FakeCluster(),
-                            scheduler=Scheduler(device="cpu"))
+    raise AssertionError(f"{argv}: no option is refused any more ({key})")
 
 
 def test_fault_scenario_refused_at_validate():
@@ -358,7 +358,9 @@ def test_fault_scenario_refused_at_validate():
 def test_main_refuses_kube(tmp_path, monkeypatch):
     """main --kube builds the kube adapter, which refuses to start with no
     kubeconfig outside a cluster (as the reference's does); the multi-
-    device mesh is still refused before anything starts."""
+    device mesh is no longer refused: with --mesh-devices the flags reach
+    the kube adapter, and a dp axis that is no power of two is refused at
+    validate, as in the reference."""
     from gie_tpu_torch.controller import kube
     from gie_tpu_torch.runtime.main import main
 
@@ -366,8 +368,11 @@ def test_main_refuses_kube(tmp_path, monkeypatch):
     monkeypatch.setattr(kube, "_SA_DIR", str(tmp_path / "no-sa"))
     with pytest.raises(RuntimeError, match="no usable Kubernetes"):
         main(["--kube", "--pool-name", "p", "--insecure-serving"] + LIVE)
-    with pytest.raises(NotImplementedError, match=_LATER["mesh"]):
-        main(["--kube", "--pool-name", "p", "--mesh-devices", "2"] + LIVE)
+    with pytest.raises(RuntimeError, match="no usable Kubernetes"):
+        main(["--kube", "--pool-name", "p", "--insecure-serving",
+              "--mesh-devices", "2"] + LIVE)
+    with pytest.raises(ValueError, match="power of two"):
+        main(["--kube", "--pool-name", "p", "--mesh-devices", "6"] + LIVE)
 
 
 def test_pod_manifest_event_refused():

@@ -41,7 +41,7 @@ from gie_tpu_torch.fleet.picker import (
 from gie_tpu_torch.sched import ProfileConfig, Scheduler
 from gie_tpu_torch.sched import constants as C
 from gie_tpu_torch.sched.config import tuned_profile
-from gie_tpu_torch.sched.profile import _LATER
+from gie_tpu_torch.sched import profile as profile_mod
 from gie_tpu_torch.sched.types import Weights
 from tests.test_torch_slice import jax_noise_replay
 
@@ -642,8 +642,11 @@ def test_fleet_picker_validation_width_and_refusals():
         FleetPicker(topk=0, device=CPU)
     with pytest.raises(ValueError):
         FleetPicker(topk=64, cell_cap=1024, device=CPU)
-    with pytest.raises(NotImplementedError):
-        FleetPicker(device=CPU, mesh=object())
+    from gie_tpu_torch.parallel import make_mesh
+
+    deployed = FleetPicker(mesh=make_mesh(2, device="cpu"))
+    assert deployed.deploy_mesh.shape == {"dp": 1, "tp": 2}
+    assert deployed.mesh is None and deployed.device.type == "cpu"
     t = FleetPicker(topk=2, cell_cap=32, device=CPU)
     assert [t._m_ok(m) for m in (64, 96, 1024, 2048, 1024 + 32 * 32)] == [
         True, False, True, True, True]
@@ -656,6 +659,6 @@ def test_fleet_picker_validation_width_and_refusals():
         t.pick(reqs, eps)
     report = t.fleet_report()
     assert report["waves"] == 0 and report["mode"] == "exact"
-    assert "fleet" not in _LATER
+    assert not hasattr(profile_mod, "_LATER")
     state = fleet_state(4096, cell_cap=32, device=CPU)
     assert tuple(state.prefix.present.shape) == (C.PREFIX_SLOTS, 4)

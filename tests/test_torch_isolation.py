@@ -147,12 +147,12 @@ def test_formerly_refused_config_builds(kwargs):
     JaxProfileConfig(**kwargs)
 
 
-# (Scheduler keyword, the slice that brings it, the error it raises or
-# None where the Scheduler takes it: the latency predictor is ported; the
-# mesh is the one thing a later slice brings, _LATER holds nothing else).
+# (Scheduler keyword, the slice that brought it, the error it raises or
+# None where the Scheduler takes it: the latency predictor and the mesh
+# are ported, and nothing is refused any more).
 SCHEDULER_ARGS = [
     ({"predictor_fn": "predictor_score_fn"}, "latency-predictor", None),
-    ({"mesh": object()}, "multi-device", NotImplementedError),
+    ({"mesh": "make_mesh"}, "multi-device", None),
 ]
 
 
@@ -160,9 +160,18 @@ SCHEDULER_ARGS = [
     "kwargs, slice_name, raises", SCHEDULER_ARGS,
     ids=[f"kwargs{i}-{name}" for i, (_, name, _) in enumerate(SCHEDULER_ARGS)])
 def test_out_of_slice_scheduler_arg_raises(kwargs, slice_name, raises):
-    from gie_tpu_torch.sched.profile import _LATER
+    from gie_tpu_torch.sched import profile
 
-    assert set(_LATER) == {"mesh"}
+    assert not hasattr(profile, "_LATER")
+    assert not hasattr(profile, "_not_ported")
+    if "mesh" in kwargs:
+        from gie_tpu_torch.parallel import ShardedState, make_mesh
+
+        sched = Scheduler(mesh=make_mesh(8, device="cpu"))
+        assert sched.mesh.shape == {"dp": 4, "tp": 2}
+        assert sched._min_bucket == 4 and sched.device.type == "cpu"
+        assert isinstance(sched.state, ShardedState)
+        return
     if raises is None:
         from gie_tpu_torch.models.latency import (
             LatencyPredictor,
@@ -277,13 +286,14 @@ def test_out_of_slice_picker_arg_raises(kwargs, slice_name, raises):
                           MetricsStore(), **kwargs)
 
 
-# (argv of the port's runner, the slice that brings it, the error it
+# (argv of the port's runner, the slice that brought it, the error it
 # raises or None where the runner builds: the kube slice's Lease elector
-# and applying actuator are ported; --mesh-devices is still refused).
+# and applying actuator are ported, and so is --mesh-devices, which with
+# an injected scheduler builds no mesh, as in the reference).
 RUNNER_ARGS = [
     (["--autoscale-mode", "apply"], "kube", None),
     (["--leader-elect"], "kube", None),
-    (["--mesh-devices", "2"], "multi-device", NotImplementedError),
+    (["--mesh-devices", "2"], "multi-device", None),
 ]
 
 
@@ -312,9 +322,10 @@ def test_out_of_slice_runner_option_raises(argv, slice_name, raises):
             ExtProcServerRunner(opts, KubeCluster(),
                                 scheduler=Scheduler(device="cpu"))
         return
-    runner = ExtProcServerRunner(opts, KubeCluster(),
-                                 scheduler=Scheduler(device="cpu"))
+    sched = Scheduler(device="cpu")
+    runner = ExtProcServerRunner(opts, KubeCluster(), scheduler=sched)
     try:
+        assert runner.scheduler is sched and sched.mesh is None
         assert (runner.elector is not None) == opts.leader_elect
         assert (runner.autoscaler is not None) == (
             opts.autoscale_mode == "apply")
@@ -324,7 +335,9 @@ def test_out_of_slice_runner_option_raises(argv, slice_name, raises):
 
 def test_conformance_harness_stands_alone():
     """The port's harness imports nothing of the top-level conformance
-    package, and its meshed mode waits for the multi-device slice."""
+    package, and its meshed mode serves a Scheduler over every virtual
+    CPU position (dp 8, tp 1), as the reference's serves one over every
+    device."""
     files = sorted((PKG / "conformance").glob("*.py"))
     assert {f.name for f in files} >= {"__init__.py", "harness.py",
                                        "multicluster.py", "report.py"}
@@ -338,9 +351,15 @@ def test_conformance_harness_stands_alone():
     env.cluster.apply_pod(Pod(name="p", labels={"app": "a"}, ip="10.1.0.1"))
     from gie_tpu_torch.api import types as api
 
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    try:
         env.apply_pool(api.InferencePool(
             metadata=api.ObjectMeta(name="pool"),
             spec=api.InferencePoolSpec(
                 selector=api.LabelSelector(matchLabels={"app": "a"}),
                 targetPorts=[api.Port(8000)])))
+        (epp,) = env.epps.values()
+        sched = epp.server.picker.scheduler
+        assert sched.mesh.shape == {"dp": 8, "tp": 1}
+        assert sched._min_bucket == 8
+    finally:
+        env.close()

@@ -4,11 +4,11 @@
              device="cpu") gives a leaderboard validate() accepts, and a
              second call the same leaderboard (virtual time: every
              number in it is a function of the seed and the config).
-  refusals   the subsystem of a later slice (a mesh) raises the port's
-             not-ported error naming that slice from an EngineConfig,
-             before any stub, thread or clock hand-off exists. Federation
-             and the fleet picker are ported: their EngineConfigs run,
-             their scenarios build, and every shipped storm runs.
+  slices     the subsystems of the later slices run from an
+             EngineConfig: a mesh (mesh_devices=8 serves the storm through
+             Scheduler(mesh=) over 8 virtual CPU positions), federation
+             and the fleet picker; their scenarios build, every shipped
+             storm runs, and nothing is refused any more.
   device     with no CUDA device and no device argument, run_scenario,
              search and the CLI's main raise (so `python -m` exits
              non-zero); none moves to the CPU on its own.
@@ -34,7 +34,7 @@ from gie_tpu_torch.ops import KernelUnavailable
 from gie_tpu_torch.resilience import faults
 from gie_tpu_torch.resilience import scenarios
 from gie_tpu_torch.runtime import clock as clock_mod
-from gie_tpu_torch.sched.profile import _LATER, Scheduler
+from gie_tpu_torch.sched.profile import Scheduler
 from gie_tpu_torch.storm import scorecard as SC
 from gie_tpu_torch.storm import search as SR
 from gie_tpu_torch.storm import shapes as S
@@ -82,28 +82,35 @@ def _program(shapes=()):
                      list(shapes), seed=5)
 
 
-REFUSALS = {
+# The subsystems a later slice of the port brought, each of which was
+# refused at construction until its slice came.
+LATER_SLICES = {
     "mesh": (EngineConfig(mesh_devices=8), ()),
 }
 
 
-def _assert_refused_cleanly(fn, key):
-    before = set(threading.enumerate())
-    with pytest.raises(NotImplementedError) as e:
-        fn()
-    assert _LATER[key] in str(e.value)
-    assert set(threading.enumerate()) - before == set()
+@pytest.mark.parametrize("case", sorted(LATER_SLICES))
+def test_later_slice_subsystem_is_refused_at_construction(case):
+    """Not refused any more: the storm runs through the meshed Scheduler
+    (dp 4 x tp 2 virtual CPU positions) under virtual time, as the
+    reference's storm-ci smoke runs through its 8-device mesh, with no
+    client 5xx and a valid scorecard; the engine hands the fault clock
+    back as it found it."""
+    from gie_tpu_torch.sched import profile
+
+    assert not hasattr(profile, "_LATER")
+    cfg, shapes = LATER_SLICES[case]
+    eng = StormEngine(_program(shapes), cfg=cfg, virtual_time=True,
+                      device="cpu")
+    try:
+        assert eng.scheduler.mesh.shape == {"dp": 4, "tp": 2}
+        card = eng.run().scorecard
+    finally:
+        eng.close()
+    SC.validate(card)
+    assert card["client_5xx"] == 0 and card["ok"] > 0
     assert faults._clock is clock_mod.MONOTONIC
     assert faults.installed() is None
-
-
-@pytest.mark.parametrize("case", sorted(REFUSALS))
-def test_later_slice_subsystem_is_refused_at_construction(case):
-    cfg, shapes = REFUSALS[case]
-    _assert_refused_cleanly(
-        lambda: StormEngine(_program(shapes), cfg=cfg, virtual_time=True,
-                            device="cpu"),
-        case.split("-")[0])
 
 
 def test_federation_engine_config_runs():
@@ -192,7 +199,7 @@ def test_all_twelve_storm_scenarios_run_on_the_port():
                         "storm-fleet", "storm-learn-judge",
                         "storm-longhorizon", "storm-noisy-neighbor",
                         "storm-search-smoke", "storm-soak"]
-    assert "fleet" not in _LATER
+    assert "fleet" not in LATER_SLICES
 
 
 def test_twin_and_search_raise_without_a_card(monkeypatch):
