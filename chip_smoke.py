@@ -46,8 +46,9 @@ count adds the launches a replay makes:
      recorder records and no tracer runs; --scheduler-config carrying the
      configuration, 4 acceptors) over a FakeCluster of 256 ready pods,
      each a VLLMStub on its own loopback address in a process of its own,
-     scraped every 500 ms; 4 client processes (Envoy's part) send 4
-     bursts of 1024 concurrent streams over 16 channels (request headers,
+     scraped every 500 ms; 4 client processes (Envoy's part) send a
+     warm-up round and 2 bursts of 1024 concurrent streams over 16
+     channels (request headers,
      a JSON body of the mix, then response headers echoing the pick);
      every stream must get a ready primary, the path's kernel launches
      must equal the picker's waves, the ladder must hold FULL (no
@@ -301,8 +302,26 @@ count adds the launches a replay makes:
      on the concatenated rows; (f) the server bursts of phase 6 through
      `--mesh-devices 2`, only where the machine shows two cards, else one
      line saying why it did not run. Prints its wall seconds;
+ 21. the cost model and the lint on the card: (a) utils/costmodel.py's
+     count of one eager scheduling cycle (the north-star fixture) on the
+     card for ProfileConfig(), picker="sinkhorn", the tuned profile, tuned
+     + use_pallas_sinkhorn and topk + use_pallas_topk at 1024 x 256 and
+     1024 x 1024, held to the CPU's count of the same cycle: bytes, flops
+     and operations equal op by op, else the differing ops are named and
+     the phase fails; each kernel configuration launches its kernel once a
+     cycle; (b) for tuned + use_pallas_sinkhorn, topk + use_pallas_topk
+     and the tuned profile at 1024 x 256, the counted bytes over 3.35
+     TB/s beside the captured wave's device busy time and device
+     operations under the profiler (phase 9's reading): a gauge, not a
+     gate; (c) lint.dynamic's LockTracker on the CUDA Scheduler's _lock,
+     _warm_lock and _queue_lock and the picker's _cond, _inflight_cv and
+     _degraded_lock of a warmed pick service (tuned + use_pallas_sinkhorn):
+     KV events queued from handler threads and evictions beside bursts of
+     live waves, no rank inversion, the _lock -> _queue_lock nesting
+     observed, the queue drained; (d) `python -m gie_tpu_torch.lint` exits
+     0 on this machine. Prints its wall seconds;
  11. the `kernels` line: launches on the main path (phases 3-6, 8, 9, 12,
-     13, 14, 15, 16, 17, 18, 19 and 20, replays counted; phase 15's
+     13, 14, 15, 16, 17, 18, 19, 20 and 21, replays counted; phase 15's
      promoted server, phase 16's east and phase 19's servers report their
      own), error, times, bound.
 Then the card's name and power limit (nvidia-smi), and as the last line
@@ -494,9 +513,10 @@ def check_topk(s, n, m, dev) -> float:
 def phase_kernels(dev) -> dict:
     """Each kernel vs its plain version; returns the main-shape records."""
     from gie_tpu_torch.ops.fused_sinkhorn import (
-        fused_sinkhorn_plan, fused_sinkhorn_plan_reference, layout)
+        fused_sinkhorn_cost, fused_sinkhorn_plan,
+        fused_sinkhorn_plan_reference, layout)
     from gie_tpu_torch.ops.fused_topk import (
-        fused_blend_topk, fused_blend_topk_reference)
+        fused_blend_topk, fused_blend_topk_cost, fused_blend_topk_reference)
     from gie_tpu_torch.sched.constants import NEG_SCORE
     from gie_tpu_torch.sched.sinkhorn import _solve_plan
 
@@ -519,8 +539,7 @@ def phase_kernels(dev) -> dict:
         dev_ms = device_ms(lambda: fused_sinkhorn_plan(k, cap, warm))
         plain_ms = cuda_ms(
             lambda: fused_sinkhorn_plan_reference(k, cap, warm))
-        b_ms, b_by = bound(nbytes=2 * N * m * 4 + 3 * m * 4,
-                           flops=(8 * 4 + 5) * N * m)
+        b_ms, b_by = bound(*fused_sinkhorn_cost(N, m))
         rec = {"name": "fused_sinkhorn_plan", "shape": [N, m],
                "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -544,8 +563,7 @@ def phase_kernels(dev) -> dict:
         plain_ms = cuda_ms(
             lambda: fused_blend_topk_reference(stacked, wvec, mask))
         library_ms = cuda_ms(library)
-        b_ms, b_by = bound(nbytes=s * N * m * 4 + N * m + s * 4 + N * 4 * 8,
-                           flops=(2 * s + 1 + 2 * 4) * N * m)
+        b_ms, b_by = bound(*fused_blend_topk_cost(s, N, m))
         rec = {"name": "fused_blend_topk", "shape": [s, N, m],
                "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -1433,7 +1451,7 @@ def phase_storm(dev, kernels) -> dict:
 
 # -- phases 6-7: the ext-proc server -----------------------------------------
 
-STREAM_ROUNDS, STREAMS_PER_ROUND, CHANNELS = 4, 1024, 16
+STREAM_ROUNDS, STREAMS_PER_ROUND, CHANNELS = 2, 1024, 16
 CLIENTS = 4                    # client processes, CHANNELS // CLIENTS each
 SCRAPE_INTERVAL_MS = 500       # one stub listener process serves 256 pods
 EXTPROC_WORKERS = 4
@@ -4819,7 +4837,7 @@ PRED_RTOL = 1e-2
 PRED_LR = 1e-3             # LatencyPredictorConfig's learning rate
 PRED_SLO_MS = 200.0        # (d)'s x-gateway-inference-ttft-slo-ms
 PRED_FRAMES = 6            # (d)'s SSE token frames a stream
-PRED_ROUNDS = (-1, 0, 1)   # (d): warm-up (the column at 0), then two rounds
+PRED_ROUNDS = (-1, 0)      # (d): warm-up (the column at 0), then a round
 
 
 def pred_delays(n: int = M, seed: int = PRED_SEED):
@@ -6465,6 +6483,246 @@ def phase_mesh(dev, kernels, tmp) -> dict:
     return summary
 
 
+# -- phase 21: the cost model and the lint on the card ----------------------
+
+COST_WIDTHS = (M, 1024)    # (a): the counts' widths; (b) profiles M's
+COST_WAVES = 5             # (b): profiled replays per configuration
+LINT_ROUNDS = 3            # (c): bursts with KV events and evictions beside
+LINT_EVENT_THREADS = 8     # (c): handler threads posting KV events a burst
+LINT_EVENTS = 32           # (c): apply_prefix_events calls per handler thread
+
+
+def cost_counts(dev, kernels) -> dict:
+    """(a): the card's count of each configuration of the cost model's
+    table and width against the CPU's, op by op. -> {(name, m): the card's
+    CycleCount}."""
+    from gie_tpu_torch.utils.costmodel import configs, count_cycle
+
+    out = {}
+    for name, c in configs().items():
+        for m in COST_WIDTHS:
+            before = {k: fn.launches for k, fn in kernels.items()}
+            t0 = time.perf_counter()
+            card = count_cycle(c, N, m, device=dev)
+            card_s = time.perf_counter() - t0
+            cpu = count_cycle(c, N, m, device="cpu")
+            torch.cuda.synchronize()
+            launched = {k: fn.launches - before[k]
+                        for k, fn in kernels.items()}
+            differ = sorted(
+                op for op in set(card.by_op) | set(cpu.by_op)
+                if (card.by_op[op], card.bytes_by_op[op],
+                    card.flops_by_op[op])
+                != (cpu.by_op[op], cpu.bytes_by_op[op], cpu.flops_by_op[op]))
+            emit({"phase": "cost-count", "config": name, "shape": [N, m],
+                  **card.totals(), "cpu": cpu.totals(), "card_s": card_s,
+                  "bytes_bound_ms": card.bytes / HBM_BYTES_PER_S * 1e3,
+                  "launches": launched, "differing_ops": differ})
+            check(not differ and card.totals() == cpu.totals(),
+                  f"cost {name} {N}x{m}: the card's count differs from the "
+                  f"CPU's in {differ}")
+            want = {k: int(card.by_op.get(k, 0)) for k in kernels}
+            check(launched == want,
+                  f"cost {name} {N}x{m}: launches {launched}, counted {want}")
+            out[(name, m)] = card
+    return out
+
+
+def cost_against_waves(dev, weights, counts) -> list:
+    """(b): counted bytes over the card's memory rate beside the captured
+    wave's device busy time and device operations (phase 9's profiler
+    reading), on the fixture's own 1024 x M wave; each Scheduler is let
+    go, and its graphs' pools emptied, before the next is built."""
+    import gc
+
+    from gie_tpu_torch.sched import Scheduler
+    from gie_tpu_torch.utils.costmodel import configs, fixture
+
+    table = configs()
+    reqs, eps = fixture(N, M, "cpu")
+    rows = []
+    for name in ("tuned+use_pallas_sinkhorn", "topk+use_pallas_topk",
+                 "tuned"):
+        w = weights if name != "topk+use_pallas_topk" else None
+        sched = Scheduler(table[name], w, device=dev, seed=21)
+        sched.pick(reqs, eps)                  # captures the key inline
+
+        def replay(r):
+            pending = sched.pick_async(r, eps)
+            return pending, pending.event
+
+        prof = profiled(replay, [reqs] * COST_WAVES)
+        del sched, replay
+        gc.collect()
+        torch.cuda.empty_cache()
+        count = counts[(name, M)]
+        bound_ms = count.bytes / HBM_BYTES_PER_S * 1e3
+        rec = {"phase": "cost-wave", "config": name, "shape": [N, M],
+               "bytes": count.bytes, "bytes_bound_ms": bound_ms,
+               "ops_counted": count.ops,
+               "device_ops_per_wave": prof["device_ops_per_wave"],
+               "device_busy_ms_per_wave": prof["device_busy_ms_per_wave"],
+               "bytes_bound_over_busy": (
+                   bound_ms / prof["device_busy_ms_per_wave"]
+                   if prof["device_busy_ms_per_wave"] else None),
+               "wall_ms_per_wave_profiled":
+                   prof["wall_ms_per_wave_profiled"],
+               "device_idle_share": prof["device_idle_share"]}
+        emit(rec)
+        check(prof["launch_calls_by_name"].get("cudaGraphLaunch") == 1,
+              f"cost {name} {N}x{M}: a wave is not one graph replay")
+        rows.append(rec)
+    return rows
+
+
+def lint_tracker(dev, cfg, weights) -> dict:
+    """(c): the lock tracker on a warmed pick service's scheduler and
+    picker while handler threads queue KV events and a thread evicts
+    slots beside bursts of live waves."""
+    from gie_tpu_torch.lint.dynamic import LockTracker
+
+    p = "gie_tpu_torch.sched."
+    sched, ds, picker = pick_stack(dev, cfg, weights)
+    tracker = LockTracker()
+    try:
+        cands = ds.pick_candidates()
+        burst(picker, cands, pick_requests(-1, N))          # warm-up round
+        for t in list(picker._warm_threads):
+            t.join(600)
+        for obj, attr, cls in (
+                (sched, "_lock", "profile.Scheduler"),
+                (sched, "_warm_lock", "profile.Scheduler"),
+                (sched, "_queue_lock", "profile.Scheduler"),
+                (picker, "_cond", "batching.BatchingTPUPicker"),
+                (picker, "_inflight_cv", "batching.BatchingTPUPicker"),
+                (picker, "_degraded_lock", "batching.BatchingTPUPicker")):
+            name = f"{p}{cls}.{attr}"
+            check(name in tracker.ranks, f"lint: {name} has no rank")
+            tracker.wrap(obj, attr, name)
+        slots = [ep.slot for ep in ds.endpoints()]
+        rng = np.random.default_rng(21)
+        errors, posted = [], [0]
+
+        def handler(k):
+            try:
+                r = np.random.default_rng(1000 + k)
+                for _ in range(LINT_EVENTS):
+                    sched.apply_prefix_events(
+                        int(r.choice(slots)),
+                        r.integers(1, 2**32, 16, dtype=np.uint64)
+                        .astype(np.uint32), np.zeros(0, np.uint32))
+                    posted[0] += 1
+            except Exception as e:   # collected: fails the phase below
+                errors.append(repr(e))
+
+        def evictions(victims):
+            try:
+                for slot in victims:
+                    sched.evict_endpoint(slot)
+            except Exception as e:
+                errors.append(repr(e))
+
+        answered = 0
+        for w in range(LINT_ROUNDS):
+            side = [threading.Thread(target=handler, args=(w * 100 + k,))
+                    for k in range(LINT_EVENT_THREADS)]
+            side.append(threading.Thread(target=evictions, args=(
+                [int(x) for x in rng.choice(slots, 4, replace=False)],)))
+            for t in side:
+                t.start()
+            res, _lat, _wall = burst(picker, cands, pick_requests(w, N))
+            for t in side:
+                t.join(120)
+            check(not any(t.is_alive() for t in side),
+                  "lint: a handler or eviction thread is still running")
+            answered += sum(r is not None for r in res)
+        check(not errors, f"lint: {len(errors)} side calls failed: "
+                          f"{errors[:1]}")
+        sched.snapshot_assumed_load()          # applies what is still queued
+        with sched._queue_lock:
+            left = len(sched._queued)
+        tracker.assert_consistent()
+        observed = sorted(tracker.observed())
+        rec = {"phase": "lint-tracker", "rounds": LINT_ROUNDS,
+               "picks": answered, "kv_event_calls": posted[0],
+               "queued_left": left,
+               "observed": [list(pair) for pair in observed],
+               "inversions": len(tracker.violations)}
+        emit(rec)
+        check(answered == LINT_ROUNDS * N,
+              f"lint: {answered} of {LINT_ROUNDS * N} picks answered")
+        check(left == 0, f"lint: {left} queued calls never applied")
+        check((f"{p}profile.Scheduler._lock",
+               f"{p}profile.Scheduler._queue_lock") in observed,
+              f"lint: the queued path's _lock -> _queue_lock nesting was "
+              f"never observed: {observed}")
+        return rec
+    finally:
+        picker.close()
+
+
+def lint_cli() -> dict:
+    """(d): the port's lint CLI over the port's tree on this machine."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "gie_tpu_torch.lint"],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    rec = {"phase": "lint-cli", "rc": out.returncode,
+           "seconds": time.perf_counter() - t0,
+           "stdout_tail": out.stdout[-400:], "stderr_tail": out.stderr[-400:],
+           "jax_installed": importlib.util.find_spec("jax") is not None}
+    emit(rec)
+    check(out.returncode == 0 and "gie-lint: clean" in out.stdout,
+          f"lint: python -m gie_tpu_torch.lint exited {out.returncode}")
+    return rec
+
+
+def phase_cost(dev, cfg, weights, kernels) -> dict:
+    """Phase 21: (a) the cost model's count on the card against the CPU's,
+    (b) the counted bytes beside the captured wave's device time, (c) the
+    lock tracker under live waves, (d) the lint CLI."""
+    t0 = time.monotonic()
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    counts = cost_counts(dev, kernels)
+    waves = cost_against_waves(dev, weights, counts)
+    tracker = lint_tracker(dev, cfg, weights)
+    cli = lint_cli()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    summary = {"phase": "cost", "seconds": time.monotonic() - t0,
+               "launches": launches, "counts_equal_cpu": len(counts),
+               "waves": [{k: r[k] for k in ("config", "shape",
+                                            "bytes_bound_ms",
+                                            "device_busy_ms_per_wave")}
+                         for r in waves],
+               "tracker_nestings": len(tracker["observed"]),
+               "lint_rc": cli["rc"]}
+    emit(summary)
+    for k in kernels:
+        check(launches[k] >= 1, f"cost: {k} not launched in phase 21")
+    return summary
+
+
+PHASE_SECONDS: dict = {}
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """fn(*args, **kwargs), its wall seconds added to PHASE_SECONDS[name]
+    for the "timing" line (the whole script must end within its time
+    limit as it grows)."""
+    t0 = time.monotonic()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_SECONDS[name] = (PHASE_SECONDS.get(name, 0.0)
+                               + time.monotonic() - t0)
+
+
 def tail(path: str, n: int = 4000) -> str:
     with open(path, errors="replace") as f:
         return f.read()[-n:]
@@ -6478,6 +6736,8 @@ def main() -> int:
     from gie_tpu_torch.ops.fused_topk import fused_blend_topk
     from gie_tpu_torch.sched import ProfileConfig
     from gie_tpu_torch.sched.config import tuned_profile
+
+    t_start = time.monotonic()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6495,79 +6755,60 @@ def main() -> int:
           "cached": build.last_build["cached"]})
     print(build.last_build["log"], file=sys.stderr)
 
-    records = phase_kernels(dev)
+    records = timed("kernels", phase_kernels, dev)
 
     cfg, weights = tuned_profile()
     cfg = dataclasses.replace(cfg, use_pallas_sinkhorn=True)
+    topk_cfg = ProfileConfig(picker="topk", use_pallas_topk=True)
     kernels = {"fused_sinkhorn_plan": fused_sinkhorn_plan,
                "fused_blend_topk": fused_blend_topk}
-    sink = phase_slice(dev, "tuned+use_pallas_sinkhorn", cfg,
-                       weights, kernels, "fused_sinkhorn_plan")
-    topk = phase_slice(dev, "topk+use_pallas_topk",
-                       ProfileConfig(picker="topk", use_pallas_topk=True),
-                       None, kernels, "fused_blend_topk")
-
-    pick_sink = phase_picker(dev, "tuned+use_pallas_sinkhorn", cfg, weights,
-                             kernels, "fused_sinkhorn_plan")
-    pick_topk = phase_picker(dev, "topk+use_pallas_topk",
-                             ProfileConfig(picker="topk", use_pallas_topk=True),
-                             None, kernels, "fused_blend_topk")
-
+    # (name, cfg, weights, kernels, the kernel it runs) of the two kernel
+    # configurations, which the phases that take them run in turn.
+    both = (("tuned+use_pallas_sinkhorn", cfg, weights, kernels,
+             "fused_sinkhorn_plan"),
+            ("topk+use_pallas_topk", topk_cfg, None, kernels,
+             "fused_blend_topk"))
+    sink, topk = (timed("slice", phase_slice, dev, *c) for c in both)
+    pick_sink, pick_topk = (timed("picker", phase_picker, dev, *c)
+                            for c in both)
     with tempfile.TemporaryDirectory() as tmp:
-        serve_sink = phase_server(dev, "tuned+use_pallas_sinkhorn", cfg,
-                                  weights, kernels, "fused_sinkhorn_plan", tmp)
-        serve_topk = phase_server(
-            dev, "topk+use_pallas_topk",
-            ProfileConfig(picker="topk", use_pallas_topk=True), None,
-            kernels, "fused_blend_topk", tmp)
-        phase_main(cfg, weights, tmp)
-
-    chaos_sink = phase_chaos(dev, "tuned+use_pallas_sinkhorn", cfg, weights,
-                             kernels, "fused_sinkhorn_plan")
-    chaos_topk = phase_chaos(dev, "topk+use_pallas_topk",
-                             ProfileConfig(picker="topk", use_pallas_topk=True),
-                             None, kernels, "fused_blend_topk")
-
-    warm_sink = phase_warm(dev, "tuned+use_pallas_sinkhorn", cfg, weights,
-                           kernels, "fused_sinkhorn_plan")
-    warm_topk = phase_warm(dev, "topk+use_pallas_topk",
-                           ProfileConfig(picker="topk", use_pallas_topk=True),
-                           None, kernels, "fused_blend_topk")
-
-    phase_storm(dev, kernels)
-
-    pd_sink = phase_pd(dev, "tuned+use_pallas_sinkhorn", cfg, weights,
-                       kernels, "fused_sinkhorn_plan")
-    pd_topk = phase_pd(dev, "topk+use_pallas_topk",
-                       ProfileConfig(picker="topk", use_pallas_topk=True),
-                       None, kernels, "fused_blend_topk")
+        serve_sink, serve_topk = (timed("server", phase_server, dev, *c, tmp)
+                                  for c in both)
+        timed("main", phase_main, cfg, weights, tmp)
+    chaos_sink, chaos_topk = (timed("chaos", phase_chaos, dev, *c)
+                              for c in both)
+    warm_sink, warm_topk = (timed("warm", phase_warm, dev, *c) for c in both)
+    timed("storm", phase_storm, dev, kernels)
+    pd_sink, pd_topk = (timed("pd", phase_pd, dev, *c) for c in both)
     with tempfile.TemporaryDirectory() as tmp:
-        kv = phase_kvevents(dev, kernels, tmp)
+        kv = timed("kvevents", phase_kvevents, dev, kernels, tmp)
     with tempfile.TemporaryDirectory() as tmp:
-        learn = phase_learn(dev, kernels, tmp)
+        learn = timed("learn", phase_learn, dev, kernels, tmp)
     with tempfile.TemporaryDirectory() as tmp:
-        ha = phase_ha(dev, cfg, weights, kernels, tmp)
+        ha = timed("ha", phase_ha, dev, cfg, weights, kernels, tmp)
     with tempfile.TemporaryDirectory() as tmp:
-        fed = phase_fed(dev, cfg, weights, kernels, tmp)
+        fed = timed("fed", phase_fed, dev, cfg, weights, kernels, tmp)
     with tempfile.TemporaryDirectory() as tmp:
-        fleet = phase_fleet(dev, cfg, weights, kernels, tmp)
+        fleet = timed("fleet", phase_fleet, dev, cfg, weights, kernels, tmp)
     with tempfile.TemporaryDirectory() as tmp:
-        pred = phase_predictor(dev, cfg, weights, kernels, tmp)
+        pred = timed("predictor", phase_predictor, dev, cfg, weights,
+                     kernels, tmp)
     with tempfile.TemporaryDirectory() as tmp:
-        kube = phase_kube(dev, cfg, weights, kernels, tmp)
+        kube = timed("kube", phase_kube, dev, cfg, weights, kernels, tmp)
     with tempfile.TemporaryDirectory() as tmp:
-        mesh = phase_mesh(dev, kernels, tmp)
+        mesh = timed("mesh", phase_mesh, dev, kernels, tmp)
+    cost = timed("cost", phase_cost, dev, cfg, weights, kernels)
 
     line = []
     for rec, phases, source, replaces in (
         (records["fused_sinkhorn_plan"],
          (sink, pick_sink, serve_sink, chaos_sink, warm_sink, pd_sink,
-          learn, ha, fed, fleet, pred, kube, mesh),
+          learn, ha, fed, fleet, pred, kube, mesh, cost),
          "gie_tpu_torch/ops/csrc/fused_sinkhorn.cu",
          "gie_tpu/ops/fused_sinkhorn.py:66"),
         (records["fused_blend_topk"],
          (topk, pick_topk, serve_topk, chaos_topk, warm_topk, pd_topk, kv,
-          fleet, pred, kube, mesh),
+          fleet, pred, kube, mesh, cost),
          "gie_tpu_torch/ops/csrc/fused_topk.cu",
          "gie_tpu/ops/fused_topk.py:80"),
     ):
@@ -6579,6 +6820,8 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    emit({"phase": "timing", "seconds": PHASE_SECONDS,
+          "total_s": time.monotonic() - t_start})
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -4,19 +4,23 @@ The metric semantics of proposal 003, read by the multiplexed keep-alive
 ``ScrapeEngine`` (metricsio/engine.py). The reference parses a scrape with
 prometheus_client's parser when the native scanner is not built; the port
 does not depend on prometheus_client, so its pure-Python path runs the
-exposition-line parser below over every sample line. The reference's
-``Scraper`` adapter and ``ThreadPerEndpointScraper`` baseline (benchmark
-and parity baselines of the engine) are not copied: the runner builds the
-engine directly.
+exposition-line parser below over every sample line. ``Scraper`` is a thin
+adapter over the engine that keeps the legacy attach/detach/close surface,
+and ``ThreadPerEndpointScraper`` the one-thread-one-connection poller, the
+engine's parity and benchmark baseline; the runner builds the engine
+directly.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Optional, Union
+import threading
+import urllib.request
+from typing import Callable, Optional, Union
 
 from gie_tpu_torch.metricsio.mappings import LabeledGauge, ServerMapping
 from gie_tpu_torch.metricsio.store import MetricsStore
+from gie_tpu_torch.runtime.clock import MONOTONIC
 from gie_tpu_torch.sched.constants import Metric
 from gie_tpu_torch.utils.lora import LoraRegistry
 
@@ -199,3 +203,134 @@ def _apply_lora_lines(
         return [], []
     return _apply_lora_samples(
         parse_sample_lines(lora_text), lora, out)
+
+
+# Fetchers may return bytes (preferred: the native scanner consumes the
+# raw payload without a decode/encode round-trip) or str.
+Fetcher = Callable[[str], Union[str, bytes]]
+
+
+def _http_fetch(url: str) -> bytes:
+    with urllib.request.urlopen(url, timeout=2.0) as resp:  # noqa: S310
+        return resp.read()
+
+
+class Scraper:
+    """Legacy-API adapter over the multiplexed ScrapeEngine.
+
+    ``attach(slot, url, mapping)`` / ``detach(slot)`` / ``close()`` keep
+    their historical meaning (detach clears the slot's row), but no call
+    ever spawns a per-endpoint thread or joins one: the engine's fixed
+    worker-shard pool does all polling. Call sites that want the engine's
+    knobs (worker count, backoff ceiling) should construct ScrapeEngine
+    directly, as the runner does."""
+
+    def __init__(
+        self,
+        store: MetricsStore,
+        lora: Optional[LoraRegistry] = None,
+        interval_s: float = 0.05,
+        fetcher: Optional[Fetcher] = None,
+        workers: Optional[int] = None,
+    ):
+        from gie_tpu_torch.metricsio.engine import ScrapeEngine
+
+        self.store = store
+        self.interval_s = interval_s
+        self._engine = ScrapeEngine(
+            store, lora=lora, interval_s=interval_s, fetcher=fetcher,
+            workers=workers)
+        self.lora = self._engine.lora
+
+    def attach(self, slot: int, url: str, mapping: ServerMapping) -> None:
+        self._engine.attach(slot, url, mapping)
+
+    def detach(self, slot: int) -> None:
+        self._engine.detach(slot)
+
+    def close(self) -> None:
+        self._engine.close()
+
+
+class ThreadPerEndpointScraper:
+    """The seed's per-endpoint fast-poll loop: one poller thread and one
+    fresh ``urllib`` connection per endpoint per tick.
+
+    Kept (unchanged in behavior) as the comparison baseline for
+    bench_scrape.py and the engine parity tests; production call sites
+    use the ScrapeEngine. The reference runs one goroutine per endpoint
+    with a configurable interval (1023 README:59-60); 50 ms default
+    matches its fast-poll guidance.
+    """
+
+    def __init__(
+        self,
+        store: MetricsStore,
+        lora: Optional[LoraRegistry] = None,
+        interval_s: float = 0.05,
+        fetcher: Fetcher = _http_fetch,
+    ):
+        self.store = store
+        self.lora = lora or LoraRegistry()
+        self.interval_s = interval_s
+        self.fetcher = fetcher
+        self._stops: dict[int, threading.Event] = {}
+        self._threads: dict[int, threading.Thread] = {}
+        self._urls: dict[int, str] = {}
+        self._lock = threading.Lock()
+
+    def attach(self, slot: int, url: str, mapping: ServerMapping) -> None:
+        with self._lock:
+            if self._urls.get(slot) == url:
+                return
+            already = slot in self._threads
+        if already:
+            # Endpoint re-bound (port renumber / pod IP change): restart the
+            # poller at the new URL instead of polling the dead one forever.
+            self.detach(slot)
+        with self._lock:
+            if self._urls.get(slot) == url:
+                return
+            stop = threading.Event()
+            t = threading.Thread(
+                target=self._poll, args=(slot, url, mapping, stop), daemon=True
+            )
+            self._stops[slot] = stop
+            self._threads[slot] = t
+            self._urls[slot] = url
+            t.start()
+
+    def detach(self, slot: int) -> None:
+        with self._lock:
+            stop = self._stops.pop(slot, None)
+            thread = self._threads.pop(slot, None)
+            self._urls.pop(slot, None)
+        if stop is not None:
+            stop.set()
+        if thread is not None:
+            thread.join(timeout=2)
+        self.store.remove(slot)
+
+    def close(self) -> None:
+        for slot in list(self._threads):
+            self.detach(slot)
+
+    def _poll(
+        self, slot: int, url: str, mapping: ServerMapping, stop: threading.Event
+    ) -> None:
+        while not stop.is_set():
+            started = MONOTONIC.now()
+            try:
+                text = self.fetcher(url)
+                metrics, active, waiting = parse_scrape(text, mapping, self.lora)
+                if metrics:
+                    self.store.update(
+                        slot, metrics, lora_active=active, lora_waiting=waiting
+                    )
+            except Exception:
+                # Unreachable endpoint: leave the last row; staleness shows
+                # up via METRICS_AGE_S and the endpoint stays routable
+                # (reference keeps stale metrics rather than evicting).
+                pass
+            elapsed = MONOTONIC.now() - started
+            stop.wait(max(self.interval_s - elapsed, 0.001))

@@ -390,7 +390,8 @@ class OnlineTrainer:
         self._loss_ema: Optional[float] = None
         self._published: dict = {}
         self._published_host: dict = {}
-        self._publish()
+        self._published_seq = self._snapshots = 0
+        self._publish(self._snapshot())
 
     # -- published params --------------------------------------------------
 
@@ -407,27 +408,37 @@ class OnlineTrainer:
         return (contextlib.nullcontext() if stream is None
                 else torch.cuda.stream(stream))
 
-    def _publish(self) -> None:
-        """Copy the module's params on the train stream (device clones and
-        host arrays), wait for that stream alone, then swap both copies in
-        whole. Caller holds _train_lock (or owns the trainer)."""
+    def _snapshot(self) -> tuple:
+        """Queue copies of the module's params on the train stream (device
+        clones and host copies) and number them. Caller holds _train_lock
+        (or owns the trainer); _publish(snapshot) then runs without it."""
+        self._snapshots += 1
         with self._stream(self._train_stream):
             dev = {k: v.detach().clone()
                    for k, v in self.module.state_dict().items()}
             if self._train_stream is None:
                 host = {k: v.numpy().copy() for k, v in dev.items()}
-            else:
-                pinned = {k: torch.empty(v.shape, dtype=v.dtype,
-                                         pin_memory=True).copy_(
-                                             v, non_blocking=True)
-                          for k, v in dev.items()}
-                done = torch.cuda.Event()
-                done.record(self._train_stream)
-        if self._train_stream is not None:
+                return self._snapshots, dev, host, None
+            pinned = {k: torch.empty(v.shape, dtype=v.dtype,
+                                     pin_memory=True).copy_(
+                                         v, non_blocking=True)
+                      for k, v in dev.items()}
+            done = torch.cuda.Event()
+            done.record(self._train_stream)
+        return self._snapshots, dev, pinned, done
+
+    def _publish(self, snapshot: tuple) -> None:
+        """Wait for a snapshot's copies (the train stream alone, holding no
+        lock), then swap both copies in whole, unless a later snapshot was
+        published first."""
+        seq, dev, host, done = snapshot
+        if done is not None:
             done.synchronize()
-            host = {k: v.numpy() for k, v in pinned.items()}
+            host = {k: v.numpy() for k, v in host.items()}
         with self._lock:
-            self._published, self._published_host = dev, host
+            if seq > self._published_seq:
+                self._published, self._published_host = dev, host
+                self._published_seq = seq
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.require(a, requirements=("C", "W")))
@@ -526,8 +537,13 @@ class OnlineTrainer:
                         self._upload(slots[idx].astype(np.int64)),
                         self._upload(targets[idx]),
                         self._upload(weights[idx]))
-                loss = None if loss_t is None else float(loss_t)
-            self._publish()
+            snapshot = self._snapshot()
+        # The snapshot's event follows the last step on the train stream:
+        # once it is published, the loss is computed too, and its read
+        # waits on the train stream alone.
+        self._publish(snapshot)
+        with self._stream(self._train_stream):
+            loss = None if loss_t is None else float(loss_t)
         self.last_loss = loss
         if loss is not None:
             self._loss_ema = (
@@ -605,7 +621,8 @@ class OnlineTrainer:
                 for k, v in self.module.state_dict().items():
                     v.copy_(self._upload(np.asarray(params[k], np.float32)))
             self.optimizer = make_optimizer(self.module, self.predictor.cfg)
-            self._publish()
+            snapshot = self._snapshot()
+        self._publish(snapshot)
 
     def commit_install(self, staged) -> None:
         """Commit half: the validated params and confidence state."""

@@ -18,6 +18,14 @@ before a capture. A wrapper calls count_launch() where it launches; under
 tally() on the same thread the launch goes to the tally instead, which is
 how a CUDA graph learns what it launches per replay (sched/graphs.py adds
 that to `launches` at every replay).
+
+Cost: each kernel module carries one formula for the bytes and operations
+of a call (`*_cost`), which chip_smoke.py's bound and the cost model
+(utils/costmodel.py) both read. A wrapper runs its call under costed():
+the cost model's counter, when one is open on the thread, adds the
+declared cost once and counts nothing of what runs inside (the plain
+version's ops on the CPU; on CUDA the kernel launches through ctypes,
+outside torch's dispatcher), so a wave counts the same on both.
 """
 
 from __future__ import annotations
@@ -64,6 +72,44 @@ def tally(sink: dict):
         yield sink
     finally:
         _tallies.sink = prev
+
+
+_cost = threading.local()
+
+
+@contextlib.contextmanager
+def cost_sink(sink):
+    """Send this thread's costed() calls to `sink` while the context is
+    open: sink.kernel(name, nbytes, flops) once per call, and sink.paused
+    raised while the call runs."""
+    prev = getattr(_cost, "sink", None)
+    _cost.sink = sink
+    try:
+        yield sink
+    finally:
+        _cost.sink = prev
+
+
+class costed:
+    """Context of one call of `wrapper`'s kernel, declared to this thread's
+    cost sink; without one it costs a thread-local read (it wraps every
+    launch)."""
+
+    __slots__ = ("sink",)
+
+    def __init__(self, wrapper, nbytes: int, flops: int):
+        sink = self.sink = getattr(_cost, "sink", None)
+        if sink is not None:
+            sink.kernel(wrapper.__name__, nbytes, flops)
+            sink.paused += 1
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self.sink is not None:
+            self.sink.paused -= 1
+        return False
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

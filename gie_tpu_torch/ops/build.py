@@ -6,9 +6,10 @@ objects are linked into one shared library with a plain C interface,
 loaded with ctypes. The library lands in ops/_build/<hash>/, keyed on a
 hash of the sources and flags, so an edit rebuilds and an unchanged tree
 reuses the last build. Nothing here runs at import: `library()` builds on
-the first launch of a kernel on a CUDA tensor. Processes that share the
-build directory (a leader and a follower on one card) build one at a
-time under a file lock: the first builds, the others wait and load it.
+the first launch of a kernel on a CUDA tensor. Threads and processes that
+share the build directory (a leader and a follower on one card) build
+one at a time under a file lock: the first builds, the others wait and
+load it. No thread lock is held while `nvcc` runs.
 """
 
 from __future__ import annotations
@@ -19,7 +20,6 @@ import hashlib
 import os
 import subprocess
 import tempfile
-import threading
 import time
 
 from gie_tpu_torch.ops import KernelUnavailable
@@ -53,7 +53,6 @@ SIGNATURES = {
 # surfaces here too.
 KERNEL_ERRORS = frozenset({1, 9, 98, 200, 209, 218, 222, 701, 720, 801})
 
-_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 # What the last build did: {"seconds", "cached", "dir", "log"}.
 last_build: dict = {}
@@ -122,22 +121,23 @@ def _compile(out_dir: str) -> str:
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use. Raises
     KernelUnavailable when it cannot be built or loaded."""
-    with _lock:
-        if _lib is None:
-            try:
-                _load()
-            except KernelUnavailable:
-                raise
-            except Exception as e:
-                raise KernelUnavailable(
-                    f"the port's CUDA kernels cannot be built or loaded: {e}"
-                ) from e
-        return _lib
-
-
-def _load() -> None:
-    """Build (or reuse) and load the library; the caller holds _lock."""
     global _lib
+    if _lib is None:
+        try:
+            _lib = _load()
+        except KernelUnavailable:
+            raise
+        except Exception as e:
+            raise KernelUnavailable(
+                f"the port's CUDA kernels cannot be built or loaded: {e}"
+            ) from e
+    return _lib
+
+
+def _load() -> ctypes.CDLL:
+    """Build (or reuse) and load the library. Threads that race here
+    build once: each takes the build directory's file lock, and the ones
+    after the first find the library built and load it."""
     t0 = time.perf_counter()
     out_dir = os.path.join(BUILD_ROOT, source_hash())
     path = os.path.join(out_dir, LIB_NAME)
@@ -149,7 +149,7 @@ def _load() -> None:
         os.makedirs(BUILD_ROOT, exist_ok=True)
         with open(os.path.join(BUILD_ROOT, ".lock"), "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)     # released on close
-            cached = os.path.exists(path)        # another process built it
+            cached = os.path.exists(path)        # built meanwhile elsewhere
             if cached:
                 with open(os.path.join(out_dir, "build.log")) as f:
                     log = f.read()
@@ -162,7 +162,7 @@ def _load() -> None:
         fn.restype = restype
     last_build.update(seconds=time.perf_counter() - t0,
                       cached=cached, dir=out_dir, log=log)
-    _lib = lib
+    return lib
 
 
 def check(err: int, name: str) -> None:

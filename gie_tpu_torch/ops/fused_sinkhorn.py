@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from gie_tpu_torch.ops import (
-    ShapeRefused, build, check_input, count_launch, current, on_cuda,
+    ShapeRefused, build, check_input, costed, count_launch, current, on_cuda,
     raw_stream)
 
 
@@ -53,6 +53,14 @@ def layout(device: torch.device, n: int, m: int) -> Layout:
             f"rows per block, {lay.smem_bytes} bytes of shared memory; a "
             f"block has at most {lay.smem_max}")
     return lay
+
+
+def fused_sinkhorn_cost(n: int, m: int, iters: int = 8) -> tuple[int, int]:
+    """(bytes, flops) of one [n, m] solve: K read and the plan written once,
+    cap and v_init read and v written; per round a row sum, a divide, a
+    column sum and a scale of every element, plus the first scaling, the
+    last row sum and divide and the column caps' few per element."""
+    return 2 * n * m * 4 + 3 * m * 4, (4 * iters + 5) * n * m
 
 
 def fused_sinkhorn_plan_reference(
@@ -96,10 +104,17 @@ def fused_sinkhorn_plan(
     if v_init is None:
         v_init = torch.ones((m,), dtype=torch.float32,
                             device=kernel_matrix.device)
-    if not on_cuda(kernel_matrix, cap, v_init):
-        return fused_sinkhorn_plan_reference(
-            kernel_matrix, cap, v_init, iters=iters)
     n = kernel_matrix.shape[0]
+    with costed(fused_sinkhorn_plan, *fused_sinkhorn_cost(n, m, iters)):
+        if not on_cuda(kernel_matrix, cap, v_init):
+            return fused_sinkhorn_plan_reference(
+                kernel_matrix, cap, v_init, iters=iters)
+        return _launch(kernel_matrix, cap, v_init, iters)
+
+
+def _launch(kernel_matrix, cap, v_init, iters):
+    """The kernel on CUDA inputs of one card: checked, launched, counted."""
+    n, m = kernel_matrix.shape
     check_input(kernel_matrix, "kernel_matrix", torch.float32, (n, m))
     check_input(cap, "cap", torch.float32, (m,))
     check_input(v_init, "v_init", torch.float32, (m,))

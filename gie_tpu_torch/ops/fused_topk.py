@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from gie_tpu_torch.ops import (
-    ShapeRefused, build, check_input, count_launch, current, on_cuda,
+    ShapeRefused, build, check_input, costed, count_launch, current, on_cuda,
     raw_stream)
 from gie_tpu_torch.sched.constants import NEG_SCORE as NEG
 
@@ -21,6 +21,16 @@ from gie_tpu_torch.sched.constants import NEG_SCORE as NEG
 # rounds up to these; any N and any M >= 1.
 MAX_S = 8
 MAX_K = 8
+
+
+def fused_blend_topk_cost(s: int, n: int, m: int,
+                          k: int = 4) -> tuple[int, int]:
+    """(bytes, flops) of one call: the S columns and the mask read once,
+    the weights read, k (value f32, index i32) pairs written per row; a
+    multiply and an add per column and element, the mask select, and k
+    rounds of a compare and a select."""
+    return (s * n * m * 4 + n * m + s * 4 + n * k * 8,
+            (2 * s + 1 + 2 * k) * n * m)
 
 
 def fused_blend_topk_reference(
@@ -65,8 +75,15 @@ def fused_blend_topk(
     exception. The kernel takes 1 <= S <= MAX_S, 1 <= k <= MAX_K and any
     N and M."""
     s, n, m = stacked.shape
-    if not on_cuda(stacked, wvec, mask):
-        return fused_blend_topk_reference(stacked, wvec, mask, k=k)
+    with costed(fused_blend_topk, *fused_blend_topk_cost(s, n, m, k)):
+        if not on_cuda(stacked, wvec, mask):
+            return fused_blend_topk_reference(stacked, wvec, mask, k=k)
+        return _launch(stacked, wvec, mask, k)
+
+
+def _launch(stacked, wvec, mask, k):
+    """The kernel on CUDA inputs of one card: checked, launched, counted."""
+    s, n, m = stacked.shape
     check_input(stacked, "stacked", torch.float32, (s, n, m))
     check_input(wvec, "wvec", torch.float32, (s,))
     check_input(mask, "mask", torch.bool, (n, m))

@@ -1704,15 +1704,12 @@ class Scheduler:
     _CHECKPOINT = "sched_state.npz"
 
     def save_state(self, directory: str) -> None:
-        """Write the live state to `directory`: read to host under the
-        lock, after the queued completions and event folds are applied, so
-        the file holds one consistent state; written to a temporary name
-        and renamed over the checkpoint."""
-        from gie_tpu_torch.convert import state_to_numpy
-
-        with self._lock:
-            self._apply_queued()
-            arrays = state_to_numpy(self._whole_state())
+        """Write the live state to `directory`: export_state's copy, taken
+        under the lock after the queued completions and event folds are
+        applied (so the file holds one consistent state) and read to host
+        outside it; written to a temporary name and renamed over the
+        checkpoint."""
+        arrays = self.export_state()
         os.makedirs(directory, exist_ok=True)
         path = os.path.join(directory, self._CHECKPOINT)
         with open(path + ".tmp", "wb") as f:

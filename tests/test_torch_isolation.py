@@ -62,7 +62,11 @@ def test_import_pulls_in_no_jax_and_no_gie_tpu():
                  "gie_tpu_torch.api.cel", "gie_tpu_torch.api.crdgen",
                  "gie_tpu_torch.bbr.chain",
                  "gie_tpu_torch.conformance.harness",
-                 "gie_tpu_torch.conformance.multicluster"):
+                 "gie_tpu_torch.conformance.multicluster",
+                 "gie_tpu_torch.lint", "gie_tpu_torch.lint.runner",
+                 "gie_tpu_torch.lint.tracesafe", "gie_tpu_torch.lint.dynamic",
+                 "gie_tpu_torch.lint.__main__",
+                 "gie_tpu_torch.utils.costmodel"):
         assert name in loaded
     forbidden = [
         name for name in loaded
@@ -85,13 +89,18 @@ def test_source_scan_finds_no_jax_or_gie_tpu_import():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 15
     # Every subpackage is in the scan, the fleet picker's, the latency
-    # predictor's, the simulator's and the kube slice's included.
+    # predictor's, the simulator's, the kube slice's, the lint's and the
+    # cost model's included. (The lint's rule tables name gie_tpu. and
+    # jax. in strings; only imports count.)
     assert {f.parent.name for f in files} >= {"fleet", "federation",
                                               "sched", "storm", "models",
                                               "simulator", "api", "bbr",
-                                              "controller", "conformance"}
+                                              "controller", "conformance",
+                                              "lint", "utils"}
     assert {PKG / "models" / "latency.py",
-            PKG / "simulator" / "cluster.py"} <= set(files)
+            PKG / "simulator" / "cluster.py",
+            PKG / "lint" / "tracesafe.py",
+            PKG / "utils" / "costmodel.py"} <= set(files)
     bad = [
         (str(f.relative_to(REPO)), name)
         for f in files for name in _imported_modules(f)

@@ -840,8 +840,8 @@ def test_readers_never_see_a_half_stepped_tree():
     published = [trainer.params_numpy()]
     real = trainer._publish
 
-    def logged():
-        real()
+    def logged(snapshot):
+        real(snapshot)
         published.append(trainer.params_numpy())
 
     trainer._publish = logged
